@@ -1,0 +1,525 @@
+"""Tile rasterizer: screen sort, tile binning, and the two raster passes of
+the frame, each a hand-written CUDA kernel beside its plain PyTorch twin.
+
+* ``rasterize_fused``: the opaque pass. Per 32x128 tile, walk the tile's
+  binned CHUNK-triangle chunks in ascending chunk id; for each live
+  GROUP-triangle group (the entry's gmask bit) evaluate the 3 edge planes
+  with the top-left fill rule and the depth plane; reversed-Z ``>=`` with
+  later-wins into z/tid. The winner's attribute-numerator planes and
+  per-triangle constants come out with it (csrc/raster_fused.cu).
+* ``rasterize_accum``: the untextured transparent pass. Every covered
+  fragment with z >= the opaque z adds its shaded color, in ascending
+  triangle order, and counts (csrc/raster_accum.cu).
+
+On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
+launches the kernel (and raises if it cannot). The plain versions loop over
+bin slots, vectorised across tiles, and evaluate triangles in the same
+per-pixel order as the kernels, so both agree bit for bit.
+
+Bin entries are ``cid << entry_shift | gmask`` (bin_triangles_full), the
+JAX package's layout, so bins from either package read the same.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_renderer_torch.kernels import _build
+from tpu_renderer_torch.kernels.common import cdiv, fma
+
+DEPTH_CLEAR = 0.0  # vk_initializers.cpp:144 (reversed-Z)
+NO_TRI = -1
+# Triangles per binning chunk and per gmask skip group. The kernels stage
+# one chunk's fat rows in shared memory (CHUNK x 48 f32 = 6 KB) and test one
+# gmask bit per group; csrc/raster_common.cuh fixes both at compile time.
+# The plain versions also take other values (the JAX tests bin at CHUNK=8).
+CHUNK = 32
+GROUP = 8
+TILE_H, TILE_W = 32, 128  # the kernels' tile: 256 threads x 16 pixels
+ROW_COLS = 48        # fat-row width (shade.py layout)
+_EMPTY_AABB = (-1.0, -1.0, -2.0, -2.0)
+
+# Kernel A's per-winner constant planes, read straight off the fat row:
+# [C_TEX x6 (31-36), C_GRAD x6 (37-42), den_c (43), nu_c (29), nv_c (30)]
+META_COLS = tuple(range(31, 44)) + (29, 30)
+N_NUMS = 4   # interpolated numerator planes: light_num, r, g, b
+
+
+def entry_shift(n_groups: int) -> int:
+    """Bits below the chunk id in a bin entry: 4 hold up to 4 group bits."""
+    assert 1 <= n_groups <= 8
+    return 4 if n_groups <= 4 else 8
+
+
+def pad_tris(n: int, chunk: int = CHUNK) -> int:
+    return cdiv(n, chunk) * chunk
+
+
+# ---------------------------------------------------------------------------
+# Screen sort and binning (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def sort_order(aabb, valid):
+    """Spatial-sort permutation: Hilbert order over 8-px screen cells of
+    each box's min corner. The sort is stable, so same-cell triangles keep
+    submission order (exact z-ties keep their winners); invalid triangles
+    sort to the end."""
+    x = torch.clamp(torch.floor(aabb[:, 0]).to(torch.int32) >> 3, 0, 4095)
+    y = torch.clamp(torch.floor(aabb[:, 1]).to(torch.int32) >> 3, 0, 4095)
+    key = torch.zeros_like(x)
+    for i in range(11, -1, -1):
+        s = 1 << i
+        rx = ((x & s) > 0).to(torch.int32)
+        ry = ((y & s) > 0).to(torch.int32)
+        key = key + s * s * ((3 * rx) ^ ry)
+        # rotate the quadrant
+        swap = ry == 0
+        flip = swap & (rx == 1)
+        fx = torch.where(flip, s - 1 - x, x)
+        fy = torch.where(flip, s - 1 - y, y)
+        x = torch.where(swap, fy, fx)
+        y = torch.where(swap, fx, fy)
+    key = torch.where(valid, key, torch.full_like(key, 2 ** 31 - 1))
+    return torch.argsort(key, stable=True)
+
+
+def spatial_sort(aabb, valid, *payloads):
+    """Reorder triangles along the Hilbert curve so CHUNK groups get tight
+    chunk boxes. Returns (aabb, valid, *payloads), all permuted alike."""
+    order = sort_order(aabb, valid)
+    return (aabb[order], valid[order]) + tuple(p[order] for p in payloads)
+
+
+def _box_unions(aabb, valid, n: int):
+    """(T, 4) boxes -> (T/n, 4) unions of n consecutive valid boxes
+    (+ validity); a block with no valid box gets the empty box."""
+    assert aabb.shape[0] % n == 0, "pad triangle arrays to the block size first"
+    a = aabb.reshape(-1, n, 4)
+    v = valid.reshape(-1, n)
+    big = torch.tensor(1e30, dtype=torch.float32, device=aabb.device)
+    xmin = torch.where(v, a[..., 0], big).amin(-1)
+    ymin = torch.where(v, a[..., 1], big).amin(-1)
+    xmax = torch.where(v, a[..., 2], -big).amax(-1)
+    ymax = torch.where(v, a[..., 3], -big).amax(-1)
+    any_valid = v.any(-1)
+    empty = torch.tensor(_EMPTY_AABB, dtype=torch.float32, device=aabb.device)
+    out = torch.stack([xmin, ymin, xmax, ymax], -1)
+    return torch.where(any_valid[:, None], out, empty[None]), any_valid
+
+
+def chunk_aabbs(aabb, valid, chunk: int = CHUNK):
+    """(T, 4) per-triangle boxes -> (T/chunk, 4) chunk boxes + validity."""
+    return _box_unions(aabb, valid, chunk)
+
+
+def group_aabbs(aabb, valid, group: int = GROUP):
+    """(T, 4) per-triangle boxes -> (T/group, 4) skip-group boxes + validity.
+    Group i of chunk c covers triangles [c*CHUNK + i*GROUP, ... + GROUP)."""
+    return _box_unions(aabb, valid, group)
+
+
+def _pack_tile_aabb(aabb, tiles_x: int, tiles_y: int, tile_w: int, tile_h: int):
+    """Tile-coordinate box packed into one int (tx0 | ty0<<8 | tx1<<16 |
+    ty1<<24); empty boxes pack to tx0 > tx1. Needs tiles_x, tiles_y <= 255."""
+    tx0 = torch.clamp(torch.floor(aabb[:, 0] / tile_w).to(torch.int32), 0, tiles_x - 1)
+    ty0 = torch.clamp(torch.floor(aabb[:, 1] / tile_h).to(torch.int32), 0, tiles_y - 1)
+    tx1 = torch.floor(aabb[:, 2] / tile_w).to(torch.int32)
+    ty1 = torch.floor(aabb[:, 3] / tile_h).to(torch.int32)
+    empty = ((aabb[:, 2] < aabb[:, 0]) | (aabb[:, 3] < aabb[:, 1])
+             | (tx1 < 0) | (ty1 < 0))
+    tx1 = torch.clamp(tx1, 0, tiles_x - 1)
+    ty1 = torch.clamp(ty1, 0, tiles_y - 1)
+    tx0 = torch.where(empty, 1, tx0)
+    tx1 = torch.where(empty, 0, tx1)
+    return tx0 | (ty0 << 8) | (tx1 << 16) | (ty1 << 24)
+
+
+def _tile_overlap(packed, tiles_x: int, tiles_y: int):
+    """(n,) packed tile boxes -> (n_tiles, n) bool overlap matrix."""
+    tiles = torch.arange(tiles_x * tiles_y, dtype=torch.int32,
+                         device=packed.device)
+    tx = (tiles % tiles_x)[:, None]
+    ty = (tiles // tiles_x)[:, None]
+    x0 = (packed & 0xFF)[None, :]
+    y0 = ((packed >> 8) & 0xFF)[None, :]
+    x1 = ((packed >> 16) & 0xFF)[None, :]
+    y1 = ((packed >> 24) & 0xFF)[None, :]
+    return (x0 <= x1) & (x0 <= tx) & (x1 >= tx) & (y0 <= ty) & (y1 >= ty)
+
+
+def bin_triangles_full(caabb, cvalid, gaabb, gvalid, *, tiles_x: int,
+                       tiles_y: int, tile_w: int, tile_h: int):
+    """Dense tile binning with no capacity: every (tile, chunk) overlap is
+    kept, in ascending chunk id.
+
+    caabb/cvalid: chunk boxes (chunk_aabbs); gaabb/gvalid: the chunks'
+    group boxes (group_aabbs). An entry is ``cid << entry_shift | gmask``,
+    where gmask marks the groups whose boxes overlap the tile; a chunk no
+    group touches is not binned at all.
+
+    Returns (bins (n_tiles, round_up(C, 8)) i32 padded with -1, counts
+    (n_tiles,) i32 exact).
+    """
+    C = caabb.shape[0]
+    n_groups = gaabb.shape[0] // max(C, 1)
+    assert gaabb.shape[0] == C * n_groups
+    shift = entry_shift(n_groups)
+    n_tiles = tiles_x * tiles_y
+    dev = caabb.device
+    pg = _pack_tile_aabb(gaabb, tiles_x, tiles_y, tile_w, tile_h).reshape(C, n_groups)
+    gv = gvalid.reshape(C, n_groups)
+    gm = torch.zeros((n_tiles, C), dtype=torch.int32, device=dev)
+    for g in range(n_groups):
+        hg = gv[None, :, g] & _tile_overlap(pg[:, g].contiguous(), tiles_x, tiles_y)
+        gm = gm | (hg.to(torch.int32) << g)
+    hit = gm > 0
+    counts = hit.sum(dim=1, dtype=torch.int32)
+    slot = torch.arange(C, dtype=torch.int32, device=dev)[None, :] << shift
+    key = torch.where(hit, slot + gm, torch.full_like(gm, 1 << 30))
+    key_sorted = torch.sort(key, dim=1).values
+    in_bin = torch.arange(C, dtype=torch.int32, device=dev)[None, :] < counts[:, None]
+    bins = torch.where(in_bin, key_sorted, torch.full_like(key_sorted, NO_TRI))
+    width = cdiv(C, 8) * 8
+    if width != C:
+        bins = torch.nn.functional.pad(bins, (0, width - C), value=NO_TRI)
+    return bins.contiguous(), counts
+
+
+# ---------------------------------------------------------------------------
+# Shared raster arithmetic (the plain versions and the epilogue)
+# ---------------------------------------------------------------------------
+
+
+def _tile_planes(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int, device):
+    """Pixel-center planes per tile, (n_tiles, tile_h, tile_w) f32 each."""
+    ty = torch.arange(tiles_y, device=device).repeat_interleave(tiles_x)
+    tx = torch.arange(tiles_x, device=device).repeat(tiles_y)
+    yy = torch.arange(tile_h, device=device)[None, :, None] + (ty * tile_h)[:, None, None]
+    xx = torch.arange(tile_w, device=device)[None, None, :] + (tx * tile_w)[:, None, None]
+    X = xx.to(torch.float32) + 0.5
+    Y = yy.to(torch.float32) + 0.5
+    n = tiles_x * tiles_y
+    return X.expand(n, tile_h, tile_w), Y.expand(n, tile_h, tile_w)
+
+
+def _tiles_to_frame(t, tiles_x: int, tiles_y: int):
+    """(..., n_tiles, th, tw) tile-major planes -> (..., Hp, Wp)."""
+    lead = t.shape[:-3]
+    th, tw = t.shape[-2:]
+    t = t.reshape(*lead, tiles_y, tiles_x, th, tw)
+    t = t.transpose(-3, -2)
+    return t.reshape(*lead, tiles_y * th, tiles_x * tw)
+
+
+def _plane(a, b, c, X, Y):
+    """fma(a, X, b*Y) + c: the JAX reference's a*X + b*Y + c as XLA on the
+    CPU contracts it (measured; the CUDA kernels write the same with
+    __fmaf_rn/__fmul_rn/__fadd_rn)."""
+    return fma(a, X, b * Y) + c
+
+
+def _edge_cov(a, b, c, X, Y):
+    """Top-left fill rule in its explicit form: a zero edge value counts as
+    covered iff the interior lies in +x, or below for a horizontal edge.
+    Adjacent triangles have exactly negated coefficients on a shared edge,
+    so every boundary pixel is covered exactly once."""
+    val = _plane(a, b, c, X, Y)
+    tl = (a > 0.0) | ((a == 0.0) & (b > 0.0))
+    return (val > 0.0) | ((val == 0.0) & tl)
+
+
+def _slot_rows(rows, bins, counts, k: int, chunk: int, group: int):
+    """One bin slot across all tiles: the chunk's rows (n_tiles, chunk, 48),
+    the triangle-id base (n_tiles,) and a per-(tile, triangle) liveness mask
+    from the entry's gmask bit (dead past the tile's count)."""
+    n_groups = chunk // group
+    shift = entry_shift(n_groups)
+    live = k < counts
+    entry = torch.where(live, bins[:, k], 0)
+    cid = (entry >> shift).long()
+    gmask = entry & ((1 << n_groups) - 1)
+    grp = torch.arange(chunk, device=rows.device) // group
+    on = ((gmask[:, None] >> grp[None, :]) & 1).bool() & live[:, None]
+    r = rows.reshape(-1, chunk, ROW_COLS)[cid]
+    return r, cid * chunk, on
+
+
+def _visibility_plain(rows, bins, counts, X, Y, chunk: int, group: int):
+    """Opaque visibility walk: (z, tid) per tile pixel, later-wins on ties."""
+    n_tiles = X.shape[0]
+    z = torch.full(X.shape, DEPTH_CLEAR, dtype=torch.float32, device=X.device)
+    tid = torch.full(X.shape, NO_TRI, dtype=torch.int32, device=X.device)
+    for k in range(int(counts.max()) if n_tiles else 0):
+        r, base, on = _slot_rows(rows, bins, counts, k, chunk, group)
+        for t in range(chunk):
+            c = r[:, t, :, None, None]   # (n_tiles, 48, 1, 1)
+            zv = _plane(c[:, 9], c[:, 10], c[:, 11], X, Y)
+            cov = (_edge_cov(c[:, 0], c[:, 1], c[:, 2], X, Y)
+                   & _edge_cov(c[:, 3], c[:, 4], c[:, 5], X, Y)
+                   & _edge_cov(c[:, 6], c[:, 7], c[:, 8], X, Y)
+                   & (zv <= 1.0))
+            # zv >= 0 is subsumed by zv >= z (z starts at 0)
+            take = cov & (zv >= z) & on[:, t, None, None]
+            z = torch.where(take, zv, z)
+            tid = torch.where(take, (base + t).to(torch.int32)[:, None, None], tid)
+    return z, tid
+
+
+def _winner_planes(rows, tid, X, Y):
+    """The winner's numerator planes (4, ...) evaluated at the pixel centers
+    and its constant planes (15, ...) in META_COLS order; zero where no
+    triangle won."""
+    won = tid >= 0
+    cols = (list(range(13, 17)) + list(range(19, 23)) + list(range(25, 29))
+            + list(META_COLS))
+    w = rows[:, cols][tid.clamp(min=0).long()]          # (..., 27)
+    w = torch.where(won[..., None], w, torch.zeros((), device=w.device))
+    nums = torch.stack([_plane(w[..., a], w[..., 4 + a], w[..., 8 + a], X, Y)
+                        for a in range(N_NUMS)])
+    nums = torch.where(won[None], nums, torch.zeros((), device=w.device))
+    metas = w[..., 12:].movedim(-1, 0)
+    return nums, metas
+
+
+def reconstruct_outputs(nums, metas, X, Y):
+    """Public fused-raster contract from the carried planes, shared by the
+    kernel and the plain version (the JAX package's _reconstruct_outputs).
+
+    nums: (4, Hp, Wp) pre-divide [light_num, r, g, b] numerators; metas:
+    (15, Hp, Wp) [tex6, nu_a, nu_b, nv_a, nv_b, den_a, den_b, den_c, nu_c,
+    nv_c]. Returns (attrs (6, Hp, Wp), metas (13, Hp, Wp), inv (Hp, Wp)).
+    Winnerless pixels have zero metas -> den 0 -> inv 0 -> attrs 0.
+    """
+    g = metas[6:]
+    den = _plane(g[4], g[5], g[6], X, Y)
+    inv = torch.where(den != 0.0, 1.0 / den, torch.zeros((), device=den.device))
+    u_num = _plane(g[0], g[1], g[7], X, Y)
+    v_num = _plane(g[2], g[3], g[8], X, Y)
+    attrs = torch.cat([nums, u_num[None], v_num[None]]) * inv[None]
+    return attrs, metas[:13], inv
+
+
+def _frame_planes(hp: int, wp: int, device):
+    X = torch.arange(wp, device=device, dtype=torch.int32).to(torch.float32) + 0.5
+    Y = torch.arange(hp, device=device, dtype=torch.int32).to(torch.float32) + 0.5
+    return X[None, :].expand(hp, wp), Y[:, None].expand(hp, wp)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: opaque fused raster
+# ---------------------------------------------------------------------------
+
+
+def rasterize_fused_plain(rows, bins, counts, *, tiles_x: int, tiles_y: int,
+                          tile_w: int, tile_h: int, chunk: int = CHUNK,
+                          group: int = GROUP):
+    """Plain PyTorch twin of the raster_fused kernel: (z (Hp, Wp) f32,
+    tid (Hp, Wp) i32, nums (4, Hp, Wp) f32, metas (15, Hp, Wp) f32)."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    z, tid = _visibility_plain(rows, bins, counts, X, Y, chunk, group)
+    nums, metas = _winner_planes(rows, tid, X, Y)
+    f = lambda t: _tiles_to_frame(t, tiles_x, tiles_y).contiguous()  # noqa: E731
+    return f(z), f(tid), f(nums), f(metas)
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
+                  chunk, group, z_base=None, light=None):
+    """Validate a raster pass's tensors (device, dtype, shape, contiguity)
+    before they reach the plain version or, as pointers, a kernel."""
+    dev = rows.device
+    if rows.dim() != 2 or rows.shape[1] != ROW_COLS or rows.shape[0] % chunk:
+        raise ValueError(f"rows must be (T, {ROW_COLS}) with T % {chunk} == 0, "
+                         f"got {tuple(rows.shape)}")
+    _check("rows", rows, torch.float32, rows.shape, dev)
+    n_tiles = tiles_x * tiles_y
+    if bins.dim() != 2:
+        raise ValueError("bins must be (n_tiles, width)")
+    _check("bins", bins, torch.int32, (n_tiles, bins.shape[1]), dev)
+    _check("counts", counts, torch.int32, (n_tiles,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no raster for device type {dev.type}")
+    if dev.type == "cuda":
+        if (tile_h, tile_w) != (TILE_H, TILE_W):
+            raise ValueError(f"the CUDA raster kernels take {TILE_H}x{TILE_W} "
+                             f"tiles, got {tile_h}x{tile_w}")
+        if (chunk, group) != (CHUNK, GROUP):
+            raise ValueError(f"the CUDA raster kernels are built for chunk="
+                             f"{CHUNK}, group={GROUP}; got chunk={chunk}, "
+                             f"group={group}")
+    if z_base is not None:
+        _check("z_base", z_base, torch.float32,
+               (tiles_y * tile_h, tiles_x * tile_w), dev)
+        _check("light", light, torch.float32, (8,), dev)
+
+
+def _launch(fn_name, *args):
+    """Call one C entry point of the kernel library; raise on a CUDA error."""
+    lib = _build.load_library()
+    err = getattr(lib, fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: {_build.error_string(err)}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+class _Counter:
+    """Launch counter of one kernel wrapper (chip_smoke reads it to show
+    the main path went through the kernel)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+fused_counter = _Counter()
+accum_counter = _Counter()
+
+
+def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
+                        tile_w: int, tile_h: int):
+    """Launch the raster_fused CUDA kernel (csrc/raster_fused.cu) on CUDA
+    tensors: the same (z, tid, nums, metas) as rasterize_fused_plain at
+    CHUNK/GROUP."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_fused_kernel takes CUDA tensors, got {dev}")
+    _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
+                  GROUP)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    z = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    tid = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
+    metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
+    _launch("raster_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
+            ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
+            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
+            _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev))
+    fused_counter.launches += 1
+    return z, tid, nums, metas
+
+
+def rasterize_fused(rows, bins, counts, *, tiles_x: int, tiles_y: int,
+                    tile_w: int, tile_h: int, chunk: int = CHUNK,
+                    group: int = GROUP):
+    """Opaque fused raster over dense bins (bin_triangles_full).
+
+    rows: (T, 48) f32 fat rows, T % chunk == 0; bins: (n_tiles, W) i32
+    entries; counts: (n_tiles,) i32. Returns (z (Hp, Wp) f32, tid (Hp, Wp)
+    i32, attrs (6, Hp, Wp), metas (13, Hp, Wp), inv (Hp, Wp)) — the
+    contract of the JAX package's rasterize_fused_slabs. CPU tensors take
+    the plain version, CUDA tensors the kernel.
+    """
+    dev = rows.device
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_inputs(rows, bins, counts, chunk=chunk, group=group, **tiles)
+    if dev.type == "cuda":
+        z, tid, nums, metas = raster_fused_kernel(rows, bins, counts, **tiles)
+    else:
+        z, tid, nums, metas = rasterize_fused_plain(rows, bins, counts, chunk=chunk,
+                                                    group=group, **tiles)
+    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev)
+    attrs, metas13, inv = reconstruct_outputs(nums, metas, X, Y)
+    return z, tid, attrs, metas13, inv
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: untextured transparent accumulation
+# ---------------------------------------------------------------------------
+
+
+def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
+                          tiles_y: int, tile_w: int, tile_h: int,
+                          chunk: int = CHUNK, group: int = GROUP):
+    """Plain PyTorch twin of the raster_accum kernel: (acc (3, Hp, Wp) f32,
+    cnt (Hp, Wp) i32). Adds per pixel in ascending triangle order."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    n_tiles = X.shape[0]
+    zb = z_base.reshape(tiles_y, tile_h, tiles_x, tile_w).transpose(1, 2) \
+        .reshape(n_tiles, tile_h, tile_w)
+    power, amb = light[3], light[4:7]
+    acc = [torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+           for _ in range(3)]
+    cnt = torch.zeros(X.shape, dtype=torch.int32, device=X.device)
+    zero = torch.zeros((), device=X.device)
+    floor = torch.tensor(0.1, dtype=torch.float32, device=X.device)
+    for k in range(int(counts.max()) if n_tiles else 0):
+        r, _, on = _slot_rows(rows, bins, counts, k, chunk, group)
+        for t in range(chunk):
+            c = r[:, t, :, None, None]
+            zv = _plane(c[:, 9], c[:, 10], c[:, 11], X, Y)
+            cov = (_edge_cov(c[:, 0], c[:, 1], c[:, 2], X, Y)
+                   & _edge_cov(c[:, 3], c[:, 4], c[:, 5], X, Y)
+                   & _edge_cov(c[:, 6], c[:, 7], c[:, 8], X, Y)
+                   & (zv <= 1.0))
+            # zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
+            take = cov & (zv >= zb) & on[:, t, None, None]
+            den = _plane(c[:, 41], c[:, 42], c[:, 43], X, Y)
+            inv = torch.where(den != 0.0, 1.0 / den, zero)
+            ln = _plane(c[:, 13], c[:, 19], c[:, 25], X, Y) * inv
+            lit = torch.maximum(ln, floor)   # mesh.frag:12-18
+            for ch in range(3):
+                col = _plane(c[:, 14 + ch], c[:, 20 + ch], c[:, 26 + ch], X, Y) * inv
+                # acc + col * (lit * power + ambient), contracted as XLA does
+                add = fma(col, fma(lit, power, amb[ch]), acc[ch])
+                acc[ch] = torch.where(take, add, acc[ch])
+            cnt = torch.where(take, cnt + 1, cnt)
+    return (_tiles_to_frame(torch.stack(acc), tiles_x, tiles_y).contiguous(),
+            _tiles_to_frame(cnt, tiles_x, tiles_y).contiguous())
+
+
+def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
+                        tiles_y: int, tile_w: int, tile_h: int):
+    """Launch the raster_accum CUDA kernel (csrc/raster_accum.cu) on CUDA
+    tensors: the same (acc, cnt) as rasterize_accum_plain at CHUNK/GROUP."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_accum_kernel takes CUDA tensors, got {dev}")
+    _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
+                  GROUP, z_base=z_base, light=light)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    acc = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
+    cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    _launch("raster_accum_launch", _ptr(rows), _ptr(bins), _ptr(counts),
+            ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
+            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
+            _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev))
+    accum_counter.launches += 1
+    return acc, cnt
+
+
+def rasterize_accum(rows, bins, counts, z_base, light, *, tiles_x: int,
+                    tiles_y: int, tile_w: int, tile_h: int,
+                    chunk: int = CHUNK, group: int = GROUP):
+    """Sum-shade every untextured transparent fragment with z >= z_base.
+
+    light: (8,) f32 [sun_dir xyz, sun_power, ambient rgb, 0]. Returns
+    (acc (3, Hp, Wp) f32 summed colors, cnt (Hp, Wp) i32 fragments per
+    pixel) — the contract of the JAX package's rasterize_accum_slabs. CPU
+    tensors take the plain version, CUDA tensors the kernel.
+    """
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_inputs(rows, bins, counts, chunk=chunk, group=group, z_base=z_base,
+                  light=light, **tiles)
+    if rows.device.type == "cuda":
+        return raster_accum_kernel(rows, bins, counts, z_base, light, **tiles)
+    return rasterize_accum_plain(rows, bins, counts, z_base, light, chunk=chunk,
+                                 group=group, **tiles)

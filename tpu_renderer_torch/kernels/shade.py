@@ -1,0 +1,186 @@
+"""Deferred shading — mesh.frag (shaders/mesh.frag:12-19) per pixel over the
+fused raster's outputs, plus the sampler: analytic per-triangle mip LOD,
+trilinear/nearest filtering and REPEAT wrap over the prebaked quad atlas
+(resources.build_atlas). Plain PyTorch; the math is the JAX package's
+(tpu_renderer/kernels/shade.py) operation for operation, with each
+multiply-add fused (kernels.common.fma) where XLA fuses it for the JAX
+reference on the CPU (measured), so both round alike. Everything works on
+channel-major (Hp, Wp) planes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_renderer_torch.kernels.common import fma
+from tpu_renderer_torch.resources import (
+    FILTER_MAG_LINEAR,
+    FILTER_MIN_LINEAR,
+    FILTER_MIP_LINEAR,
+)
+
+# The fat-row layout (48 f32 per triangle, vertex.triangle_setup_rows):
+#   0-8 edge planes, 9-11 depth plane, 12 material id, 13-30 attribute
+#   numerator planes [pa x6, pb x6, pc x6] (num_a(X, Y) = pa*X + pb*Y + pc;
+#   attributes [light_num, r, g, b, u, v]), 31-36 texture binding (base_x,
+#   base_y, w0, h0, n_levels, filter_flags), 37-42 uv-gradient planes
+#   (nu_a, nu_b, nv_a, nv_b, den_a, den_b), 43 den_c, 44-47 screen box.
+
+_INV255 = 1.0 / 255.0
+_INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
+
+
+def _chan(texel, shift: int):
+    """One RGBA8 channel of a packed texel plane (int32 words) -> f32 [0,1]."""
+    return ((texel >> shift) & 0xFF).to(torch.float32) * _INV255
+
+
+def uv_gradients(u, v, grad_meta, inv):
+    """Analytic per-pixel uv screen gradients: uv = num/den with both planes
+    linear in X, Y, so d(uv)/dX = (num_X - uv * den_X) * inv.
+    grad_meta: 6 planes [nu_a, nu_b, nv_a, nv_b, den_a, den_b].
+    Returns (dudx, dudy, dvdx, dvdy)."""
+    nu_a, nu_b, nv_a, nv_b, den_a, den_b = grad_meta
+    # (nu - u * den) contracted to fma(-u, den, nu), as XLA does
+    dudx = fma(-u, den_a, nu_a) * inv
+    dudy = fma(-u, den_b, nu_b) * inv
+    dvdx = fma(-v, den_a, nv_a) * inv
+    dvdy = fma(-v, den_b, nv_b) * inv
+    return dudx, dudy, dvdx, dvdy
+
+
+def _level_coords(w0, h0, li, u, v, pot: bool = False):
+    """Texel addressing at mip level li: level size, wrapped quad top-left
+    and fractions. pot: every texture has power-of-two dims, so the REPEAT
+    wrap is a bitwise AND; otherwise a floor-mod (torch.remainder)."""
+    wl = torch.clamp(w0.to(torch.int32) >> li, min=1)
+    hl = torch.clamp(h0.to(torch.int32) >> li, min=1)
+    half = torch.full_like(u, -0.5)
+    su = fma(u, wl.to(torch.float32), half)   # u * wl - 0.5, contracted
+    sv = fma(v, hl.to(torch.float32), half)
+    x0 = torch.floor(su).to(torch.int32)
+    y0 = torch.floor(sv).to(torch.int32)
+    fu = su - x0.to(torch.float32)
+    fv = sv - y0.to(torch.float32)
+    if pot:
+        return wl, hl, x0 & (wl - 1), y0 & (hl - 1), fu, fv
+    return wl, hl, torch.remainder(x0, wl), torch.remainder(y0, hl), fu, fv
+
+
+def _sample_level(atlas, base_x, base_y, w0, h0, level, u, v, linear,
+                  active=None, pot: bool = False):
+    """One mip tap: one quad-row gather + planar filtering -> (r, g, b).
+
+    Level L of a texture sits at x = base_x + W2 - (W2 >> L), with
+    W2 = 2 * max(w0, h0). `active` (optional bool plane): pixels whose
+    result is unused gather index 0."""
+    li = level.to(torch.int32)
+    wl, hl, x0w, y0w, fu, fv = _level_coords(w0, h0, li, u, v, pot=pot)
+    w2 = torch.maximum(w0.to(torch.int32), h0.to(torch.int32)) << 1
+    ex = base_x.to(torch.int32) + w2 - (w2 >> li)
+    ey = base_y.to(torch.int32)
+
+    flat = (ey + y0w) * atlas.width + (ex + x0w)
+    if active is not None:
+        flat = torch.where(active, flat, 0)
+    quad = atlas.quads[flat.long()]                # (H, W, 4) — the gather
+    t00 = quad[..., 0]
+    t10 = quad[..., 1]
+    t01 = quad[..., 2]
+    t11 = quad[..., 3]
+
+    # nearest texel: floor(u*w) is x0 or x0+1, both in this quad
+    nx = fu >= 0.5
+    ny = fv >= 0.5
+    near = torch.where(nx, torch.where(ny, t11, t10), torch.where(ny, t01, t00))
+
+    w11 = fu * fv
+    w10 = fu - w11
+    w01 = fv - w11
+    w00 = 1.0 - fu - w01
+    out = []
+    for s in (0, 8, 16):
+        # w00*c00 + w10*c10 + w01*c01 + w11*c11, contracted as XLA does
+        bilin = fma(w11, _chan(t11, s), fma(w01, _chan(t01, s), fma(
+            w10, _chan(t10, s), w00 * _chan(t00, s))))
+        out.append(torch.where(linear, bilin, _chan(near, s)))
+    return tuple(out)
+
+
+def sample_texture(atlas, base_x, base_y, w0, h0, n_levels, flags, u, v,
+                   grads, trilinear: bool = True, pot: bool = False):
+    """Full sampler: analytic mip LOD, trilinear/nearest filtering, REPEAT
+    wrap — two taps at most. trilinear=False skips the second tap, for
+    scenes where no sampler mixes two mip levels (its weight is then 0)."""
+    fl = flags.to(torch.int32)
+    dudx, dudy, dvdx, dvdy = grads
+    ax, bx = dudx * w0, dvdx * h0
+    ay, by = dudy * w0, dvdy * h0
+    rho_x = torch.sqrt(fma(ax, ax, bx * bx))
+    rho_y = torch.sqrt(fma(ay, ay, by * by))
+    rho = torch.maximum(rho_x, rho_y)
+    # log2 as XLA evaluates it, log(x) * (1 / ln 2); the log itself may
+    # still differ from XLA's by an ulp
+    lod = torch.log(torch.clamp(rho, min=1e-12)) * _INV_LN2
+    max_level = n_levels - 1.0
+    lod = torch.minimum(torch.clamp(lod, min=0.0), max_level)
+
+    mip_linear = (fl & FILTER_MIP_LINEAR) != 0
+    # Vulkan: NEAREST mip mode picks ceil(lod + 0.5) - 1; LINEAR blends
+    # floor/floor+1 by the fraction
+    l_near = torch.minimum(torch.clamp(torch.ceil(lod + 0.5) - 1.0, min=0.0),
+                           max_level)
+    l_lo = torch.floor(lod)
+    l_hi = torch.minimum(l_lo + 1.0, max_level)
+    zero = torch.zeros((), device=lod.device)
+    frac = torch.where(mip_linear, lod - l_lo, zero)
+    lev_a = torch.where(mip_linear, l_lo, l_near)
+    lev_b = torch.where(mip_linear, l_hi, l_near)
+
+    mag_lin = (fl & FILTER_MAG_LINEAR) != 0
+    min_lin = (fl & FILTER_MIN_LINEAR) != 0
+    linear = torch.where(lod > 0.0, min_lin, mag_lin)
+
+    ca = _sample_level(atlas, base_x, base_y, w0, h0, lev_a, u, v, linear,
+                       pot=pot)
+    if not trilinear:
+        return ca
+    cb = _sample_level(atlas, base_x, base_y, w0, h0, lev_b, u, v, linear,
+                       active=frac > 0.0, pot=pot)
+    inv = 1.0 - frac
+    return tuple(fma(a, inv, b * frac) for a, b in zip(ca, cb))
+
+
+def light_and_texture(light_num, color_in, uv, texmeta, grads, atlas,
+                      ambient_rgb, sun_power, trilinear: bool = True,
+                      pot: bool = False):
+    """mesh.frag:12-19 given interpolated attribute planes. texmeta: 6
+    planes [base_x, base_y, w0, h0, n_levels, filter_flags]. Returns
+    (r, g, b) planes."""
+    tex = sample_texture(atlas, texmeta[0], texmeta[1], texmeta[2],
+                         texmeta[3], texmeta[4], texmeta[5], uv[0], uv[1],
+                         grads, trilinear=trilinear, pot=pot)
+    # mesh.frag:13 — light = max(dot(N, sunlight_direction.xyz), 0.1)
+    light = torch.maximum(light_num, torch.tensor(0.1, device=light_num.device))
+    scale = light * sun_power   # mesh.frag:15-18
+    out = []
+    for c in range(3):
+        color = color_in[c] * tex[c]
+        # color * scale + color * ambient, contracted as XLA does
+        out.append(fma(color, scale, color * ambient_rgb[c]))
+    return tuple(out)
+
+
+def shade_fused(attrs, meta, inv, atlas, ambient_rgb, sun_power,
+                trilinear: bool = True, pot: bool = False):
+    """Shade from the fused raster's outputs: attrs (6, Hp, Wp)
+    interpolated [light_num, rgb, uv]; meta (13, Hp, Wp) per-winner
+    constants; inv (Hp, Wp). Returns (3, Hp, Wp) rgb."""
+    grads = uv_gradients(attrs[4], attrs[5],
+                         tuple(meta[6 + m] for m in range(6)), inv)
+    r, g, b = light_and_texture(
+        attrs[0], (attrs[1], attrs[2], attrs[3]),
+        (attrs[4], attrs[5]), tuple(meta[m] for m in range(6)), grads,
+        atlas, ambient_rgb, sun_power, trilinear=trilinear, pot=pot)
+    return torch.stack([r, g, b])

@@ -1,0 +1,287 @@
+"""The bench frame on one CUDA card: its scene, and where its time goes.
+
+    python3 -m tpu_renderer_torch.utils.bench_frame [--frames 20] [--out DIR]
+
+The bench frame is the JAX package's bench.py frame: the demo scene at
+grid=64 (seed 0), 1920x1080, camera (0, 6, 128), pitch -0.18, the default
+gradient background, through Engine(device="cuda").draw_device(). Run as a
+script, this module prints, each from its own pass over the same engine:
+
+1. frame ms: host clock around draw_device() ending in synchronize(),
+   median, p25, p75 and min over --frames frames; and the peak device
+   memory of one frame;
+2. stage ms: each stage of pipeline.render_frame (STAGES) between two
+   synchronize() calls, host clock, median over --frames frames;
+3. under torch.profiler, over --profile-frames frames as in 1: device busy
+   ms a frame (the union of kernel, memcpy and memset intervals), device
+   operations a frame, the frame's wall ms under the profiler, and the idle
+   share 1 - busy / wall, all of the same profiled frames;
+4. under torch.profiler, with the stages of 2: each stage's device ms, the
+   device work that ran inside the stage's synchronised host window (each
+   operation goes to the window it overlaps most; work between windows,
+   the composites, is "other").
+
+It writes key_averages.txt (pass 3) and bench_frame.json under --out
+(default chiprun_out/profile in the checkout). Without CUDA it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from tpu_renderer_torch import pipeline
+from tpu_renderer_torch.config import RendererConfig
+from tpu_renderer_torch.engine import Engine
+from tpu_renderer_torch.kernels import raster, shade, vertex
+from tpu_renderer_torch.utils.demo import build_demo_glb
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BENCH = dict(width=1920, height=1080, grid=64, camera=(0.0, 6.0, 128.0), pitch=-0.18)
+
+# (name, module, attribute): the functions render_frame calls by module
+# attribute, in frame order. sort+bins runs twice a frame (opaque and
+# transparent); the background is cached by the Engine and not a stage.
+STAGES = (
+    ("cull", vertex, "draw_visibility"),
+    ("setup", vertex, "triangle_setup_rows"),
+    ("sort+bins", pipeline, "_binned"),
+    ("raster A + epilogue", raster, "rasterize_fused"),
+    ("shade", shade, "shade_fused"),
+    ("accum B", raster, "rasterize_accum"),
+    ("present", pipeline, "to_packed_u32"),
+)
+STAGE_PREFIX = "stage:"
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them; raises if
+    nvidia-smi fails or prints nothing."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+    if out.returncode != 0 or not line:
+        raise RuntimeError(f"nvidia-smi failed (rc {out.returncode}): "
+                           f"{out.stderr.strip()}")
+    return line
+
+
+def bench_engine(scene_path: str, device="cuda", grid: int = BENCH["grid"],
+                 width: int = BENCH["width"], height: int = BENCH["height"]) -> Engine:
+    """An initialised Engine on the bench scene; writes the scene's GLB to
+    scene_path. The size arguments exist for small runs on the CPU."""
+    build_demo_glb(scene_path, grid=grid, seed=0)
+    cfg = RendererConfig(width=width, height=height, camera_position=BENCH["camera"])
+    eng = Engine(cfg, device=device)
+    eng.camera.pitch = np.float32(BENCH["pitch"])
+    eng.init(scene_path=scene_path)
+    return eng
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def staged(device, record):
+    """Run every STAGES function between two synchronize() calls, inside a
+    record_function("stage:<name>") range; record(name, ms) receives each
+    call's host ms. The functions are restored on exit."""
+    originals = [(mod, attr, getattr(mod, attr)) for _, mod, attr in STAGES]
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            _sync(device)
+            with torch.profiler.record_function(STAGE_PREFIX + name):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                _sync(device)
+                record(name, (time.perf_counter() - t0) * 1000.0)
+            return out
+        return call
+
+    try:
+        for (name, mod, attr), (_, _, fn) in zip(STAGES, originals):
+            setattr(mod, attr, wrap(name, fn))
+        yield
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+def frame_times(eng: Engine, n: int) -> list:
+    """Host ms of n frames, each from a synchronised start to a
+    synchronised end."""
+    times = []
+    for _ in range(n):
+        _sync(eng.device)
+        t0 = time.perf_counter()
+        eng.draw_device()
+        _sync(eng.device)
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return times
+
+
+def stage_times(eng: Engine, n: int) -> dict:
+    """Median host ms of each stage (summed within a frame) and of the
+    synchronised frame, over n frames."""
+    frames = []
+
+    def record(name, ms):
+        frames[-1][name] = frames[-1].get(name, 0.0) + ms
+
+    with staged(eng.device, record):
+        for _ in range(n):
+            frames.append({})
+            frames[-1]["frame"] = frame_times(eng, 1)[0]
+    names = [s[0] for s in STAGES] + ["frame"]
+    return {k: statistics.median(f.get(k, 0.0) for f in frames) for k in names}
+
+
+def _device_intervals(events) -> list:
+    """(start_us, end_us, name) of each device operation (kernel, memcpy,
+    memset) in a profile's events, sorted; the device copies of
+    record_function ranges are left out."""
+    out = [(e.time_range.start, e.time_range.end, e.name) for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith(STAGE_PREFIX)]
+    return sorted(out)
+
+
+def _union_us(intervals) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in intervals:
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy
+
+
+def profile_frames(eng: Engine, n: int, out_dir: str) -> dict:
+    """Pass 3: n unsynchronised frames under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _sync(eng.device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.draw_device()
+        _sync(eng.device)
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    dev = _device_intervals(prof.events())
+    if not dev:
+        raise RuntimeError("the profiler recorded no device time")
+    busy_ms = _union_us(dev) / 1000.0
+    kernels = sum(1 for *_, name in dev if not name.startswith(("Memcpy", "Memset")))
+    hand = {k: sum(e - s for s, e, name in dev if k in name) / 1000.0 / n
+            for k in ("raster_fused_kernel", "raster_accum_kernel")}
+    with open(os.path.join(out_dir, "key_averages.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=80))
+    return dict(frames=n, wall_ms_per_frame=wall_ms / n,
+                device_busy_ms_per_frame=busy_ms / n,
+                idle_share=1.0 - busy_ms / wall_ms,
+                device_ops_per_frame=len(dev) / n,
+                kernels_per_frame=kernels / n, hand_kernel_ms_per_frame=hand)
+
+
+def profile_stages(eng: Engine, n: int) -> dict:
+    """Pass 4: device ms a frame of each stage, from n synchronised-stage
+    frames under torch.profiler; device work outside every stage window
+    counts as "other"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with staged(eng.device, lambda name, ms: None):
+            frame_times(eng, n)
+    events = prof.events()
+    windows = sorted((e.time_range.start, e.time_range.end, e.name[len(STAGE_PREFIX):])
+                     for e in events
+                     if e.device_type == torch.autograd.DeviceType.CPU
+                     and e.name.startswith(STAGE_PREFIX))
+    per_stage = {s[0]: 0.0 for s in STAGES}
+    per_stage["other"] = 0.0
+    for s, e, _ in _device_intervals(events):
+        per_stage[_window_of(windows, s, e)] += (e - s) / 1000.0
+    return {k: v / n for k, v in per_stage.items()}
+
+
+def _window_of(windows, s: float, e: float) -> str:
+    """Name of the (start, end, name) window, sorted and disjoint, that
+    [s, e] overlaps most; "other" if it overlaps none. The most overlap,
+    not the start alone, so a host/device clock offset of a few
+    microseconds cannot move a long kernel out of its stage."""
+    starts = [w[0] for w in windows]
+    lo = max(bisect.bisect_right(starts, s) - 1, 0)
+    hi = bisect.bisect_right(starts, e)
+    best, name = 0.0, "other"
+    for ws, we, wname in windows[lo:hi]:
+        overlap = min(e, we) - max(s, ws)
+        if overlap > best:
+            best, name = overlap, wname
+    return name
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--profile-frames", type=int, default=5)
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_frame: no CUDA device", file=sys.stderr)
+        return 1
+    smi = nvidia_smi()
+    print(f"[device] {smi}", flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    eng = bench_engine(os.path.join(args.out, "bench_scene.glb"))
+    eng.draw()                              # warm-up and build; fills eng.stats
+    frame_times(eng, 2)
+
+    torch.cuda.reset_peak_memory_stats()
+    frame_times(eng, 1)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    times = frame_times(eng, args.frames)
+    q = statistics.quantiles(times, n=4)
+    frame = dict(median=statistics.median(times), p25=q[0], p75=q[2], min=min(times))
+    print(f"[frame] {eng.stats.triangle_count} tris; ms over {args.frames} frames: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in frame.items())
+          + f"; peak device memory {peak_mib:.1f} MiB", flush=True)
+    stages = stage_times(eng, args.frames)
+    print(f"[stages] host ms, synchronised, median of {args.frames}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
+    prof = profile_frames(eng, args.profile_frames, args.out)
+    print(f"[profile] {prof['frames']} frames under the profiler: wall "
+          f"{prof['wall_ms_per_frame']:.3f} ms/frame, device busy "
+          f"{prof['device_busy_ms_per_frame']:.3f} ms/frame, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_ops_per_frame']:.1f} device "
+          f"ops/frame ({prof['kernels_per_frame']:.1f} kernels); "
+          + ", ".join(f"{k} {v:.3f} ms/frame"
+                      for k, v in prof["hand_kernel_ms_per_frame"].items()), flush=True)
+    dev_stages = profile_stages(eng, args.profile_frames)
+    print(f"[profile] device ms/frame by stage ({args.profile_frames} frames): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in dev_stages.items()), flush=True)
+    result = dict(device=smi, frame_ms=frame, peak_mib=peak_mib, stage_host_ms=stages,
+                  profile=prof, stage_device_ms=dev_stages)
+    with open(os.path.join(args.out, "bench_frame.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
