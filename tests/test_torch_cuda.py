@@ -1,6 +1,7 @@
-"""Card-only tests of the port: each CUDA raster kernel against its plain
-PyTorch version, and an Engine frame on the card against the same frame
-on the CPU. They skip without a CUDA device; run them on a machine with an
+"""Card-only tests of the port: each CUDA raster kernel (2.1-2.5) against
+its plain PyTorch version, bit for bit, and Engine frames on the card (the
+fused path, textured transparency, the deferred path) against the same
+frames on the CPU. They skip without a CUDA device; run them on a machine with an
 sm_90a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -28,30 +29,64 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rows(device, T=96, seed=0):
-    """Sorted fat rows + dense bins for random screen triangles."""
+def _corners(device, T, seed):
+    """Corner data of T random screen triangles (identity transforms), the
+    last two an equal-z copy of the two before them (later wins)."""
     rng = np.random.default_rng(seed)
     ndc = np.empty((T, 3, 3), np.float32)
     ndc[..., :2] = rng.uniform(-1.2, 1.2, size=(T, 3, 2))
     ndc[..., 2] = rng.uniform(0.05, 0.95, size=(T, 3))
     ndc[T - 2:] = ndc[T - 4:T - 2]     # equal-z duplicates: later wins
     V = T * 3
-    corners = vertex.expand_corners(
+    return vertex.expand_corners(
         ndc.reshape(-1, 3), rng.normal(size=(V, 3)), rng.uniform(size=(V, 4)),
         rng.uniform(size=(V, 2)), np.arange(V).reshape(T, 3), np.zeros(T, np.int32),
         np.ones(T, bool), np.zeros(1, np.int32), np.ones((1, 4)),
         np.asarray([[0, 0, 64, 64, 7, 3, 0, 0]]), device=device)
+
+
+def _setup_args(device, T):
     eye = torch.eye(4, device=device)
+    return (torch.zeros(T, dtype=torch.int32, device=device),
+            torch.ones(T, dtype=torch.bool, device=device), eye[None],
+            torch.ones(1, dtype=torch.bool, device=device), eye, W, H)
+
+
+SUN = (0.3, 0.8, -0.5)
+
+
+def _rows(device, T=96, seed=0, sort=True):
+    """Fat rows + dense bins for random screen triangles, spatially sorted
+    (the opaque pass) or in submission order (the peel)."""
     rows, aabb, valid = vertex.triangle_setup_rows(
-        corners, torch.zeros(T, dtype=torch.int32, device=device),
-        torch.ones(T, dtype=torch.bool, device=device), eye[None],
-        torch.ones(1, dtype=torch.bool, device=device), eye, W, H,
-        sun_dir=torch.tensor([0.3, 0.8, -0.5], device=device))
-    aabb, valid, rows = raster.spatial_sort(aabb, valid, rows)
+        _corners(device, T, seed), *_setup_args(device, T),
+        sun_dir=torch.tensor(SUN, device=device))
+    if sort:
+        aabb, valid, rows = raster.spatial_sort(aabb, valid, rows)
     caabb, cvalid = raster.chunk_aabbs(aabb, valid)
     gaabb, gvalid = raster.group_aabbs(aabb, valid)
     bins, counts = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **TILES)
     return rows.contiguous(), bins, counts
+
+
+def _packed(device, T=96, seed=0, refine=True):
+    """Packed setup rows + capped per-triangle bins (the deferred path)."""
+    setup = vertex.triangle_setup_c(_corners(device, T, seed), *_setup_args(device, T),
+                                    sun_dir=torch.tensor(SUN, device=device))
+    caabb, cvalid = raster.chunk_aabbs(setup.aabb, setup.valid)
+    cbins, ccounts, _ = raster.bin_triangles(caabb, cvalid, bin_cap=64, **TILES)
+    if refine:
+        bins, counts, _ = raster.refine_bins(cbins, setup.aabb, tri_cap=1024, **TILES)
+    else:
+        bins, counts = raster.expand_bins(cbins, ccounts)
+    return setup.packed, bins, counts
+
+
+def _opaque_depth(device, seed):
+    """An opaque depth plane over the left half of the frame."""
+    z = raster.raster_fused_kernel(*_rows(device, seed=seed + 10), **TILES)[0]
+    z[:, 128:] = 0.0
+    return z
 
 
 def _same(a, b):
@@ -131,3 +166,104 @@ def test_engine_frame_on_card_equals_cpu(cuda, tmp_path):
         eng.init(scene_path=path)
         frames.append(eng.draw())
     np.testing.assert_array_equal(frames[1], frames[0])
+
+
+def test_peel_fused_kernel_matches_plain(cuda):
+    """Kernel 2.3 over three peels, `last` fed back."""
+    rows, bins, counts = _rows(cuda, seed=3, sort=False)
+    z = _opaque_depth(cuda, 3)
+    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    before = raster.peel_fused_counter.launches
+    for _ in range(3):
+        got = raster.raster_peel_fused_kernel(rows, bins, counts, z, last, **TILES)
+        want = raster.rasterize_peel_fused_plain(rows, bins, counts, z, last, **TILES)
+        torch.cuda.synchronize()
+        assert all(_same(g, w) for g, w in zip(got, want))
+        found = got[0] < raster.ID_INF
+        assert int(found.sum()) > 1000
+        last = torch.where(found, got[0], raster.ID_INF)
+    assert raster.peel_fused_counter.launches == before + 3
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_deferred_kernel_matches_plain(cuda, refine):
+    """Kernel 2.4 on refined and on expanded bins."""
+    packed, bins, counts = _packed(cuda, seed=4, refine=refine)
+    before = raster.deferred_counter.launches
+    got = raster.raster_deferred_kernel(packed, bins, counts, **TILES)
+    want = raster.rasterize_plain(packed, bins, counts, **TILES)
+    torch.cuda.synchronize()
+    assert raster.deferred_counter.launches == before + 1
+    assert all(_same(g, w) for g, w in zip(got, want))
+    assert int((got[1] >= 0).sum()) > 1000
+
+
+def test_peel_deferred_kernel_matches_plain(cuda):
+    """Kernel 2.5 over three peels, `last` fed back."""
+    packed, bins, counts = _packed(cuda, seed=5, refine=False)
+    z = _opaque_depth(cuda, 5)
+    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    before = raster.peel_counter.launches
+    for _ in range(3):
+        got = raster.raster_peel_kernel(packed, bins, counts, z, last, **TILES)
+        want = raster.rasterize_peel_plain(packed, bins, counts, z, last, **TILES)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        found = got < raster.ID_INF
+        assert int(found.sum()) > 1000
+        last = torch.where(found, got, raster.ID_INF)
+    assert raster.peel_counter.launches == before + 3
+
+
+def test_new_kernels_skip_malformed_bin_entries(cuda):
+    """Kernels 2.3-2.5: entries past the bin row, padding inside the count,
+    and ids past the table are skipped, never read out of bounds."""
+    z = _opaque_depth(cuda, 6)
+    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    rows, bins, counts = _rows(cuda, seed=6, sort=False)
+    n_chunks = rows.shape[0] // raster.CHUNK
+    junk = ((n_chunks + 5) << raster.entry_shift(raster.CHUNK // raster.GROUP)) | 0xF
+    packed, tbins, tcounts = _packed(cuda, seed=6)
+
+    def spoil(b, value):
+        pad = torch.full((b.shape[0], 8), value, dtype=torch.int32, device=cuda)
+        bad = torch.cat([b, pad], dim=1).contiguous()
+        return bad, torch.full((b.shape[0],), bad.shape[1] + 100, dtype=torch.int32,
+                               device=cuda)
+
+    cases = ((raster.raster_peel_fused_kernel, rows, bins, counts, junk, (z, last)),
+             (raster.raster_deferred_kernel, packed, tbins, tcounts,
+              packed.shape[0] + 3, ()),
+             (raster.raster_peel_kernel, packed, tbins, tcounts, -5, (z, last)))
+    for launch, table, b, c, value, extra in cases:
+        want = launch(table, b, c, *extra, **TILES)
+        got = launch(table, *spoil(b, value), *extra, **TILES)
+        torch.cuda.synchronize()
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(_same(g, w) for g, w in zip(got, want)), launch.__name__
+
+
+def test_engine_peel_and_deferred_frames_on_card_equal_cpu(cuda, tmp_path):
+    """The demo grid with textured glass: the peel loop (kernel 2.3) on the
+    fused path, and the deferred path (kernels 2.4 and 2.5) past a tiny
+    dense-bin guard; each frame on the card equals the CPU frame."""
+    from tpu_renderer_torch.config import RendererConfig
+    from tpu_renderer_torch.engine import Engine
+    from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.utils.bench_frame import texture_the_glass
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    for limit in (RendererConfig().dense_bin_max_chunks, 1):
+        frames = []
+        for dev in ("cpu", cuda):
+            eng = Engine(RendererConfig(width=W, height=H, dense_bin_max_chunks=limit,
+                                        camera_position=(0.0, 6.0, 8.0)), device=dev)
+            eng.camera.pitch = np.float32(-0.18)
+            eng.init(scene=texture_the_glass(load_scene(path)))
+            assert eng._fused == (limit > 1)
+            frames.append(eng.draw())
+            assert int(eng._last_aux["transparent_layers"]) >= 1
+        np.testing.assert_array_equal(frames[1], frames[0])

@@ -47,7 +47,7 @@ def demo_frames(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("demo") / "demo4.glb")
     build_demo_glb(path, grid=4, seed=0)
     cfg = RendererConfig(width=256, height=64, camera_position=(0.0, 6.0, 8.0))
-    eng = Engine(cfg)
+    eng = Engine(cfg, device="cpu")
     eng.camera.pitch = np.float32(-0.18)
     eng.init(scene_path=path)
     params = eng.frame_params()
@@ -63,8 +63,9 @@ def demo_frames(tmp_path_factory):
     tree = {k: ({kk: (vv if isinstance(vv, int) else np.asarray(vv))
                  for kk, vv in v.items()} if isinstance(v, dict) else np.asarray(v))
             for k, v in tree.items()}
-    buffers = convert.scene_buffers_from_numpy(tree)
-    fp = convert.frame_params_from_numpy({k: p.numpy() for k, p in params._asdict().items()})
+    buffers = convert.scene_buffers_from_numpy(tree, device="cpu")
+    fp = convert.frame_params_from_numpy(
+        {k: p.numpy() for k, p in params._asdict().items()}, device="cpu")
     img, aux = pipeline.render_frame(buffers, fp, **statics)
     return dict(jax=unpack_u8(np.asarray(jimg).view(np.int32)), jaux=jaux,
                 port=unpack_u8(img), aux=aux, engine=eng.draw(), eng=eng)
@@ -109,7 +110,7 @@ def _milestone(scene, bg_effect=0, bg1=(1, 1, 1, 1)):
         sun_dir=f((0, 0, 1, 1)), sun_color=f((1, 1, 1, 1)))
     from tpu_renderer_torch.scene import flatten_scene
 
-    img, _ = pipeline.render_frame(flatten_scene(scene).buffers, p,
+    img, _ = pipeline.render_frame(flatten_scene(scene, device="cpu").buffers, p,
                                    width=128, height=64)
     return unpack_u8(img)
 
@@ -131,7 +132,7 @@ def test_structure_480p_golden(tmp_path):
     build_structure_glb(path, seed=0)
     cfg = RendererConfig(width=480, height=270, background_effect=1,
                          camera_position=(0.0, 10.0, 42.0))
-    eng = Engine(cfg)
+    eng = Engine(cfg, device="cpu")
     eng.camera.pitch = np.float32(-0.18)
     eng.init(scene_path=path)
     _check_frame("structure_480p", eng.draw(),
@@ -139,23 +140,59 @@ def test_structure_480p_golden(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fused", False), ("render_scale", 0.5), ("target_fps", 60.0),
+    ("raster_nbuf", 2), ("render_scale", 0.5), ("target_fps", 60.0),
     ("multichip", (2, 1)), ("tile_w", 256), ("raster_chunk", 8),
     ("raster_sort", "morton")])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Engine(RendererConfig(**{field: value}))
+        Engine(RendererConfig(**{field: value}), device="cpu")
 
 
 def test_unported_paths_raise():
-    eng = Engine(RendererConfig(width=128, height=64))
+    eng = Engine(RendererConfig(width=128, height=64), device="cpu")
     eng.init(scene=milestones.colored_triangle_scene())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.draw(hud=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         eng.draw_pipelined()
+
+
+def test_textured_transparent_scene_renders():
+    """A textured transparent material takes the depth peel: the quad's
+    texture shows through, blended over the background."""
     scene = milestones.textured_quad_scene(checker_texture(32, 4))
     for m in scene.materials:
-        m.transparent = True   # a textured transparent material: the peel
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Engine(RendererConfig(width=128, height=64)).init(scene=scene)
+        m.transparent = True
+    eng = Engine(RendererConfig(width=128, height=64, background_effect=0,
+                                gradient_data1=(0.1, 0.1, 0.1, 1.0),
+                                gradient_data2=(0.1, 0.1, 0.1, 1.0),
+                                **milestones.UNLIT_CONFIG_OVERRIDES), device="cpu")
+    eng.init(scene=scene)
+    assert eng._transp_textured()
+    params = eng.frame_params()._replace(view=torch.eye(4), proj=torch.eye(4))
+    eng.update_scene = lambda **kw: params
+    img = eng.draw()
+    assert int(eng._last_aux["transparent_layers"]) == 1
+    quad = img[20:44, 40:88, :3].astype(np.int32)
+    # the checker's two cells, added to the background, differ inside the quad
+    assert quad.max() - quad.min() > 40
+    assert (img[2, 2] != img[32, 64]).any()
+
+
+def test_engine_defaults_to_the_card():
+    """Engine, flatten_scene, build_atlas, expand_corners and the convert
+    functions default to CUDA; without a card, init refuses to fall back."""
+    import inspect
+
+    from tpu_renderer_torch import resources, scene
+    from tpu_renderer_torch.kernels import vertex
+
+    assert Engine(RendererConfig()).device.type == "cuda"
+    for fn in (Engine.__init__, scene.flatten_scene, resources.build_atlas,
+               vertex.expand_corners, convert.scene_buffers_from_numpy,
+               convert.frame_params_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device=.cpu."):
+            Engine(RendererConfig(width=128, height=64)).init(
+                scene=milestones.colored_triangle_scene())

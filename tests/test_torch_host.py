@@ -48,7 +48,7 @@ def glb(tmp_path_factory):
 def flats(glb):
     s = scene.load_scene(glb[0])
     js = jscene.load_scene(glb[0])
-    return scene.flatten_scene(s), jscene.flatten_scene(js), s, js
+    return scene.flatten_scene(s, device="cpu"), jscene.flatten_scene(js), s, js
 
 
 def _tree(nt):
@@ -104,7 +104,7 @@ def test_flatten_and_atlas_equal(flats):
 
 def test_convert_matches_own_flatten(flats):
     flat, jflat, _, _ = flats
-    got = convert.scene_buffers_from_numpy(_tree(jflat.buffers))
+    got = convert.scene_buffers_from_numpy(_tree(jflat.buffers), device="cpu")
     for f in got._fields:
         a, b = getattr(got, f), getattr(flat.buffers, f)
         if f == "atlas":
@@ -122,7 +122,7 @@ def test_frame_params_convert():
     d = dict(view=np.eye(4), proj=np.eye(4) * 2, bg_effect=np.int32(1),
              bg_data1=np.arange(4), bg_data2=np.ones(4), ambient=np.zeros(4),
              sun_dir=np.ones(4), sun_color=np.ones(4))
-    p = convert.frame_params_from_numpy(d)
+    p = convert.frame_params_from_numpy(d, device="cpu")
     assert p.bg_effect.dtype == torch.int32 and p.proj.dtype == torch.float32
     assert float(p.proj[0, 0]) == 2.0
 

@@ -90,6 +90,22 @@ def test_stage_timer_wraps_and_restores(tmp_path):
             pipeline._binned) == (before[0], before[3], before[4], before[2])
 
 
+@pytest.mark.parametrize("path", ["textured-glass", "deferred"])
+def test_stage_timer_covers_the_peel_and_deferred_paths(tmp_path, path):
+    """Every stage of the textured-glass and the deferred frame runs and is
+    timed; the frame is unchanged by the wrapping."""
+    eng = bench_frame.path_engine(path, str(tmp_path / "demo4.glb"), device="cpu",
+                                  grid=4, width=256, height=64,
+                                  camera_position=(0.0, 6.0, 8.0))
+    assert eng._fused == (path != "deferred")
+    want = eng.draw()
+    stages = bench_frame.PATHS[path]
+    times = bench_frame.stage_times(eng, 1, stages)
+    assert all(v > 0.0 for v in times.values()), times
+    assert sum(v for k, v in times.items() if k != "frame") <= times["frame"]
+    np.testing.assert_array_equal(eng.draw(), want)
+
+
 def test_device_busy_is_a_union():
     iv = [(0.0, 10.0, "a"), (5.0, 12.0, "b"), (20.0, 25.0, "c"), (21.0, 22.0, "d")]
     assert bench_frame._union_us(iv) == 17.0
@@ -102,3 +118,73 @@ def test_stage_window_takes_the_largest_overlap():
     assert bench_frame._window_of(w, 2.0, 3.0) == "sort+bins"
     assert bench_frame._window_of(w, 10.2, 11.0) == "other"
     assert bench_frame._window_of(w, 41.0, 42.0) == "other"
+
+
+def _peel_inputs(name, seed=0, pad=0):
+    """Two 32x128 tiles of seeded peel inputs for chip_smoke's bound: bins
+    ascending within each tile's count, junk past it, `pad` dead columns;
+    the layer each pixel found (one of its tile's live ids, or ID_INF)."""
+    rng = np.random.default_rng(seed)
+    dense = name == "raster_peel_fused_kernel"
+    n_ids, width, counts = (12, 10, [6, 10]) if dense else (60, 12, [7, 12])
+    bins = np.full((2, width + pad), -1, np.int32)
+    layer = np.empty((2, 32 * 128), np.int32)
+    for t, c in enumerate(counts):
+        ids = np.sort(rng.choice(n_ids, size=c, replace=False)).astype(np.int32)
+        tris = ids
+        if dense:
+            gmask = rng.integers(1, 16, size=c)
+            bins[t, :c] = (ids << raster.entry_shift(raster.CHUNK // raster.GROUP)) | gmask
+            tris = ids * raster.CHUNK + rng.integers(0, raster.CHUNK, size=c)
+        else:
+            bins[t, :c] = ids
+        bins[t, c:width] = rng.integers(0, n_ids, size=width - c)   # past the count
+        layer[t] = np.where(rng.random(32 * 128) < 0.3, raster.ID_INF,
+                            rng.choice(tris, size=32 * 128))
+    plane = layer.reshape(2, 32, 128).transpose(1, 0, 2).reshape(32, 256)
+    table = torch.zeros((n_ids * raster.CHUNK, raster.ROW_COLS) if dense
+                        else (n_ids, raster.SETUP_COLS))
+    frame = torch.zeros((32, 256))
+    args = (table, torch.from_numpy(bins), torch.tensor(counts, dtype=torch.int32),
+            frame, frame.int())
+    return args, dict(tiles_x=2, tiles_y=1, tile_w=128, tile_h=32), torch.from_numpy(plane)
+
+
+@pytest.mark.parametrize("name", ["raster_peel_kernel", "raster_peel_fused_kernel"])
+def test_smoke_bound_counts_the_work_a_peel_needs(name):
+    """chip_smoke's bound: each pixel tests the live entries up to the one
+    that holds its layer (all of them where it found none), counted here
+    entry by entry; dead bin columns add no bytes."""
+    smoke = _chip_smoke()
+    args, tiles, plane = _peel_inputs(name)
+    out = (plane,) if name == "raster_peel_fused_kernel" else plane
+    dense = name == "raster_peel_fused_kernel"
+    layer = smoke._frame_tiles(plane, 2, 1).numpy()
+    want = 0
+    for t, c in enumerate(args[2].tolist()):
+        for e in args[1][t, :c].tolist():
+            if dense:
+                key, work = e >> 4, bin(e & 15).count("1") * raster.GROUP
+                need = (layer[t] == raster.ID_INF) | (layer[t] // raster.CHUNK >= key)
+            else:
+                key, work = e, 1
+                need = (layer[t] == raster.ID_INF) | (layer[t] >= key)
+            want += int(need.sum()) * work
+    assert smoke.work_tests(name, args, tiles, out) == want
+    padded, _, _ = _peel_inputs(name, pad=50)
+    assert smoke.bound(name, padded, tiles, out) == smoke.bound(name, args, tiles, out)
+
+
+def test_smoke_sync_timer_counts_the_peel_syncs(tmp_path):
+    """chip_smoke's SyncTimer sees the peel loop's one sync a layer (and
+    the last, empty one) and restores pipeline._layer_found."""
+    smoke = _chip_smoke()
+    eng = bench_frame.path_engine("textured-glass", str(tmp_path / "demo4.glb"),
+                                  device="cpu", grid=4, width=256, height=64,
+                                  camera_position=(0.0, 6.0, 8.0))
+    before = pipeline._layer_found
+    with smoke.SyncTimer() as sync:
+        _img, aux = eng.draw_device()
+    assert int(aux["transparent_layers"]) > 0
+    assert sync.calls == int(aux["transparent_layers"]) + 1 and sync.ms > 0.0
+    assert pipeline._layer_found is before

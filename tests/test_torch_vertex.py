@@ -57,7 +57,7 @@ def _corners(d):
     args = (d["positions"], d["normals"], d["colors"], d["uvs"], d["tri_vidx"],
             d["tri_draw"], d["tri_valid"], d["draw_mat"], d["factors"])
     return (jvertex.expand_corners(*args, mat_meta=d["mat_meta"]),
-            vertex.expand_corners(*args, d["mat_meta"]))
+            vertex.expand_corners(*args, d["mat_meta"], device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,10 +1,13 @@
 """tpu_renderer_torch — the PyTorch + CUDA port of tpu_renderer.
 
 The same software rasterizer (glTF scene in, packed RGBA8 frame out) on one
-NVIDIA Hopper GPU: plain PyTorch for the elementwise, sort and gather work,
-and hand-written CUDA kernels for the opaque fused raster and the
-transparent accumulation (`tpu_renderer_torch.kernels.raster`, sources in
-`kernels/csrc/`). The JAX package `tpu_renderer` stays the reference; this
+NVIDIA Hopper GPU, the default device (pass device="cpu" for the CPU):
+plain PyTorch for the elementwise, sort and gather work, and hand-written
+CUDA kernels for the raster passes — the opaque fused raster, the
+transparent accumulation, the textured-transparency depth peel, and the
+deferred path's visibility raster and peel
+(`tpu_renderer_torch.kernels.raster`, sources in `kernels/csrc/`). The JAX
+package `tpu_renderer` stays the reference; this
 package imports neither it nor JAX. Its host modules (config, math3d,
 camera, gltf, the scene graph, utils) are copies of the JAX package's.
 """

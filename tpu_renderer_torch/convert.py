@@ -37,10 +37,11 @@ def _corners(d: Mapping, n: int, device) -> CornerData:
         for f in CornerData._fields))
 
 
-def scene_buffers_from_numpy(d: Mapping, device="cpu") -> SceneBuffers:
-    """The port's SceneBuffers from a mapping of the JAX package's
-    SceneBuffers fields to numpy arrays; `atlas`, `opaque_corners` and
-    `transp_corners` are mappings of their own fields. Triangle arrays are
+def scene_buffers_from_numpy(d: Mapping, device="cuda") -> SceneBuffers:
+    """The port's SceneBuffers on `device` (the CUDA card by default) from a
+    mapping of the JAX package's SceneBuffers fields to numpy arrays;
+    `atlas`, `opaque_corners` and `transp_corners` are mappings of their own
+    fields. Triangle arrays are
     padded to a multiple of the port's raster.CHUNK with inert rows."""
     t = lambda a: torch.as_tensor(np.asarray(a), device=device)  # noqa: E731
     out = {}
@@ -64,7 +65,7 @@ def scene_buffers_from_numpy(d: Mapping, device="cpu") -> SceneBuffers:
     return SceneBuffers(**out)
 
 
-def frame_params_from_numpy(d: Mapping, device="cpu") -> FrameParams:
+def frame_params_from_numpy(d: Mapping, device="cuda") -> FrameParams:
     """The port's FrameParams from a mapping of the JAX package's
     FrameParams fields to numpy arrays."""
     return FrameParams(**{

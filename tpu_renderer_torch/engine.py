@@ -4,19 +4,23 @@ VulkanEngine (vk_engine.h:79-227, init vk_engine.cpp:171-201, run
 
 What stays from the reference: the frame loop, the FPS camera, scene
 update, the EngineStats counters and the background-effect selection. The
-device is explicit: Engine(config, device="cuda") puts the scene there and
-every frame runs there.
+scene and every frame live on the engine's device: the CUDA card by
+default, the CPU with Engine(config, device="cpu").
+
+Scenes past config.dense_bin_max_chunks (and config.fused=False) take the
+capped deferred raster path; a frame whose bins overflow escalates the
+caps and redraws the same frame (draw).
 
 What the port does not have yet raises NotImplementedError naming the
-ROADMAP.md item: fused=False and scenes past the dense-bin guard (the
-deferred path), textured transparency (the peel loop), render_scale != 1
-and target_fps (the upscale blit and the auto-quality cost model),
-multichip, draw_pipelined and the HUD overlay.
+ROADMAP.md item: render_scale != 1 and target_fps (the upscale blit and
+the auto-quality cost model), multichip, draw_pipelined and the HUD
+overlay.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Optional
 
@@ -30,6 +34,8 @@ from tpu_renderer_torch.kernels import raster
 from tpu_renderer_torch.pipeline import FrameParams, background_fb, render_frame
 from tpu_renderer_torch.present import unpack_u8
 from tpu_renderer_torch.resources import FILTER_MIP_LINEAR
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -51,9 +57,6 @@ def _not_ported(what: str, item: str):
 def _check_config(cfg: RendererConfig) -> None:
     """Raise on every config value the port does not implement."""
     default = RendererConfig()
-    if not cfg.fused:
-        raise _not_ported("fused=False (the deferred raster path)",
-                          "Queue 1 item 10")
     if cfg.render_scale != 1.0:
         raise _not_ported("render_scale != 1 (the upscale blit)",
                           "Queue 1 item 8")
@@ -79,7 +82,7 @@ def _check_config(cfg: RendererConfig) -> None:
 
 
 class Engine:
-    def __init__(self, config: Optional[RendererConfig] = None, device="cpu"):
+    def __init__(self, config: Optional[RendererConfig] = None, device="cuda"):
         self.config = config or RendererConfig()
         _check_config(self.config)
         self.device = torch.device(device)
@@ -93,12 +96,17 @@ class Engine:
         self._last_aux = None
         self._params_key = None
         self._bg_key = None
+        self._caps = None
 
     # -- init (vk_engine.cpp:171-201) ---------------------------------------
 
     def init(self, scene_path: Optional[str] = None,
              scene: Optional[scene_mod.LoadedScene] = None,
              variant=None) -> None:
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Engine runs on the CUDA card by default and no CUDA device "
+                "is available: pass device=\"cpu\" to render on the CPU")
         if scene is not None:
             self.scene = scene
         elif scene_path is not None:
@@ -111,22 +119,22 @@ class Engine:
         self._compute_caps()
 
     def _compute_caps(self) -> None:
-        """Per-scene statics: the dense-bin guard, the stats counts, and
-        the trilinear / power-of-two sampler fast paths."""
+        """Per-scene statics: the deferred path's bin capacities, the
+        dense-bin guard, the stats counts, and the trilinear / power-of-two
+        sampler fast paths."""
         b = self.flat.buffers
         n_chunks = max(b.opaque_tri_vidx.shape[0] // raster.CHUNK,
                        b.transp_tri_vidx.shape[0] // raster.CHUNK, 1)
-        # the dense bins are O(n_tiles x n_chunks); past the guard the JAX
-        # package switches to its capped deferred path, which is not ported
-        if n_chunks > self.config.dense_bin_max_chunks:
-            raise _not_ported(
-                f"a scene of {n_chunks} chunks > dense_bin_max_chunks="
-                f"{self.config.dense_bin_max_chunks} (the capped deferred "
-                "path)", "Queue 1 item 10")
-        if self._transp_textured():
-            raise _not_ported("textured transparency (the depth-peel loop, "
-                              "kernel 2.3)", "Queue 1 item 7")
-        self._fused = True
+        # only the deferred path reads the caps; the fused path is uncapped
+        self._caps = dict(bin_cap=int(min(max(64, n_chunks), 512)), tri_cap=1024)
+        # the fused path's dense bins are O(n_tiles x n_chunks): past the
+        # guard the engine takes the capped deferred path instead
+        self._fused = bool(self.config.fused
+                           and n_chunks <= self.config.dense_bin_max_chunks)
+        if self._fused != self.config.fused:
+            logger.info("scene has %d chunks > dense_bin_max_chunks=%d: "
+                        "taking the capped deferred raster path", n_chunks,
+                        self.config.dense_bin_max_chunks)
         mask = b.draw_opaque_mask.cpu().numpy()
         self._n_transp_draws = int(np.sum(~mask))
         self._n_opaque_draws = int(np.sum(mask))
@@ -195,9 +203,9 @@ class Engine:
             width=cfg.width, height=cfg.height,
             tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             fp16=cfg.framebuffer_fp16,
-            transp_textured=self._transp_textured(),
+            transp_textured=self._transp_textured(), fused=self._fused,
             trilinear=self._trilinear, pot=self._pot,
-            bg_fb=self._bg_fb_cached(params))
+            bg_fb=self._bg_fb_cached(params), **self._caps)
         self.frame_number += 1
         self._last_aux = aux
         return image, aux
@@ -216,14 +224,26 @@ class Engine:
 
     def draw(self, with_stats: bool = True, hud: bool = False) -> np.ndarray:
         """Render one frame; returns the (H, W, 4) uint8 image on the host.
-        The dense bins are uncapped, so nothing can overflow."""
+
+        The fused path's dense bins are uncapped, so nothing can overflow.
+        On the deferred path a frame that overflows a bin capacity
+        escalates the caps and the same frame (same camera params: the
+        scene is not updated again) redraws before draw returns, up to 4
+        times."""
         if hud:
             raise _not_ported("the HUD overlay", "Queue 1 item 9")
         t0 = time.perf_counter()
         params = self.update_scene()
         image, aux = self.draw_device(params)
-        if with_stats:
+        if with_stats and self._fused:
             self._update_stats(aux)
+        elif with_stats:
+            for _ in range(4):
+                caps = dict(self._caps)
+                self._update_stats(aux)   # escalates the caps on overflow
+                if self._caps == caps:
+                    break
+                image, aux = self.draw_device(params)
         out = unpack_u8(image)
         self.stats.mesh_draw_time = (time.perf_counter() - t0) * 1000.0
         return out
@@ -243,6 +263,22 @@ class Engine:
         self.stats.drawcall_count = (a.get("visible_opaque_draws",
                                            self._n_opaque_draws)
                                      + self._n_transp_draws)
+        chunk_of = a.get("bin_overflow", 0) + a.get("bin_overflow_transparent", 0)
+        tri_of = (a.get("bin_overflow_tris", 0)
+                  + a.get("bin_overflow_transparent_tris", 0))
+        if chunk_of or tri_of:
+            logger.warning("bin overflow: %d chunk / %d triangle entries "
+                           "dropped; escalating the caps", chunk_of, tri_of)
+            self._escalate_caps(chunks=chunk_of > 0, tris=tri_of > 0)
+
+    def _escalate_caps(self, chunks: bool = True, tris: bool = True) -> None:
+        """Double the capacity that overflowed, and only that one (bounded:
+        bin_cap 8192, tri_cap 16384) — the analog of the reference's
+        growable descriptor pools (vk_descriptors.cpp:70-170)."""
+        c = self._caps
+        self._caps = dict(
+            bin_cap=min(c["bin_cap"] * 2, 8192) if chunks else c["bin_cap"],
+            tri_cap=min(c["tri_cap"] * 2, 16384) if tris else c["tri_cap"])
 
     def _transp_textured(self) -> bool:
         """Static: does any transparent material bind a real texture?"""

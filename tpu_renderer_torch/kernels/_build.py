@@ -1,7 +1,8 @@
 """Build and load the CUDA raster kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into one shared library with
-a plain C interface, at first use, and loaded with ctypes. The library's
+The sources are compiled with nvcc for sm_90a, one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, at first use; it is loaded with ctypes. The library's
 name carries a hash of the sources and flags, so an edit rebuilds it and an
 unchanged tree reuses it. Nothing here runs at import time: the CPU tests
 import every module on a machine with no nvcc.
@@ -28,7 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -71,16 +72,34 @@ def build(verbose: bool = False) -> str:
         build_seconds = None
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = _nvcc()
+    flags = [*NVCC_FLAGS, "-Xptxas=-v"] if verbose else list(NVCC_FLAGS)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", obj, src],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    errors = []
+    for src, proc in zip(_sources(), procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(err, end="")
+    if not errors:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            errors.append(f"link ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)
     return out
 
@@ -97,6 +116,12 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.raster_fused_launch.restype = i
         lib.raster_accum_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
         lib.raster_accum_launch.restype = i
+        lib.raster_peel_fused_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p]
+        lib.raster_peel_fused_launch.restype = i
+        lib.raster_deferred_launch.argtypes = [p, i, p, p, i, i, i, p, p, p]
+        lib.raster_deferred_launch.restype = i
+        lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p]
+        lib.raster_peel_deferred_launch.restype = i
         lib.raster_error_string.argtypes = [i]
         lib.raster_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -39,3 +39,10 @@ def fma(a, x, y):
     odd = torch.nextafter(s, torch.where(err > 0, _INF, -_INF))
     fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
     return torch.where(fix, odd, s).float()
+
+
+def dot3_seq(x0, y0, x1, y1, x2, y2):
+    """x0*y0 + x1*y1 + x2*y2 as XLA-CPU evaluates a 3-long reduction or
+    einsum of the JAX reference: accumulated in order, each step a fused
+    multiply-add (measured)."""
+    return fma(x2, y2, fma(x1, y1, x0 * y0))

@@ -1,4 +1,5 @@
-// Shared pieces of the two raster kernels (raster_fused.cu, raster_accum.cu).
+// Shared pieces of the raster kernels (raster_fused.cu, raster_accum.cu,
+// raster_peel.cu, raster_deferred.cu).
 //
 // Rounding is spelled out: every plane evaluation a*X + b*Y + c is
 // fma(a, X, b*Y) + c with __fmaf_rn/__fmul_rn/__fadd_rn — the contraction
@@ -27,6 +28,9 @@ constexpr int N_GROUPS = CHUNK / GROUP;                // 4 gmask bits
 constexpr int ENTRY_SHIFT = 4;
 constexpr int GMASK_ALL = (1 << N_GROUPS) - 1;
 static_assert(N_GROUPS <= 4, "ENTRY_SHIFT holds at most 4 gmask bits");
+constexpr int ID_INF = 0x7FFFFFF;   // the peels' "no fragment" marker
+constexpr int N_NUMS = 4;           // numerator planes: light_num, r, g, b
+constexpr int N_METAS = 15;         // constant planes (META_COLS)
 
 __device__ __forceinline__ float plane(float a, float b, float c, float x,
                                        float y) {
@@ -70,6 +74,38 @@ __device__ __forceinline__ void stage_chunk(float* srow, const float* rows,
                                             int cid) {
   const float* src = rows + static_cast<size_t>(cid) * CHUNK * ROW_COLS;
   for (int k = threadIdx.x; k < CHUNK * ROW_COLS; k += THREADS) srow[k] = src[k];
+}
+
+// META_COLS of kernels/raster.py: C_TEX x6 (31-36), C_GRAD x6 (37-42),
+// den_c (43), nu_c (29), nv_c (30).
+__device__ __forceinline__ int meta_col(int m) { return m < 13 ? 31 + m : 16 + m; }
+
+// Pixel i of this thread in a tile: its row and its offset in a plane.
+__device__ __forceinline__ int pixel_row(int ty, int i) {
+  return ty * TILE_H + static_cast<int>(threadIdx.x) / TILE_W + i * ROWS_PER_PASS;
+}
+
+// The epilogue of the fused raster and the fused peel: the winning
+// triangle's numerator planes at the pixel center and its constant planes,
+// read once from its fat row; zeros where no triangle won (id < 0).
+__device__ __forceinline__ void store_winner(const float* __restrict__ rows, int id,
+                                             float x, float y, size_t p,
+                                             size_t plane_stride,
+                                             float* __restrict__ nums_out,
+                                             float* __restrict__ metas_out) {
+  if (id >= 0) {
+    const float* w = rows + static_cast<size_t>(id) * ROW_COLS;
+#pragma unroll
+    for (int a = 0; a < N_NUMS; ++a)
+      nums_out[a * plane_stride + p] = plane(w[13 + a], w[19 + a], w[25 + a], x, y);
+#pragma unroll
+    for (int m = 0; m < N_METAS; ++m) metas_out[m * plane_stride + p] = w[meta_col(m)];
+  } else {
+#pragma unroll
+    for (int a = 0; a < N_NUMS; ++a) nums_out[a * plane_stride + p] = 0.0f;
+#pragma unroll
+    for (int m = 0; m < N_METAS; ++m) metas_out[m * plane_stride + p] = 0.0f;
+  }
 }
 
 }  // namespace tr

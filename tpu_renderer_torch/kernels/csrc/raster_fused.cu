@@ -33,10 +33,6 @@ namespace {
 
 using namespace tr;
 
-// META_COLS of kernels/raster.py: C_TEX x6, C_GRAD x6, den_c, nu_c, nv_c.
-__constant__ int kMetaCols[15] = {31, 32, 33, 34, 35, 36, 37, 38,
-                                  39, 40, 41, 42, 43, 29, 30};
-
 __global__ void __launch_bounds__(THREADS)
 raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
@@ -96,23 +92,10 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
 #pragma unroll
   for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(ty * TILE_H + row0 + i * ROWS_PER_PASS) * wp +
-                     tx * TILE_W + col;
+    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
     z_out[p] = z[i];
     tid_out[p] = tid[i];
-    if (tid[i] >= 0) {
-      const float* w = rows + static_cast<size_t>(tid[i]) * ROW_COLS;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        nums_out[a * plane_stride + p] = plane(w[13 + a], w[19 + a], w[25 + a], x, y[i]);
-#pragma unroll
-      for (int m = 0; m < 15; ++m) metas_out[m * plane_stride + p] = w[kMetaCols[m]];
-    } else {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) nums_out[a * plane_stride + p] = 0.0f;
-#pragma unroll
-      for (int m = 0; m < 15; ++m) metas_out[m * plane_stride + p] = 0.0f;
-    }
+    store_winner(rows, tid[i], x, y[i], p, plane_stride, nums_out, metas_out);
   }
 }
 

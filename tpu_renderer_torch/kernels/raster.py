@@ -1,5 +1,7 @@
-"""Tile rasterizer: screen sort, tile binning, and the two raster passes of
-the frame, each a hand-written CUDA kernel beside its plain PyTorch twin.
+"""Tile rasterizer: screen sort, tile binning, and the raster passes of the
+frame, each a hand-written CUDA kernel beside its plain PyTorch twin.
+
+Fused path (dense chunk bins, 48-column fat rows):
 
 * ``rasterize_fused``: the opaque pass. Per 32x128 tile, walk the tile's
   binned CHUNK-triangle chunks in ascending chunk id; for each live
@@ -10,14 +12,22 @@ the frame, each a hand-written CUDA kernel beside its plain PyTorch twin.
 * ``rasterize_accum``: the untextured transparent pass. Every covered
   fragment with z >= the opaque z adds its shaded color, in ascending
   triangle order, and counts (csrc/raster_accum.cu).
+* ``rasterize_peel_fused``: one textured-transparency peel. Per pixel the
+  smallest triangle id > last that covers it with z >= the opaque z, and
+  that triangle's planes (csrc/raster_peel.cu).
+
+Deferred path (capped per-triangle bins, 16-column packed setup rows):
+``bin_triangles`` / ``refine_bins`` / ``expand_bins`` build the bins;
+``rasterize`` is the visibility pass (z, tid) and ``rasterize_peel`` the
+peel (layer id), both in csrc/raster_deferred.cu.
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (and raises if it cannot). The plain versions loop over
 bin slots, vectorised across tiles, and evaluate triangles in the same
 per-pixel order as the kernels, so both agree bit for bit.
 
-Bin entries are ``cid << entry_shift | gmask`` (bin_triangles_full), the
-JAX package's layout, so bins from either package read the same.
+Dense bin entries are ``cid << entry_shift | gmask`` (bin_triangles_full),
+the JAX package's layout, so bins from either package read the same.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from tpu_renderer_torch.kernels.common import cdiv, fma
 
 DEPTH_CLEAR = 0.0  # vk_initializers.cpp:144 (reversed-Z)
 NO_TRI = -1
+ID_INF = 0x7FFFFFF  # the peels' "no fragment" marker (> any triangle id)
 # Triangles per binning chunk and per gmask skip group. The kernels stage
 # one chunk's fat rows in shared memory (CHUNK x 48 f32 = 6 KB) and test one
 # gmask bit per group; csrc/raster_common.cuh fixes both at compile time.
@@ -39,6 +50,7 @@ CHUNK = 32
 GROUP = 8
 TILE_H, TILE_W = 32, 128  # the kernels' tile: 256 threads x 16 pixels
 ROW_COLS = 48        # fat-row width (shade.py layout)
+SETUP_COLS = 16      # packed setup-row width (vertex.triangle_setup_c)
 _EMPTY_AABB = (-1.0, -1.0, -2.0, -2.0)
 
 # Kernel A's per-winner constant planes, read straight off the fat row:
@@ -231,6 +243,23 @@ def _edge_cov(a, b, c, X, Y):
     return (val > 0.0) | ((val == 0.0) & tl)
 
 
+def _coverage(c, X, Y):
+    """Coverage of triangle rows c (..., >= 12 columns first, then 1, 1)
+    at the pixel centers, with its depth: (covered & zv <= 1, zv)."""
+    zv = _plane(c[:, 9], c[:, 10], c[:, 11], X, Y)
+    cov = (_edge_cov(c[:, 0], c[:, 1], c[:, 2], X, Y)
+           & _edge_cov(c[:, 3], c[:, 4], c[:, 5], X, Y)
+           & _edge_cov(c[:, 6], c[:, 7], c[:, 8], X, Y)
+           & (zv <= 1.0))
+    return cov, zv
+
+
+def _frame_to_tiles(t, tiles_x: int, tiles_y: int, tile_w: int, tile_h: int):
+    """(Hp, Wp) plane -> (n_tiles, tile_h, tile_w) tile-major planes."""
+    return t.reshape(tiles_y, tile_h, tiles_x, tile_w).transpose(1, 2) \
+        .reshape(tiles_x * tiles_y, tile_h, tile_w)
+
+
 def _slot_rows(rows, bins, counts, k: int, chunk: int, group: int):
     """One bin slot across all tiles: the chunk's rows (n_tiles, chunk, 48),
     the triangle-id base (n_tiles,) and a per-(tile, triangle) liveness mask
@@ -256,11 +285,7 @@ def _visibility_plain(rows, bins, counts, X, Y, chunk: int, group: int):
         r, base, on = _slot_rows(rows, bins, counts, k, chunk, group)
         for t in range(chunk):
             c = r[:, t, :, None, None]   # (n_tiles, 48, 1, 1)
-            zv = _plane(c[:, 9], c[:, 10], c[:, 11], X, Y)
-            cov = (_edge_cov(c[:, 0], c[:, 1], c[:, 2], X, Y)
-                   & _edge_cov(c[:, 3], c[:, 4], c[:, 5], X, Y)
-                   & _edge_cov(c[:, 6], c[:, 7], c[:, 8], X, Y)
-                   & (zv <= 1.0))
+            cov, zv = _coverage(c, X, Y)
             # zv >= 0 is subsumed by zv >= z (z starts at 0)
             take = cov & (zv >= z) & on[:, t, None, None]
             z = torch.where(take, zv, z)
@@ -337,13 +362,17 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
-                  chunk, group, z_base=None, light=None):
+                  chunk, group, z_base=None, light=None, last=None,
+                  cols: int = ROW_COLS):
     """Validate a raster pass's tensors (device, dtype, shape, contiguity)
-    before they reach the plain version or, as pointers, a kernel."""
+    before they reach the plain version or, as pointers, a kernel. rows
+    are (T, 48) fat rows in whole chunks, or (T, 16) packed setup rows
+    (cols=SETUP_COLS, the deferred path)."""
     dev = rows.device
-    if rows.dim() != 2 or rows.shape[1] != ROW_COLS or rows.shape[0] % chunk:
-        raise ValueError(f"rows must be (T, {ROW_COLS}) with T % {chunk} == 0, "
-                         f"got {tuple(rows.shape)}")
+    whole = cols != ROW_COLS or rows.shape[0] % chunk == 0
+    if rows.dim() != 2 or rows.shape[1] != cols or not whole:
+        need = f" with T % {chunk} == 0" if cols == ROW_COLS else ""
+        raise ValueError(f"rows must be (T, {cols}){need}, got {tuple(rows.shape)}")
     _check("rows", rows, torch.float32, rows.shape, dev)
     n_tiles = tiles_x * tiles_y
     if bins.dim() != 2:
@@ -356,14 +385,17 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
         if (tile_h, tile_w) != (TILE_H, TILE_W):
             raise ValueError(f"the CUDA raster kernels take {TILE_H}x{TILE_W} "
                              f"tiles, got {tile_h}x{tile_w}")
-        if (chunk, group) != (CHUNK, GROUP):
+        if cols == ROW_COLS and (chunk, group) != (CHUNK, GROUP):
             raise ValueError(f"the CUDA raster kernels are built for chunk="
                              f"{CHUNK}, group={GROUP}; got chunk={chunk}, "
                              f"group={group}")
+    frame = (tiles_y * tile_h, tiles_x * tile_w)
     if z_base is not None:
-        _check("z_base", z_base, torch.float32,
-               (tiles_y * tile_h, tiles_x * tile_w), dev)
+        _check("z_base", z_base, torch.float32, frame, dev)
+    if light is not None:
         _check("light", light, torch.float32, (8,), dev)
+    if last is not None:
+        _check("last", last, torch.int32, frame, dev)
 
 
 def _launch(fn_name, *args):
@@ -392,6 +424,9 @@ class _Counter:
 
 fused_counter = _Counter()
 accum_counter = _Counter()
+peel_fused_counter = _Counter()
+deferred_counter = _Counter()
+peel_counter = _Counter()
 
 
 def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
@@ -453,8 +488,7 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
     cnt (Hp, Wp) i32). Adds per pixel in ascending triangle order."""
     X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
     n_tiles = X.shape[0]
-    zb = z_base.reshape(tiles_y, tile_h, tiles_x, tile_w).transpose(1, 2) \
-        .reshape(n_tiles, tile_h, tile_w)
+    zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
     power, amb = light[3], light[4:7]
     acc = [torch.zeros(X.shape, dtype=torch.float32, device=X.device)
            for _ in range(3)]
@@ -465,11 +499,7 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
         r, _, on = _slot_rows(rows, bins, counts, k, chunk, group)
         for t in range(chunk):
             c = r[:, t, :, None, None]
-            zv = _plane(c[:, 9], c[:, 10], c[:, 11], X, Y)
-            cov = (_edge_cov(c[:, 0], c[:, 1], c[:, 2], X, Y)
-                   & _edge_cov(c[:, 3], c[:, 4], c[:, 5], X, Y)
-                   & _edge_cov(c[:, 6], c[:, 7], c[:, 8], X, Y)
-                   & (zv <= 1.0))
+            cov, zv = _coverage(c, X, Y)
             # zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
             take = cov & (zv >= zb) & on[:, t, None, None]
             den = _plane(c[:, 41], c[:, 42], c[:, 43], X, Y)
@@ -523,3 +553,312 @@ def rasterize_accum(rows, bins, counts, z_base, light, *, tiles_x: int,
         return raster_accum_kernel(rows, bins, counts, z_base, light, **tiles)
     return rasterize_accum_plain(rows, bins, counts, z_base, light, chunk=chunk,
                                  group=group, **tiles)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2.3: the textured-transparency peel over dense bins
+# ---------------------------------------------------------------------------
+
+
+def rasterize_peel_fused_plain(rows, bins, counts, z_base, last, *,
+                               tiles_x: int, tiles_y: int, tile_w: int,
+                               tile_h: int, chunk: int = CHUNK,
+                               group: int = GROUP):
+    """Plain PyTorch twin of the raster_peel kernel: (best (Hp, Wp) i32,
+    ID_INF where the pixel has no further layer, nums (4, Hp, Wp) f32,
+    metas (15, Hp, Wp) f32 of the triangle `best`)."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    n_tiles = X.shape[0]
+    zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
+    lt = _frame_to_tiles(last, tiles_x, tiles_y, tile_w, tile_h)
+    best = torch.full(X.shape, ID_INF, dtype=torch.int32, device=X.device)
+    for k in range(int(counts.max()) if n_tiles else 0):
+        r, base, on = _slot_rows(rows, bins, counts, k, chunk, group)
+        for t in range(chunk):
+            cov, zv = _coverage(r[:, t, :, None, None], X, Y)
+            idx = (base + t).to(torch.int32)[:, None, None]
+            # zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0); ids
+            # ascend along the walk, so the first eligible id stays
+            take = (cov & (zv >= zb) & (idx > lt) & (idx < best)
+                    & on[:, t, None, None])
+            best = torch.where(take, idx, best)
+    tid = torch.where(best < ID_INF, best, NO_TRI)
+    nums, metas = _winner_planes(rows, tid, X, Y)
+    f = lambda t: _tiles_to_frame(t, tiles_x, tiles_y).contiguous()  # noqa: E731
+    return f(best), f(nums), f(metas)
+
+
+def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
+                             tiles_x: int, tiles_y: int, tile_w: int,
+                             tile_h: int):
+    """Launch the raster_peel CUDA kernel (csrc/raster_peel.cu) on CUDA
+    tensors: the same (best, nums, metas) as rasterize_peel_fused_plain at
+    CHUNK/GROUP."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_peel_fused_kernel takes CUDA tensors, got {dev}")
+    _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
+                  GROUP, z_base=z_base, last=last)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    best = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
+    metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
+    _launch("raster_peel_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
+            ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
+            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(z_base),
+            _ptr(last), _ptr(best), _ptr(nums), _ptr(metas), _stream(dev))
+    peel_fused_counter.launches += 1
+    return best, nums, metas
+
+
+def rasterize_peel_fused(rows, bins, counts, z_base, last, *, tiles_x: int,
+                         tiles_y: int, tile_w: int, tile_h: int,
+                         chunk: int = CHUNK, group: int = GROUP):
+    """One transparency peel over dense chunk bins (the JAX package's
+    rasterize_peel_slabs): per pixel the smallest triangle id > last that
+    covers it and passes z >= z_base, in submission order.
+
+    rows: (T, 48) fat rows in submission order (not sorted: the id is the
+    peel order); bins/counts: bin_triangles_full over them; z_base: (Hp, Wp)
+    opaque depth; last: (Hp, Wp) i32 previous layer (-1 before the first).
+    Returns (best (Hp, Wp) i32, ID_INF where no layer, attrs (6, Hp, Wp),
+    metas (13, Hp, Wp), inv (Hp, Wp)). CPU tensors take the plain version,
+    CUDA tensors the kernel.
+    """
+    dev = rows.device
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_inputs(rows, bins, counts, chunk=chunk, group=group, z_base=z_base,
+                  last=last, **tiles)
+    if dev.type == "cuda":
+        best, nums, metas = raster_peel_fused_kernel(rows, bins, counts, z_base,
+                                                     last, **tiles)
+    else:
+        best, nums, metas = rasterize_peel_fused_plain(
+            rows, bins, counts, z_base, last, chunk=chunk, group=group, **tiles)
+    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev)
+    attrs, metas13, inv = reconstruct_outputs(nums, metas, X, Y)
+    return best, attrs, metas13, inv
+
+
+# ---------------------------------------------------------------------------
+# The deferred path: capped per-triangle bins (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _dense_sorted_hits(aabb, valid, *, tiles_x: int, tiles_y: int,
+                       tile_w: int, tile_h: int):
+    """Dense (n_tiles, T) box-overlap matrix compacted by a row-wise sort:
+    each row holds its hits' ids ascending, then the misses. Returns
+    (key_sorted (n_tiles, T) i32, counts (n_tiles,) i32 exact)."""
+    T = aabb.shape[0]
+    packed = _pack_tile_aabb(aabb, tiles_x, tiles_y, tile_w, tile_h)
+    hit = valid[None, :] & _tile_overlap(packed, tiles_x, tiles_y)
+    counts = hit.sum(dim=1, dtype=torch.int32)
+    slot = torch.arange(T, dtype=torch.int32, device=aabb.device)[None, :]
+    key = torch.where(hit, slot, slot + T)
+    return torch.sort(key, dim=1).values, counts
+
+
+def bin_triangles(aabb, valid, *, tiles_x: int, tiles_y: int, tile_w: int,
+                  tile_h: int, bin_cap: int):
+    """Capped tile bins of items (chunk boxes on the deferred path), the JAX
+    package's raster.bin_triangles. Returns (bins (n_tiles, bin_cap) i32
+    ids ascending, padded with -1; counts (n_tiles,) i32 clamped to the
+    cap; overflow () i32, the entries dropped beyond it)."""
+    T = aabb.shape[0]
+    key_sorted, full_counts = _dense_sorted_hits(
+        aabb, valid, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+        tile_h=tile_h)
+    eff_cap = min(bin_cap, T)
+    counts = torch.clamp(full_counts, max=eff_cap)
+    in_bin = torch.arange(eff_cap, device=aabb.device)[None, :] < counts[:, None]
+    bins = torch.where(in_bin, key_sorted[:, :eff_cap], NO_TRI)
+    if eff_cap < bin_cap:
+        bins = torch.nn.functional.pad(bins, (0, bin_cap - eff_cap), value=NO_TRI)
+    overflow = (full_counts - counts).sum(dtype=torch.int32)
+    return bins.contiguous(), counts, overflow
+
+
+def _chunk_members(chunk_bins, chunk: int):
+    """Chunk bins -> every member triangle id (n_tiles, bcap * chunk) and
+    which slots hold a binned chunk."""
+    n_tiles, bcap = chunk_bins.shape
+    members = torch.arange(chunk, dtype=torch.int32, device=chunk_bins.device)
+    tri = (torch.where(chunk_bins >= 0, chunk_bins, 0)[:, :, None] * chunk
+           + members[None, None, :]).reshape(n_tiles, bcap * chunk)
+    slot_ok = (chunk_bins >= 0).repeat_interleave(chunk, dim=1)
+    return tri, slot_ok
+
+
+def expand_bins(chunk_bins, chunk_counts, chunk: int = CHUNK):
+    """Chunk bins -> per-triangle bins without the tightening pass (the JAX
+    package's raster.expand_bins): each binned chunk becomes its chunk
+    member ids, in order."""
+    tri, slot_ok = _chunk_members(chunk_bins, chunk)
+    return (torch.where(slot_ok, tri, NO_TRI).contiguous(),
+            (chunk_counts * chunk).to(torch.int32))
+
+
+def refine_bins(chunk_bins, aabb, *, tiles_x: int, tiles_y: int, tile_w: int,
+                tile_h: int, tri_cap: int, chunk: int = CHUNK):
+    """Chunk bins -> tight per-triangle bins (the JAX package's
+    raster.refine_bins): the members of each binned chunk whose own box
+    overlaps the tile, ascending, compacted by a row-wise sort. Returns
+    (tri_bins (n_tiles, min(tri_cap, candidates)) i32, tri_counts
+    (n_tiles,) i32 clamped, overflow () i32)."""
+    n_tiles, bcap = chunk_bins.shape
+    ncand = bcap * chunk
+    dev = chunk_bins.device
+    tri, slot_ok = _chunk_members(chunk_bins, chunk)
+    packed = _pack_tile_aabb(aabb, tiles_x, tiles_y, tile_w, tile_h)
+    chunk_rows = packed.reshape(-1, chunk)
+    safe = torch.clamp(chunk_bins, 0, chunk_rows.shape[0] - 1).long()
+    cand = chunk_rows[safe].reshape(n_tiles, ncand)
+    tile_id = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    tx = (tile_id % tiles_x)[:, None]
+    ty = (tile_id // tiles_x)[:, None]
+    x0, y0 = cand & 0xFF, (cand >> 8) & 0xFF
+    x1, y1 = (cand >> 16) & 0xFF, (cand >> 24) & 0xFF
+    hit = (slot_ok & (x0 <= tx) & (x1 >= tx) & (y0 <= ty) & (y1 >= ty)
+           & (x0 <= x1))
+    full_counts = hit.sum(dim=1, dtype=torch.int32)
+    eff_cap = min(tri_cap, ncand)
+    counts = torch.clamp(full_counts, max=eff_cap)
+    # candidate ids ascend within a tile, so sorting the id keeps
+    # submission order; misses sort behind every real id
+    slot = torch.arange(ncand, dtype=torch.int32, device=dev)[None, :]
+    key = torch.where(hit, tri, (1 << 29) + slot)
+    key_sorted = torch.sort(key, dim=1).values
+    in_bin = torch.arange(eff_cap, device=dev)[None, :] < counts[:, None]
+    tri_bins = torch.where(in_bin, key_sorted[:, :eff_cap], NO_TRI)
+    overflow = (full_counts - counts).sum(dtype=torch.int32)
+    return tri_bins.contiguous(), counts, overflow
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2.4 and 2.5: the deferred raster and peel over per-triangle bins
+# ---------------------------------------------------------------------------
+
+
+def _triangle_slot(packed, bins, counts, k: int):
+    """Bin slot k across all tiles: the triangles' packed rows (n_tiles, 16,
+    1, 1), their ids (n_tiles, 1, 1) and which tiles hold a real one (k
+    inside the count, the id inside the table)."""
+    T = packed.shape[0]
+    ids = bins[:, k]
+    ok = (k < counts) & (ids >= 0) & (ids < T)
+    r = packed[torch.clamp(ids, 0, max(T - 1, 0)).long()]
+    return r[:, :, None, None], ids[:, None, None], ok[:, None, None]
+
+
+def _slots(bins, counts) -> int:
+    n = int(counts.max()) if counts.numel() else 0
+    return min(n, bins.shape[1])
+
+
+def rasterize_plain(packed, bins, counts, *, tiles_x: int, tiles_y: int,
+                    tile_w: int, tile_h: int):
+    """Plain PyTorch twin of the raster_deferred kernel: (z (Hp, Wp) f32,
+    tid (Hp, Wp) i32), later bin entries winning ties."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, packed.device)
+    z = torch.full(X.shape, DEPTH_CLEAR, dtype=torch.float32, device=X.device)
+    tid = torch.full(X.shape, NO_TRI, dtype=torch.int32, device=X.device)
+    for k in range(_slots(bins, counts)):
+        c, ids, ok = _triangle_slot(packed, bins, counts, k)
+        cov, zv = _coverage(c, X, Y)
+        take = cov & (zv >= 0.0) & (zv >= z) & ok
+        z = torch.where(take, zv, z)
+        tid = torch.where(take, ids, tid)
+    f = lambda t: _tiles_to_frame(t, tiles_x, tiles_y).contiguous()  # noqa: E731
+    return f(z), f(tid)
+
+
+def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
+                           tile_w: int, tile_h: int):
+    """Launch the raster_deferred CUDA kernel (csrc/raster_deferred.cu) on
+    CUDA tensors: the same (z, tid) as rasterize_plain."""
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_deferred_kernel takes CUDA tensors, got {dev}")
+    _check_inputs(packed, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
+                  GROUP, cols=SETUP_COLS)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    z = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    tid = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    _launch("raster_deferred_launch", _ptr(packed), ctypes.c_int(packed.shape[0]),
+            _ptr(bins), _ptr(counts), ctypes.c_int(bins.shape[1]),
+            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(z), _ptr(tid),
+            _stream(dev))
+    deferred_counter.launches += 1
+    return z, tid
+
+
+def rasterize(packed, bins, counts, *, tiles_x: int, tiles_y: int, tile_w: int,
+              tile_h: int):
+    """Deferred visibility raster (the JAX package's raster.rasterize).
+
+    packed: (T, 16) f32 setup rows (vertex.triangle_setup_c); bins:
+    (n_tiles, W) i32 per-triangle ids in ascending order (refine_bins /
+    expand_bins); counts: (n_tiles,) i32. Returns (z (Hp, Wp) f32, tid
+    (Hp, Wp) i32, -1 where no triangle). Reversed-Z >=, later bin entries
+    win ties. CPU tensors take the plain version, CUDA tensors the kernel.
+    """
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_inputs(packed, bins, counts, chunk=CHUNK, group=GROUP,
+                  cols=SETUP_COLS, **tiles)
+    if packed.device.type == "cuda":
+        return raster_deferred_kernel(packed, bins, counts, **tiles)
+    return rasterize_plain(packed, bins, counts, **tiles)
+
+
+def rasterize_peel_plain(packed, bins, counts, z_base, last, *, tiles_x: int,
+                         tiles_y: int, tile_w: int, tile_h: int):
+    """Plain PyTorch twin of the raster_peel_deferred kernel: layer
+    (Hp, Wp) i32, ID_INF where the pixel has no further fragment."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, packed.device)
+    zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
+    lt = _frame_to_tiles(last, tiles_x, tiles_y, tile_w, tile_h)
+    best = torch.full(X.shape, ID_INF, dtype=torch.int32, device=X.device)
+    for k in range(_slots(bins, counts)):
+        c, ids, ok = _triangle_slot(packed, bins, counts, k)
+        cov, zv = _coverage(c, X, Y)
+        take = (cov & (zv >= 0.0) & (zv >= zb) & (ids > lt) & (ids < best)
+                & ok)
+        best = torch.where(take, ids, best)
+    return _tiles_to_frame(best, tiles_x, tiles_y).contiguous()
+
+
+def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
+                       tiles_y: int, tile_w: int, tile_h: int):
+    """Launch the raster_peel_deferred CUDA kernel (csrc/raster_deferred.cu)
+    on CUDA tensors: the same layer plane as rasterize_peel_plain."""
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_peel_kernel takes CUDA tensors, got {dev}")
+    _check_inputs(packed, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
+                  GROUP, z_base=z_base, last=last, cols=SETUP_COLS)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    layer = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    _launch("raster_peel_deferred_launch", _ptr(packed),
+            ctypes.c_int(packed.shape[0]), _ptr(bins), _ptr(counts),
+            ctypes.c_int(bins.shape[1]), ctypes.c_int(tiles_x),
+            ctypes.c_int(tiles_y), _ptr(z_base), _ptr(last), _ptr(layer),
+            _stream(dev))
+    peel_counter.launches += 1
+    return layer
+
+
+def rasterize_peel(packed, bins, counts, z_base, last, *, tiles_x: int,
+                   tiles_y: int, tile_w: int, tile_h: int):
+    """One deferred transparency peel (the JAX package's
+    raster.rasterize_peel): per pixel the smallest triangle id > last that
+    covers it with 0 <= z <= 1 and z >= z_base. bins: per-triangle ids
+    (refine_bins / expand_bins). Returns (Hp, Wp) i32, ID_INF where no
+    fragment. CPU tensors take the plain version, CUDA tensors the kernel.
+    """
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_inputs(packed, bins, counts, chunk=CHUNK, group=GROUP, z_base=z_base,
+                  last=last, cols=SETUP_COLS, **tiles)
+    if packed.device.type == "cuda":
+        return raster_peel_kernel(packed, bins, counts, z_base, last, **tiles)
+    return rasterize_peel_plain(packed, bins, counts, z_base, last, **tiles)

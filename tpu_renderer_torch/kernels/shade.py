@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_renderer_torch.kernels.common import fma
+from tpu_renderer_torch.kernels.common import dot3_seq, fma
 from tpu_renderer_torch.resources import (
     FILTER_MAG_LINEAR,
     FILTER_MIN_LINEAR,
@@ -27,8 +27,32 @@ from tpu_renderer_torch.resources import (
 #   base_y, w0, h0, n_levels, filter_flags), 37-42 uv-gradient planes
 #   (nu_a, nu_b, nv_a, nv_b, den_a, den_b), 43 den_c, 44-47 screen box.
 
+# the fat-row columns shade_core reads (the JAX package's C_* constants)
+C_ATTR, C_TEX, C_GRAD, C_DEN = 13, 31, 37, 43
+
 _INV255 = 1.0 / 255.0
 _INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
+
+
+def build_shade_rows(packed, attrs, aabb, meta6):
+    """(T, 16) packed setup rows + (T, 3, 6) per-corner attributes -> (T, 48)
+    fat rows (the JAX package's shade.build_shade_rows with aabb and meta6
+    given): the attributes fold into numerator planes, pa_a = sum_i
+    A_i * attr[i, a] and likewise pb, pc; the uv-gradient and den planes
+    are the slopes' and constants' sums."""
+    A = [packed[:, 3 * e] for e in range(3)]
+    B = [packed[:, 3 * e + 1] for e in range(3)]
+    Cc = [packed[:, 3 * e + 2] for e in range(3)]
+    pa, pb, pc = ([dot3_seq(K[0], attrs[:, 0, a], K[1], attrs[:, 1, a],
+                             K[2], attrs[:, 2, a]) for a in range(6)]
+                  for K in (A, B, Cc))
+    # jnp.sum over the 3 edges: a sequential reduce
+    sumA, sumB, den_c = ((K[0] + K[1]) + K[2] for K in (A, B, Cc))
+    planes = ([packed[:, k] for k in range(12)] + [packed[:, 13]]
+              + pa + pb + pc + [meta6[:, k] for k in range(6)]
+              + [pa[4], pb[4], pa[5], pb[5], sumA, sumB, den_c]
+              + [aabb[:, k] for k in range(4)])
+    return torch.stack(planes, dim=1).contiguous()
 
 
 def _chan(texel, shift: int):
@@ -153,34 +177,106 @@ def sample_texture(atlas, base_x, base_y, w0, h0, n_levels, flags, u, v,
 
 
 def light_and_texture(light_num, color_in, uv, texmeta, grads, atlas,
-                      ambient_rgb, sun_power, trilinear: bool = True,
-                      pot: bool = False):
+                      ambient_rgb, sun_power, textured: bool = True,
+                      trilinear: bool = True, pot: bool = False):
     """mesh.frag:12-19 given interpolated attribute planes. texmeta: 6
-    planes [base_x, base_y, w0, h0, n_levels, filter_flags]. Returns
+    planes [base_x, base_y, w0, h0, n_levels, filter_flags]; grads are
+    ignored when textured is False (no texture is sampled). Returns
     (r, g, b) planes."""
-    tex = sample_texture(atlas, texmeta[0], texmeta[1], texmeta[2],
-                         texmeta[3], texmeta[4], texmeta[5], uv[0], uv[1],
-                         grads, trilinear=trilinear, pot=pot)
+    if textured:
+        tex = sample_texture(atlas, texmeta[0], texmeta[1], texmeta[2],
+                             texmeta[3], texmeta[4], texmeta[5], uv[0], uv[1],
+                             grads, trilinear=trilinear, pot=pot)
     # mesh.frag:13 — light = max(dot(N, sunlight_direction.xyz), 0.1)
     light = torch.maximum(light_num, torch.tensor(0.1, device=light_num.device))
     scale = light * sun_power   # mesh.frag:15-18
     out = []
     for c in range(3):
-        color = color_in[c] * tex[c]
-        # color * scale + color * ambient, contracted as XLA does
-        out.append(fma(color, scale, color * ambient_rgb[c]))
+        # color * scale + color * ambient, contracted as XLA does: with the
+        # texture the scale product fuses, without it the ambient one
+        if textured:
+            color = color_in[c] * tex[c]
+            out.append(fma(color, scale, color * ambient_rgb[c]))
+        else:
+            color = color_in[c]
+            out.append(fma(color, ambient_rgb[c], color * scale))
     return tuple(out)
 
 
 def shade_fused(attrs, meta, inv, atlas, ambient_rgb, sun_power,
-                trilinear: bool = True, pot: bool = False):
-    """Shade from the fused raster's outputs: attrs (6, Hp, Wp)
+                textured: bool = True, trilinear: bool = True,
+                pot: bool = False):
+    """Shade from the fused raster's or peel's outputs: attrs (6, Hp, Wp)
     interpolated [light_num, rgb, uv]; meta (13, Hp, Wp) per-winner
     constants; inv (Hp, Wp). Returns (3, Hp, Wp) rgb."""
     grads = uv_gradients(attrs[4], attrs[5],
-                         tuple(meta[6 + m] for m in range(6)), inv)
+                         tuple(meta[6 + m] for m in range(6)), inv) \
+        if textured else None
     r, g, b = light_and_texture(
         attrs[0], (attrs[1], attrs[2], attrs[3]),
         (attrs[4], attrs[5]), tuple(meta[m] for m in range(6)), grads,
-        atlas, ambient_rgb, sun_power, trilinear=trilinear, pot=pot)
+        atlas, ambient_rgb, sun_power, textured=textured,
+        trilinear=trilinear, pot=pot)
     return torch.stack([r, g, b])
+
+
+def shade_core(t, rows, atlas, ambient_rgb, sun_power, textured: bool = True,
+               trilinear: bool = True, pot: bool = False):
+    """mesh.frag for a per-pixel triangle index plane t (a valid index
+    everywhere; the caller masks pixels that have none) over the fat rows
+    (the JAX package's shade.shade_core): one row gather per pixel, then
+    the perspective-correct interpolation numerator * 1/den. Returns
+    (3, Hp, Wp) rgb."""
+    hp, wp = t.shape
+    dev = t.device
+    g = rows[t.long()]                                # (Hp, Wp, 48)
+    xx = (torch.arange(wp, dtype=torch.int32, device=dev).to(torch.float32)
+          + 0.5)[None, :].expand(hp, wp)
+    yy = (torch.arange(hp, dtype=torch.int32, device=dev).to(torch.float32)
+          + 0.5)[:, None].expand(hp, wp)
+
+    def plane(a, b, c):   # a*X + b*Y + c, contracted as XLA does
+        return fma(g[..., a], xx, g[..., b] * yy) + g[..., c]
+
+    den = plane(C_GRAD + 4, C_GRAD + 5, C_DEN)
+    inv = torch.where(den != 0.0, 1.0 / den, torch.zeros((), device=dev))
+    interp = [plane(C_ATTR + a, C_ATTR + 6 + a, C_ATTR + 12 + a) * inv
+              for a in range(6)]
+    grads = uv_gradients(interp[4], interp[5],
+                         tuple(g[..., C_GRAD + m] for m in range(6)), inv) \
+        if textured else None
+    r, gg, b = light_and_texture(
+        interp[0], (interp[1], interp[2], interp[3]), (interp[4], interp[5]),
+        tuple(g[..., C_TEX + m] for m in range(6)), grads, atlas, ambient_rgb,
+        sun_power, textured=textured, trilinear=trilinear, pot=pot)
+    return torch.stack([r, gg, b])
+
+
+def shade(tid, rows, atlas, ambient_rgb, sun_power, background,
+          trilinear: bool = True, pot: bool = False):
+    """The deferred opaque pass (the JAX package's shade.shade): mesh.frag
+    over the visibility buffer tid (-1 = background); the background
+    (4, Hp, Wp) survives where no triangle won (the LOAD-op attachment).
+    Returns (4, Hp, Wp)."""
+    valid = tid >= 0
+    rgb = shade_core(torch.where(valid, tid, 0), rows, atlas, ambient_rgb,
+                     sun_power, trilinear=trilinear, pot=pot)
+    rgb = torch.where(valid[None], rgb, background[:3])
+    alpha = torch.where(valid, torch.ones((), device=tid.device), background[3])
+    return torch.cat([rgb, alpha[None]])
+
+
+def blend_layer(fb, tid, rows, atlas, ambient_rgb, sun_power,
+                textured: bool = True, trilinear: bool = True,
+                pot: bool = False):
+    """Additive blend of one peeled layer into the framebuffer (the JAX
+    package's shade.blend_layer; enable_blending_additive,
+    vk_pipelines.cpp:157-167): rgb = src + dst * dstAlpha, alpha = 1 where
+    the layer has a fragment (tid >= 0). Returns (4, Hp, Wp)."""
+    found = tid >= 0
+    src = shade_core(torch.where(found, tid, 0), rows, atlas, ambient_rgb,
+                     sun_power, textured=textured, trilinear=trilinear, pot=pot)
+    # src + dst * dstAlpha, contracted as XLA does
+    rgb = torch.where(found[None], fma(fb[:3], fb[3][None], src), fb[:3])
+    alpha = torch.where(found, torch.ones((), device=tid.device), fb[3])
+    return torch.cat([rgb, alpha[None]])

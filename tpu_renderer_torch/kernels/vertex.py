@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_renderer_torch.kernels.common import fma
+from tpu_renderer_torch.kernels.common import dot3_seq, fma
 
 
 class CornerData(NamedTuple):
@@ -41,9 +41,9 @@ class CornerData(NamedTuple):
 
 def expand_corners(positions, normals, colors, uvs, tri_vidx, tri_draw,
                    tri_valid, draw_mat, mat_color_factors, mat_meta,
-                   device="cpu") -> CornerData:
-    """Build CornerData from indexed host geometry (numpy arrays); runs once
-    per scene (scene.flatten_scene)."""
+                   device="cuda") -> CornerData:
+    """Build CornerData on `device` (the CUDA card by default) from indexed
+    host geometry (numpy arrays); runs once per scene (scene.flatten_scene)."""
     vidx = np.asarray(tri_vidx, np.int64)
     draw = np.asarray(tri_draw)
     draw_mat = np.asarray(draw_mat)
@@ -117,18 +117,13 @@ def draw_visibility(viewproj, draw_model, bounds_origin, bounds_extents):
     return ~rejected
 
 
-def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
-                        draw_visible, viewproj, width: int, height: int,
-                        sun_dir=None):
-    """Per-frame mesh.vert + primitive setup over corner-expanded geometry.
-    Returns (rows (T, 48) f32 in the fat-row layout of shade.py, aabb (T, 4)
-    f32 screen boxes, valid (T,) bool)."""
+def _homogeneous(corners: CornerData, tri_draw, draw_model, draw_visible,
+                 viewproj, width: int, height: int, sun_dir):
+    """The front half shared by both setups: per corner the viewport-mapped
+    homogeneous point p[i] = (Xh, Yh, w) and clip z, and per triangle its
+    draw's [mesh-space sun xyz, visibility] row lv."""
     dev = draw_model.device
     f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    W = f(width)
-    H = f(height)
-    T = tri_draw.shape[0]
-
     mvp = mat4_mul(viewproj, draw_model)                              # (D,4,4)
     sd = torch.zeros(3, dtype=torch.float32, device=dev) if sun_dir is None \
         else sun_dir[:3]
@@ -151,45 +146,112 @@ def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
              for c in range(4)] for i in range(3)]                   # [i][c]
     w = [clip[i][3] for i in range(3)]
     zc = [clip[i][2] for i in range(3)]
-    xh = [(clip[i][0] + w[i]) * (f(0.5) * W) for i in range(3)]
-    yh = [(clip[i][1] + w[i]) * (f(0.5) * H) for i in range(3)]
-    p = [(xh[i], yh[i], w[i]) for i in range(3)]
+    xh = [(clip[i][0] + w[i]) * (f(0.5) * f(width)) for i in range(3)]
+    yh = [(clip[i][1] + w[i]) * (f(0.5) * f(height)) for i in range(3)]
+    return [(xh[i], yh[i], w[i]) for i in range(3)], zc, lv
 
-    e0 = _cross(p[1], p[2])
-    e1 = _cross(p[2], p[0])
-    e2 = _cross(p[0], p[1])
-    det = _dot3(e0[0], p[0][0], e0[1], p[0][1], e0[2], p[0][2])
 
-    good = tri_valid & (tri_draw >= 0) & (lv[3] > 0) \
-        & (det != 0.0) & torch.isfinite(det)
-    one = f(1.0)
-    s = torch.where(det < 0, f(-1.0), one)
-    inv_det = torch.where(det == 0.0, f(0.0), one / torch.abs(det))
-    dead = (f(0.0), f(0.0), f(-1.0))
-    # cp[e][c]: coefficient c of edge plane e; dead rows are the
-    # never-covered (0, 0, -1) row
-    es = [[e[c] * s for c in range(3)] for e in (e0, e1, e2)]
-    cp = [[torch.where(good, es[k][c] * inv_det, dead[c])
-           for c in range(3)] for k in range(3)]
-    zplane = [_dot3(cp[0][c], zc[0], cp[1][c], zc[1], cp[2][c], zc[2])
-              for c in range(3)]
-
-    # screen AABB: trustworthy only when every w is comfortably positive;
-    # otherwise the triangle crosses the eye plane => full frame
+def _screen_aabb(p, good, width: int, height: int):
+    """Screen boxes (xmin, ymin, xmax, ymax): trustworthy only when every w
+    is comfortably positive; otherwise the triangle crosses the eye plane
+    => full frame. Dead triangles get the empty box."""
+    dev = good.device
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    W, H = f(width), f(height)
+    w = [p[i][2] for i in range(3)]
     eps = f(1e-6)
     w_ok = (w[0] > eps) & (w[1] > eps) & (w[2] > eps)
     sw = [torch.where(w[i] == 0.0, f(1e-20), w[i]) for i in range(3)]
-    sx = [xh[i] / sw[i] for i in range(3)]
-    sy = [yh[i] / sw[i] for i in range(3)]
-    zero = torch.zeros((T,), dtype=torch.float32, device=dev)
+    sx = [p[i][0] / sw[i] for i in range(3)]
+    sy = [p[i][1] / sw[i] for i in range(3)]
+    zero = torch.zeros(good.shape, dtype=torch.float32, device=dev)
     xmin = torch.where(w_ok, torch.minimum(torch.minimum(sx[0], sx[1]), sx[2]), zero)
     ymin = torch.where(w_ok, torch.minimum(torch.minimum(sy[0], sy[1]), sy[2]), zero)
     xmax = torch.where(w_ok, torch.maximum(torch.maximum(sx[0], sx[1]), sx[2]), W)
     ymax = torch.where(w_ok, torch.maximum(torch.maximum(sy[0], sy[1]), sy[2]), H)
     empty = (f(-1.0), f(-1.0), f(-2.0), f(-2.0))
-    ab = [torch.where(good, torch.minimum(torch.clamp(v, min=0.0), hi), e)
-          for v, hi, e in ((xmin, W, empty[0]), (ymin, H, empty[1]),
-                           (xmax, W, empty[2]), (ymax, H, empty[3]))]
+    return [torch.where(good, torch.minimum(torch.clamp(v, min=0.0), hi), e)
+            for v, hi, e in ((xmin, W, empty[0]), (ymin, H, empty[1]),
+                             (xmax, W, empty[2]), (ymax, H, empty[3]))]
+
+
+def _edge_planes(p, det, tri_valid, tri_draw, vis):
+    """Normalised edge planes cp[e][c] (dead rows the never-covered
+    (0, 0, -1) row), the sign-applied adjugate rows es, 1/|det| and the
+    liveness mask good."""
+    dev = det.device
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    good = tri_valid & (tri_draw >= 0) & (vis > 0) \
+        & (det != 0.0) & torch.isfinite(det)
+    one = f(1.0)
+    s = torch.where(det < 0, f(-1.0), one)
+    inv_det = torch.where(det == 0.0, f(0.0), one / torch.abs(det))
+    dead = (f(0.0), f(0.0), f(-1.0))
+    e = (_cross(p[1], p[2]), _cross(p[2], p[0]), _cross(p[0], p[1]))
+    es = [[e[k][c] * s for c in range(3)] for k in range(3)]
+    cp = [[torch.where(good, es[k][c] * inv_det, dead[c])
+           for c in range(3)] for k in range(3)]
+    return cp, es, inv_det, good
+
+
+class TriangleSetup(NamedTuple):
+    """Per-frame setup of the deferred path (the JAX package's
+    vertex.TriangleSetup)."""
+
+    packed: torch.Tensor  # (T, 16) f32 [A0,B0,C0, A1,B1,C1, A2,B2,C2,
+    #                       zA,zB,zC, valid, mat_id, 0, 0]
+    aabb: torch.Tensor    # (T, 4) f32 screen boxes, clamped
+    attrs: torch.Tensor   # (T, 3, 6) f32 per-corner [light_num, r, g, b, u, v]
+    valid: torch.Tensor   # (T,) bool
+
+
+SETUP_COLS = 16
+
+
+def triangle_setup_c(corners: CornerData, tri_draw, tri_valid, draw_model,
+                     draw_visible, viewproj, width: int, height: int,
+                     sun_dir=None) -> TriangleSetup:
+    """Per-frame mesh.vert + primitive setup of the deferred path (the JAX
+    package's vertex.triangle_setup_c): 16-column packed rows, screen
+    boxes, per-corner attributes and validity. The same math as
+    triangle_setup_rows, but its reductions (the determinant, the depth
+    plane, the light dot) are the JAX function's sums and einsums, which
+    XLA-CPU accumulates in order with fused multiply-adds (dot3_seq)."""
+    p, zc, lv = _homogeneous(corners, tri_draw, draw_model, draw_visible,
+                             viewproj, width, height, sun_dir)
+    e0 = _cross(p[1], p[2])
+    det = dot3_seq(e0[0], p[0][0], e0[1], p[0][1], e0[2], p[0][2])
+    cp, _, _, good = _edge_planes(p, det, tri_valid, tri_draw, lv[3])
+    zplane = [dot3_seq(cp[0][c], zc[0], cp[1][c], zc[1], cp[2][c], zc[2])
+              for c in range(3)]
+    ab = _screen_aabb(p, good, width, height)
+    nrm, col, uv = corners.nrm, corners.col, corners.uv
+    light = [dot3_seq(nrm[:, i, 0], lv[0], nrm[:, i, 1], lv[1],
+                       nrm[:, i, 2], lv[2]) for i in range(3)]
+    attrs = torch.cat([torch.stack(light, 1)[..., None], col, uv], dim=-1)
+    zero = torch.zeros_like(det)
+    packed = torch.stack(
+        [cp[e][c] for e in range(3) for c in range(3)] + zplane
+        + [good.to(torch.float32), corners.mat.to(torch.float32), zero, zero],
+        dim=1).contiguous()
+    return TriangleSetup(packed=packed, aabb=torch.stack(ab, 1).contiguous(),
+                         attrs=attrs.contiguous(), valid=good)
+
+
+def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
+                        draw_visible, viewproj, width: int, height: int,
+                        sun_dir=None):
+    """Per-frame mesh.vert + primitive setup over corner-expanded geometry.
+    Returns (rows (T, 48) f32 in the fat-row layout of shade.py, aabb (T, 4)
+    f32 screen boxes, valid (T,) bool)."""
+    p, zc, lv = _homogeneous(corners, tri_draw, draw_model, draw_visible,
+                             viewproj, width, height, sun_dir)
+    e0 = _cross(p[1], p[2])
+    det = _dot3(e0[0], p[0][0], e0[1], p[0][1], e0[2], p[0][2])
+    cp, es, inv_det, good = _edge_planes(p, det, tri_valid, tri_draw, lv[3])
+    zplane = [_dot3(cp[0][c], zc[0], cp[1][c], zc[1], cp[2][c], zc[2])
+              for c in range(3)]
+    ab = _screen_aabb(p, good, width, height)
 
     # per-corner attributes [light_num, r, g, b, u, v]; light_num is
     # dot(corner normal, mesh-space sun) (mesh.frag:13 uses the normal
@@ -207,10 +269,11 @@ def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
                    for a in range(6)] for K in (A, B, Cc))
     # the plane sums: XLA sinks the select through the adds and contracts
     # cp0 + cp1 + cp2 into fma(es2, inv_det, fma(es0, inv_det, es1 * inv_det))
+    dead = (0.0, 0.0, -1.0)
     sumA, sumB, den_c = (
         torch.where(good, fma(es[2][c], inv_det,
                               fma(es[0][c], inv_det, es[1][c] * inv_det)),
-                    dead[c] * 3.0)
+                    torch.tensor(dead[c] * 3.0, device=det.device))
         for c in range(3))
     grad = [pa[4], pb[4], pa[5], pb[5], sumA, sumB]
     meta6 = corners.meta6

@@ -138,12 +138,12 @@ class TextureAtlas(NamedTuple):
 
 
 def build_atlas(images: List[np.ndarray], mipmapped=None,
-                device="cpu") -> TextureAtlas:
+                device="cuda") -> TextureAtlas:
     """Shelf-pack textures as analytic packed-pyramid strips into one quad
     atlas. The atlas width is the power-of-two cover of the widest strip.
 
     images: list of (h, w, 4) uint8. mipmapped: per-texture bools (or one
-    bool / None = all mipmapped). device: where the quads tensor lives.
+    bool / None = all mipmapped). device: where the quads tensor lives (the CUDA card by default).
     """
     assert images, "atlas needs at least one image"
     n = len(images)

@@ -389,11 +389,11 @@ def _pad_tris(vidx, draw, n):
 
 
 def flatten_scene(scene: LoadedScene, top_matrix: Optional[np.ndarray] = None,
-                  mipmapped: bool = True, device="cpu") -> FlattenedDrawList:
+                  mipmapped: bool = True, device="cuda") -> FlattenedDrawList:
     """update_scene + draw_geometry's host half (vk_engine.cpp:1357-1378):
     emit RenderObjects, sort opaque by (material, mesh) — the analog of the
     reference's (material ptr, index buffer) sort — and pack triangle
-    tensors on `device`.
+    tensors on `device` (the CUDA card unless the caller names another).
     """
     if top_matrix is None:
         top_matrix = np.eye(4, dtype=np.float32)

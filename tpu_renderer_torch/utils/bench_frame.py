@@ -1,17 +1,21 @@
 """The bench frame on one CUDA card: its scene, and where its time goes.
 
-    python3 -m tpu_renderer_torch.utils.bench_frame [--frames 20] [--out DIR]
+    python3 -m tpu_renderer_torch.utils.bench_frame [--path PATH] [--frames 20] [--out DIR]
 
 The bench frame is the JAX package's bench.py frame: the demo scene at
 grid=64 (seed 0), 1920x1080, camera (0, 6, 128), pitch -0.18, the default
-gradient background, through Engine(device="cuda").draw_device(). Run as a
-script, this module prints, each from its own pass over the same engine:
+gradient background, through Engine(device="cuda").draw_device(). --path
+picks the frame: "bench" (the default), "textured-glass" (the same scene,
+its glass sampling the checker texture: the depth peel, kernel 2.3) or
+"deferred" (fused=False: kernels 2.4 and 2.5). Run as a script, this
+module prints, each from its own pass over the same engine:
 
 1. frame ms: host clock around draw_device() ending in synchronize(),
    median, p25, p75 and min over --frames frames; and the peak device
    memory of one frame;
-2. stage ms: each stage of pipeline.render_frame (STAGES) between two
-   synchronize() calls, host clock, median over --frames frames;
+2. stage ms: each stage of pipeline.render_frame (PATHS[path]) between two
+   synchronize() calls, host clock, summed within a frame, median over
+   --frames frames;
 3. under torch.profiler, over --profile-frames frames as in 1: device busy
    ms a frame (the union of kernel, memcpy and memset intervals), device
    operations a frame, the frame's wall ms under the profiler, and the idle
@@ -23,6 +27,7 @@ script, this module prints, each from its own pass over the same engine:
 
 It writes key_averages.txt (pass 3) and bench_frame.json under --out
 (default chiprun_out/profile in the checkout). Without CUDA it exits 1.
+For a --path other than "bench", both names end in _<path>.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from tpu_renderer_torch import pipeline
 from tpu_renderer_torch.config import RendererConfig
 from tpu_renderer_torch.engine import Engine
 from tpu_renderer_torch.kernels import raster, shade, vertex
+from tpu_renderer_torch.scene import load_scene
 from tpu_renderer_torch.utils.demo import build_demo_glb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -61,6 +67,34 @@ STAGES = (
     ("accum B", raster, "rasterize_accum"),
     ("present", pipeline, "to_packed_u32"),
 )
+# The textured-glass frame: shade runs once for the opaque pass and once a
+# layer; the peel's binning (pipeline._bins) falls under "other".
+PEEL_STAGES = (
+    ("cull", vertex, "draw_visibility"),
+    ("setup", vertex, "triangle_setup_rows"),
+    ("sort+bins", pipeline, "_binned"),
+    ("raster A + epilogue", raster, "rasterize_fused"),
+    ("peel 2.3 + epilogue", raster, "rasterize_peel_fused"),
+    ("shade", shade, "shade_fused"),
+    ("present", pipeline, "to_packed_u32"),
+)
+# The deferred frame (fused=False): opaque and transparent setups, bins and
+# refines summed; the layer blend shades its layer.
+DEFERRED_STAGES = (
+    ("cull", vertex, "draw_visibility"),
+    ("setup", vertex, "triangle_setup_c"),
+    ("fat rows", shade, "build_shade_rows"),
+    ("chunk bins", raster, "bin_triangles"),
+    ("refine bins", raster, "refine_bins"),
+    ("raster 2.4", raster, "rasterize"),
+    ("shade", shade, "shade"),
+    ("peel 2.5", raster, "rasterize_peel"),
+    ("blend layer", shade, "blend_layer"),
+    ("present", pipeline, "to_packed_u32"),
+)
+PATHS = {"bench": STAGES, "textured-glass": PEEL_STAGES, "deferred": DEFERRED_STAGES}
+HAND_KERNELS = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel",
+                "raster_deferred_kernel", "raster_peel_deferred_kernel")
 STAGE_PREFIX = "stage:"
 
 
@@ -77,16 +111,49 @@ def nvidia_smi() -> str:
     return line
 
 
+def texture_the_glass(scene):
+    """The demo scene's glass material samples the checker material's
+    texture, with its sampler: the scene's transparency then binds a
+    texture and takes the depth peel. Returns the scene."""
+    checker = next(m for m in scene.materials if m.name == "checker")
+    for m in scene.materials:
+        if m.name == "glass":
+            m.tex, m.filter_flags = checker.tex, checker.filter_flags
+    return scene
+
+
 def bench_engine(scene_path: str, device="cuda", grid: int = BENCH["grid"],
-                 width: int = BENCH["width"], height: int = BENCH["height"]) -> Engine:
-    """An initialised Engine on the bench scene; writes the scene's GLB to
-    scene_path. The size arguments exist for small runs on the CPU."""
-    build_demo_glb(scene_path, grid=grid, seed=0)
-    cfg = RendererConfig(width=width, height=height, camera_position=BENCH["camera"])
+                 width: int = BENCH["width"], height: int = BENCH["height"],
+                 scene=None, **config) -> Engine:
+    """An initialised Engine on the bench scene, at the bench camera. With
+    no scene given, writes the scene's GLB (demo grid `grid`) to scene_path
+    and loads it; otherwise renders the given LoadedScene. The size
+    arguments exist for small runs on the CPU; config holds further
+    RendererConfig fields (fused=False: the deferred path)."""
+    cfg = RendererConfig(width=width, height=height,
+                         **{"camera_position": BENCH["camera"], **config})
     eng = Engine(cfg, device=device)
     eng.camera.pitch = np.float32(BENCH["pitch"])
-    eng.init(scene_path=scene_path)
+    if scene is None:
+        build_demo_glb(scene_path, grid=grid, seed=0)
+        eng.init(scene_path=scene_path)
+    else:
+        eng.init(scene=scene)
     return eng
+
+
+def path_engine(path: str, scene_path: str, device="cuda", **size) -> Engine:
+    """The engine of one of PATHS on the bench scene (size: grid, width,
+    height and camera_position, for small runs on the CPU)."""
+    if path == "bench":
+        return bench_engine(scene_path, device=device, **size)
+    grid = size.pop("grid", BENCH["grid"])
+    build_demo_glb(scene_path, grid=grid, seed=0)
+    scene = load_scene(scene_path)
+    if path == "textured-glass":
+        return bench_engine(scene_path, device=device, scene=texture_the_glass(scene),
+                            **size)
+    return bench_engine(scene_path, device=device, scene=scene, fused=False, **size)
 
 
 def _sync(device) -> None:
@@ -95,11 +162,11 @@ def _sync(device) -> None:
 
 
 @contextlib.contextmanager
-def staged(device, record):
-    """Run every STAGES function between two synchronize() calls, inside a
+def staged(device, record, stages=STAGES):
+    """Run every stage function between two synchronize() calls, inside a
     record_function("stage:<name>") range; record(name, ms) receives each
     call's host ms. The functions are restored on exit."""
-    originals = [(mod, attr, getattr(mod, attr)) for _, mod, attr in STAGES]
+    originals = [(mod, attr, getattr(mod, attr)) for _, mod, attr in stages]
 
     def wrap(name, fn):
         def call(*args, **kwargs):
@@ -113,7 +180,7 @@ def staged(device, record):
         return call
 
     try:
-        for (name, mod, attr), (_, _, fn) in zip(STAGES, originals):
+        for (name, mod, attr), (_, _, fn) in zip(stages, originals):
             setattr(mod, attr, wrap(name, fn))
         yield
     finally:
@@ -134,7 +201,7 @@ def frame_times(eng: Engine, n: int) -> list:
     return times
 
 
-def stage_times(eng: Engine, n: int) -> dict:
+def stage_times(eng: Engine, n: int, stages=STAGES) -> dict:
     """Median host ms of each stage (summed within a frame) and of the
     synchronised frame, over n frames."""
     frames = []
@@ -142,11 +209,11 @@ def stage_times(eng: Engine, n: int) -> dict:
     def record(name, ms):
         frames[-1][name] = frames[-1].get(name, 0.0) + ms
 
-    with staged(eng.device, record):
+    with staged(eng.device, record, stages):
         for _ in range(n):
             frames.append({})
             frames[-1]["frame"] = frame_times(eng, 1)[0]
-    names = [s[0] for s in STAGES] + ["frame"]
+    names = [s[0] for s in stages] + ["frame"]
     return {k: statistics.median(f.get(k, 0.0) for f in frames) for k in names}
 
 
@@ -171,7 +238,7 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile_frames(eng: Engine, n: int, out_dir: str) -> dict:
+def profile_frames(eng: Engine, n: int, out_dir: str, suffix: str = "") -> dict:
     """Pass 3: n unsynchronised frames under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,8 +255,8 @@ def profile_frames(eng: Engine, n: int, out_dir: str) -> dict:
     busy_ms = _union_us(dev) / 1000.0
     kernels = sum(1 for *_, name in dev if not name.startswith(("Memcpy", "Memset")))
     hand = {k: sum(e - s for s, e, name in dev if k in name) / 1000.0 / n
-            for k in ("raster_fused_kernel", "raster_accum_kernel")}
-    with open(os.path.join(out_dir, "key_averages.txt"), "w") as f:
+            for k in HAND_KERNELS}
+    with open(os.path.join(out_dir, f"key_averages{suffix}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=80))
     return dict(frames=n, wall_ms_per_frame=wall_ms / n,
@@ -199,21 +266,21 @@ def profile_frames(eng: Engine, n: int, out_dir: str) -> dict:
                 kernels_per_frame=kernels / n, hand_kernel_ms_per_frame=hand)
 
 
-def profile_stages(eng: Engine, n: int) -> dict:
+def profile_stages(eng: Engine, n: int, stages=STAGES) -> dict:
     """Pass 4: device ms a frame of each stage, from n synchronised-stage
     frames under torch.profiler; device work outside every stage window
     counts as "other"."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with staged(eng.device, lambda name, ms: None):
+        with staged(eng.device, lambda name, ms: None, stages):
             frame_times(eng, n)
     events = prof.events()
     windows = sorted((e.time_range.start, e.time_range.end, e.name[len(STAGE_PREFIX):])
                      for e in events
                      if e.device_type == torch.autograd.DeviceType.CPU
                      and e.name.startswith(STAGE_PREFIX))
-    per_stage = {s[0]: 0.0 for s in STAGES}
+    per_stage = {s[0]: 0.0 for s in stages}
     per_stage["other"] = 0.0
     for s, e, _ in _device_intervals(events):
         per_stage[_window_of(windows, s, e)] += (e - s) / 1000.0
@@ -238,6 +305,7 @@ def _window_of(windows, s: float, e: float) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=sorted(PATHS), default="bench")
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--profile-frames", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile"))
@@ -248,8 +316,12 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     print(f"[device] {smi}", flush=True)
     os.makedirs(args.out, exist_ok=True)
-    eng = bench_engine(os.path.join(args.out, "bench_scene.glb"))
+    eng = path_engine(args.path, os.path.join(args.out, "bench_scene.glb"))
+    stages = PATHS[args.path]
+    suffix = "" if args.path == "bench" else f"_{args.path}"
+    print(f"[path] {args.path}: fused={eng._fused}, caps {eng._caps}", flush=True)
     eng.draw()                              # warm-up and build; fills eng.stats
+    eng.draw()                              # the deferred caps have escalated
     frame_times(eng, 2)
 
     torch.cuda.reset_peak_memory_stats()
@@ -261,10 +333,10 @@ def main(argv=None) -> int:
     print(f"[frame] {eng.stats.triangle_count} tris; ms over {args.frames} frames: "
           + ", ".join(f"{k} {v:.3f}" for k, v in frame.items())
           + f"; peak device memory {peak_mib:.1f} MiB", flush=True)
-    stages = stage_times(eng, args.frames)
+    stage_ms = stage_times(eng, args.frames, stages)
     print(f"[stages] host ms, synchronised, median of {args.frames}: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
-    prof = profile_frames(eng, args.profile_frames, args.out)
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()), flush=True)
+    prof = profile_frames(eng, args.profile_frames, args.out, suffix)
     print(f"[profile] {prof['frames']} frames under the profiler: wall "
           f"{prof['wall_ms_per_frame']:.3f} ms/frame, device busy "
           f"{prof['device_busy_ms_per_frame']:.3f} ms/frame, idle share "
@@ -272,12 +344,13 @@ def main(argv=None) -> int:
           f"ops/frame ({prof['kernels_per_frame']:.1f} kernels); "
           + ", ".join(f"{k} {v:.3f} ms/frame"
                       for k, v in prof["hand_kernel_ms_per_frame"].items()), flush=True)
-    dev_stages = profile_stages(eng, args.profile_frames)
+    dev_stages = profile_stages(eng, args.profile_frames, stages)
     print(f"[profile] device ms/frame by stage ({args.profile_frames} frames): "
           + ", ".join(f"{k} {v:.3f}" for k, v in dev_stages.items()), flush=True)
-    result = dict(device=smi, frame_ms=frame, peak_mib=peak_mib, stage_host_ms=stages,
-                  profile=prof, stage_device_ms=dev_stages)
-    with open(os.path.join(args.out, "bench_frame.json"), "w") as f:
+    result = dict(device=smi, path=args.path, caps=eng._caps, frame_ms=frame,
+                  peak_mib=peak_mib, stage_host_ms=stage_ms, profile=prof,
+                  stage_device_ms=dev_stages)
+    with open(os.path.join(args.out, f"bench_frame{suffix}.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
     return 0
