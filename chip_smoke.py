@@ -30,14 +30,34 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    frame;
 7. renders the structure scene at 480x270 and 1920x1080 and holds it to
    tests/goldens/structure_*.png (at most 0.1% of pixels may differ);
-8. prints a JSON line of per-kernel results (launches on its path,
+8. the background passes (kernels 2.9, 2.10, 2.11): each against its plain
+   version at 480x270, 1700x900 and 1920x1080, exact on every element of
+   the padded buffer, timed at 1920x1080 (2.9 also against one torch.lerp);
+   how many of the sky's lattice cosines the card's own cos would get
+   wrong; 2.11, which no engine loads, through its public function into a
+   frame;
+9. the CLI, in-process through tpu_renderer_torch.cli.main with the
+   counters reset: demo --grid 64 at 1920x1080 with the sky (2.1 and 2.10
+   must launch), the same at --render-scale 0.65, the background_gradient
+   and background_sky milestones (2.9 and 2.10 must launch); each PNG must
+   equal the one the same command writes through the plain versions; view
+   (the pipelined loop: no frame missing after the fill) and benchmark
+   (its JSON line);
+10. the render scale and the pipelined draw on the bench frame: scale 0.65
+   against native, draw() against draw_pipelined() over one orbit (equal
+   byte for byte with a lag of two), medians printed; then an effect
+   switch and a resize on one engine with the launches they cause;
+11. prints a JSON line of per-kernel results (launches on its path,
    max_abs_err against the plain version, ms and plain ms, the bound from
-   this run's inputs), the nvidia-smi line, and, last,
-   {"ok": true, "device": {...}}.
+   this run's inputs, the library call's ms where there is one), the
+   nvidia-smi line, and, last, {"ok": true, "device": {...}}.
 
 Scene files go to chiprun_out/smoke/ inside the checkout. Any failure raises.
 """
 
+import contextlib
+import importlib
+import io
 import json
 import os
 import statistics
@@ -57,24 +77,50 @@ FLOPS_PER_TEST = 16      # 3 edge planes + the depth plane, 4 flops each
 FLOPS_PER_FRAGMENT = 40  # kernel 2.2's shading of a taken fragment
 PIXELS_PER_TILE = 32 * 128
 
-# name -> (plain version, launch counter, source, replaced Pallas kernel)
+# Float operations a pixel of the background passes: 2.9 a multiply, a
+# fused multiply-add and an add a plane; 2.10 four stars of ~10, the two
+# fracts, the blend's 3 fused multiply-adds and 5 multiplies, 2 a colour
+# plane; 2.11 two multiplies and the grid test.
+BACKGROUND_FLOPS_PER_PIXEL = {"background_gradient_kernel": 16,
+                              "background_sky_kernel": 60,
+                              "background_grid_kernel": 4}
+BACKGROUND_EXTENTS = ((480, 270), (1700, 900), (1920, 1080))
+
+# name -> (module under tpu_renderer_torch.kernels, plain version, launch
+# counter, source, replaced Pallas kernel)
 KERNELS = {
-    "raster_fused_kernel": ("rasterize_fused_plain", "fused_counter",
+    "raster_fused_kernel": ("raster", "rasterize_fused_plain", "fused_counter",
                             "tpu_renderer_torch/kernels/csrc/raster_fused.cu",
                             "tpu_renderer/kernels/raster.py:1128"),
-    "raster_accum_kernel": ("rasterize_accum_plain", "accum_counter",
+    "raster_accum_kernel": ("raster", "rasterize_accum_plain", "accum_counter",
                             "tpu_renderer_torch/kernels/csrc/raster_accum.cu",
                             "tpu_renderer/kernels/raster.py:1690"),
-    "raster_peel_fused_kernel": ("rasterize_peel_fused_plain", "peel_fused_counter",
+    "raster_peel_fused_kernel": ("raster", "rasterize_peel_fused_plain",
+                                 "peel_fused_counter",
                                  "tpu_renderer_torch/kernels/csrc/raster_peel.cu",
                                  "tpu_renderer/kernels/raster.py:1987"),
-    "raster_deferred_kernel": ("rasterize_plain", "deferred_counter",
+    "raster_deferred_kernel": ("raster", "rasterize_plain", "deferred_counter",
                                "tpu_renderer_torch/kernels/csrc/raster_deferred.cu",
                                "tpu_renderer/kernels/raster.py:642"),
-    "raster_peel_kernel": ("rasterize_peel_plain", "peel_counter",
+    "raster_peel_kernel": ("raster", "rasterize_peel_plain", "peel_counter",
                            "tpu_renderer_torch/kernels/csrc/raster_deferred.cu",
                            "tpu_renderer/kernels/raster.py:749"),
+    "background_gradient_kernel": ("background", "gradient_plain", "gradient_counter",
+                                   "tpu_renderer_torch/kernels/csrc/background.cu",
+                                   "tpu_renderer/kernels/background.py:44"),
+    "background_sky_kernel": ("background", "sky_plain", "sky_counter",
+                              "tpu_renderer_torch/kernels/csrc/background.cu",
+                              "tpu_renderer/kernels/background.py:127"),
+    "background_grid_kernel": ("background", "grid_gradient_plain", "grid_counter",
+                               "tpu_renderer_torch/kernels/csrc/background.cu",
+                               "tpu_renderer/kernels/background.py:171"),
 }
+BACKGROUND_KERNELS = tuple(n for n in KERNELS if n.startswith("background_"))
+
+
+def kernel_module(name):
+    """The module that holds kernel `name`, its plain version and counter."""
+    return importlib.import_module(f"tpu_renderer_torch.kernels.{KERNELS[name][0]}")
 
 
 def build_line(nvcc_seconds, load_seconds: float) -> str:
@@ -104,6 +150,28 @@ def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_batched(fn, launches: int, runs: int = 5, warmup: int = 10) -> float:
+    """Milliseconds a call of fn(), for calls of tens of microseconds: one
+    pair of CUDA events around `launches` back-to-back calls, over the
+    count; the median of `runs` such batches."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -126,10 +194,8 @@ def max_abs_err(got, want) -> float:
 def capture_kernel_inputs(draw, names):
     """Run draw(), recording the arguments of every launch of the named
     kernels (the path's real inputs): name -> list of (args, kwargs)."""
-    from tpu_renderer_torch.kernels import raster
-
     seen = {n: [] for n in names}
-    originals = {n: getattr(raster, n) for n in names}
+    originals = {n: getattr(kernel_module(n), n) for n in names}
 
     def recorder(name):
         def call(*args, **kwargs):
@@ -138,12 +204,12 @@ def capture_kernel_inputs(draw, names):
         return call
 
     for n in names:
-        setattr(raster, n, recorder(n))
+        setattr(kernel_module(n), n, recorder(n))
     try:
         draw()
     finally:
         for n, f in originals.items():
-            setattr(raster, n, f)
+            setattr(kernel_module(n), n, f)
     missing = [n for n in names if not seen[n]]
     assert not missing, f"kernels not reached: {missing}"
     return seen
@@ -221,7 +287,7 @@ def check_kernel(name, calls, label):
     from tpu_renderer_torch.kernels import raster
 
     kernel = getattr(raster, name)
-    plain_name, _, source, replaces = KERNELS[name]
+    _, plain_name, _, source, replaces = KERNELS[name]
     plain = getattr(raster, plain_name)
     err = 0.0
     for i, (args, kwargs) in calls:
@@ -246,16 +312,13 @@ def check_kernel(name, calls, label):
 
 
 def reset_counters():
-    from tpu_renderer_torch.kernels import raster
-
-    for _, counter, _, _ in KERNELS.values():
-        getattr(raster, counter).launches = 0
+    for name, (_, _, counter, _, _) in KERNELS.items():
+        getattr(kernel_module(name), counter).launches = 0
 
 
 def read_counters():
-    from tpu_renderer_torch.kernels import raster
-
-    return {n: getattr(raster, c).launches for n, (_, c, _, _) in KERNELS.items()}
+    return {n: getattr(kernel_module(n), c).launches
+            for n, (_, _, c, _, _) in KERNELS.items()}
 
 
 class SyncTimer:
@@ -312,19 +375,24 @@ def counted_frames(eng, n, path, expect):
     return med, image, layers, sync.ms / n, launches
 
 
+@contextlib.contextmanager
+def plain_versions(names):
+    """Inside the block the named kernels are their plain versions."""
+    originals = {n: getattr(kernel_module(n), n) for n in names}
+    for n in names:
+        setattr(kernel_module(n), n, getattr(kernel_module(n), KERNELS[n][1]))
+    try:
+        yield
+    finally:
+        for n, f in originals.items():
+            setattr(kernel_module(n), n, f)
+
+
 def plain_frame(eng, names):
     """The same frame with the named kernels replaced by their plain
     versions; must equal the kernel frame."""
-    from tpu_renderer_torch.kernels import raster
-
-    originals = {n: getattr(raster, n) for n in names}
-    for n in names:
-        setattr(raster, n, getattr(raster, KERNELS[n][0]))
-    try:
+    with plain_versions(names):
         return eng.draw()
-    finally:
-        for n, f in originals.items():
-            setattr(raster, n, f)
 
 
 def bench_path(eng, results):
@@ -449,6 +517,299 @@ def structure_goldens():
         assert diff.mean() <= FRAME_TOL, f"{name} beyond the {FRAME_TOL:.1%} tolerance"
 
 
+def _pad(w, h):
+    return -(-w // 128) * 128, -(-h // 32) * 32
+
+
+def background_calls(w, h, device):
+    """name -> (args, kwargs) of each background kernel at extent w x h."""
+    import torch
+
+    wp, hp = _pad(w, h)
+    ext = dict(height=h, width_pad=wp, height_pad=hp)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    return {
+        "background_gradient_kernel": ((f((0.9, 0.3, 0.2, 1.0)), f((0.1, 0.2, 0.7, 0.5))), ext),
+        "background_sky_kernel": ((f((0.1, 0.2, 0.4, 0.97)),), ext),
+        "background_grid_kernel": ((), dict(width=w, device=device, **ext)),
+    }
+
+
+def background_bound(name, args, out):
+    """(bound_ms, bound_by) of a background pass: the buffer written once
+    and the inputs read once (the parameters; for the sky its four cosine
+    vectors) at the HBM rate, against its float operations at the fp32
+    peak."""
+    hp, wp = out.shape[1:]
+    nbytes = out.numel() * out.element_size() + sum(a.numel() * 4 for a in args)
+    if name == "background_sky_kernel":
+        nbytes += (2 * wp + 2 * hp) * 4
+    alu_ms = hp * wp * BACKGROUND_FLOPS_PER_PIXEL[name] / PEAK_FLOPS * 1e3
+    hbm_ms = nbytes / PEAK_BYTES * 1e3
+    return (alu_ms, "operations") if alu_ms >= hbm_ms else (hbm_ms, "bytes")
+
+
+def background_phase(results):
+    """Phase 8: kernels 2.9-2.11 against their plain versions at three
+    extents, timed at the last."""
+    import torch
+
+    from tpu_renderer_torch.kernels import background
+    from tpu_renderer_torch.present import to_packed_u32, unpack_u8
+
+    dev = torch.device("cuda")
+    for name in BACKGROUND_KERNELS:
+        mod = kernel_module(name)
+        _, plain_name, _, source, replaces = KERNELS[name]
+        kernel, plain = getattr(mod, name), getattr(mod, plain_name)
+        err = 0.0
+        for w, h in BACKGROUND_EXTENTS:
+            args, kwargs = background_calls(w, h, dev)[name]
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            assert got.shape == (4, *_pad(w, h)[::-1])
+            err = max(err, max_abs_err(got, want))
+            print(f"[kernel] {name} ({w}x{h}, buffer {tuple(got.shape)}): exact vs plain "
+                  f"(max_abs_err {err})", flush=True)
+        out = got
+        bound_ms, bound_by = background_bound(name, args, out)
+        ms = cuda_ms_batched(lambda: kernel(*args, **kwargs), launches=50)
+        plain_ms = cuda_ms_batched(lambda: plain(*args, **kwargs), launches=10, warmup=3)
+        library_ms = None
+        if name == "background_gradient_kernel":
+            # one torch.lerp over the broadcast row blend computes the same mix
+            hp, wp = out.shape[1:]
+            blend = (torch.arange(hp, dtype=torch.float32, device=dev) / kwargs["height"])
+            a, b, t = (v.expand(4, hp, wp) for v in (args[0][:, None, None],
+                                                     args[1][:, None, None],
+                                                     blend[None, :, None]))
+            lerp = torch.lerp(a, b, t)
+            assert float((lerp - out).abs().max()) < 1e-6
+            library_ms = cuda_ms_batched(lambda: torch.lerp(a, b, t), launches=50)
+        print(f"[kernel] {name}: {ms:.4f} ms a launch (median of 5 batches of 50), plain "
+              f"{plain_ms:.4f} ms (5 batches of 10), bound {bound_ms:.4f} ms by {bound_by}, library "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms (torch.lerp)'}",
+              flush=True)
+        results[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
+
+    # could the card take the lattice cosines itself? Its cos against the
+    # C library's, on every lattice value of each extent
+    for w, h in BACKGROUND_EXTENTS:
+        wp, hp = _pad(w, h)
+        tables = background._sky_tables(hp, wp, dev)
+        wrong = 0
+        for n, offset, freq, (c0, c1) in ((wp, 0.2, 37.0, tables[:2]),
+                                          (hp, -0.06, 57.0, tables[2:])):
+            i0 = torch.floor(torch.arange(n, dtype=torch.float32, device=dev) + offset)
+            wrong += int((torch.cos(i0 * freq) != c0).sum())
+            wrong += int((torch.cos((i0 + 1.0) * freq) != c1).sum())
+        print(f"[kernel] sky lattice at {w}x{h}: the card's cos differs from the C "
+              f"library's cosf on {wrong} of {2 * wp + 2 * hp} values (the kernel "
+              f"reads the host's)", flush=True)
+
+    # 2.11 is loaded by no engine: drive it through its public function into
+    # a frame, counted, and hold the frame to the plain version's
+    reset_counters()
+    w, h = BACKGROUND_EXTENTS[1]
+    wp, hp = _pad(w, h)
+    ext = dict(height=h, width=w, width_pad=wp, height_pad=hp)
+    frame = unpack_u8(to_packed_u32(background.grid_gradient(device=dev, **ext),
+                                    width=w, height=h))
+    launches = read_counters()["background_grid_kernel"]
+    want = unpack_u8(to_packed_u32(background.grid_gradient_plain(device=dev, **ext),
+                                   width=w, height=h))
+    assert launches == 1 and np.array_equal(frame, want)
+    assert frame.shape == (h, w, 4) and not frame[:, ::16, :3].any() \
+        and not frame[::16, :, :3].any() and frame[h - 1, w - 1, 0] > 250
+    print(f"[frame] grid gradient {w}x{h} through background.grid_gradient: "
+          f"{launches} launch, frame == plain-version frame", flush=True)
+    results["background_grid_kernel"]["launches"] = launches
+
+
+def run_cli(argv):
+    """tpu_renderer_torch.cli.main(argv) in-process; returns what it printed."""
+    from tpu_renderer_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    assert rc == 0, f"cli {argv} exited {rc}"
+    return buf.getvalue()
+
+
+def cli_png(argv, name, kernels):
+    """Run a CLI command that writes a PNG, then again through the plain
+    versions of `kernels`; the two images must be equal. Returns the image
+    and the command's printed line."""
+    from tpu_renderer_torch.present import load_png
+
+    out = os.path.join(OUT_DIR, f"{name}.png")
+    line = run_cli([*argv, "--out", out]).strip()
+    with plain_versions(kernels):
+        run_cli([*argv, "--out", os.path.join(OUT_DIR, f"{name}_plain.png")])
+    img = load_png(out)
+    assert np.array_equal(img, load_png(os.path.join(OUT_DIR, f"{name}_plain.png"))), \
+        f"cli {name}: the kernel frame differs from the plain-version frame"
+    print(f"[cli] {' '.join(argv)}: {line}; == plain-version PNG", flush=True)
+    return img
+
+
+def cli_phase(results):
+    """Phase 9: the CLI on the card, counted as one path."""
+    from tpu_renderer_torch.engine import Engine
+
+    reset_counters()
+    full = ["--width", "1920", "--height", "1080"]
+    frame_kernels = ("raster_fused_kernel", "raster_accum_kernel", "background_sky_kernel")
+    demo = ["demo", "--grid", "64", *full, "--background", "1"]
+    native = cli_png(demo, "cli_demo", frame_kernels)
+    after_demo = read_counters()
+    assert after_demo["background_sky_kernel"] == 1 and after_demo["raster_fused_kernel"] == 1, \
+        after_demo
+    scaled = cli_png([*demo, "--render-scale", "0.65"], "cli_demo_scale065", frame_kernels)
+    assert native.shape == scaled.shape == (1080, 1920, 4)
+    assert not np.array_equal(native, scaled)
+    # the same picture, coarsely: 40x40 box averages (a blurred checker or
+    # star moves a box a little; another picture moves it by 100 and more)
+    box = lambda im: im[..., :3].astype(np.float32).reshape(27, 40, 48, 40, 3).mean((1, 3))  # noqa: E731
+    coarse = float(np.abs(box(native) - box(scaled)).max())
+    print(f"[cli] render scale 0.65 against native: 40x40 box means differ by at most "
+          f"{coarse:.2f} of 255", flush=True)
+    assert coarse < 64, "the scaled frame is another picture"
+
+    before = read_counters()
+    grad = cli_png(["milestone", "background_gradient", *full], "cli_gradient",
+                   ("background_gradient_kernel",))
+    sky = cli_png(["milestone", "background_sky", *full], "cli_sky",
+                  ("background_sky_kernel",))
+    now = read_counters()
+    assert now["background_gradient_kernel"] == before["background_gradient_kernel"] + 1
+    assert now["background_sky_kernel"] == before["background_sky_kernel"] + 1
+    assert (grad == 255).all() and sky[0, 0, 2] < 100 and (sky[..., 3] == 255).all()
+
+    # view: the pipelined loop; every call after the fill returns a frame
+    returned = []
+    draw_pipelined = Engine.draw_pipelined
+
+    def recording(self, *args, **kwargs):
+        frame = draw_pipelined(self, *args, **kwargs)
+        returned.append(None if frame is None else frame.shape)
+        return frame
+
+    Engine.draw_pipelined = recording
+    try:
+        text = run_cli(["view", "--grid", "64", "--frames", "8", "--keys", "wwddwwdd", *full])
+    finally:
+        Engine.draw_pipelined = draw_pipelined
+    assert returned == [None, None] + [(48, 96, 4)] * 6, returned
+    assert "frame 7" in text and text.rstrip().endswith("8 frames")
+    print(f"[cli] view --grid 64 --frames 8: draw_pipelined returned {returned}", flush=True)
+
+    line = run_cli(["benchmark", "--grid", "64", "--frames", "20"]).strip().splitlines()[-1]
+    bench = json.loads(line)
+    assert bench["backend"] == "cuda" and bench["triangles"] > 40000, bench
+    print(f"[cli] benchmark --grid 64 --frames 20: {line}", flush=True)
+
+    launches = read_counters()
+    print(f"[cli] launches over the CLI path: {launches}", flush=True)
+    for n in ("background_gradient_kernel", "background_sky_kernel"):
+        assert launches[n] > 0, f"{n} was never launched on the CLI path"
+        results[n]["launches"] = launches[n]
+
+
+def timed_draws(eng, draw, n):
+    """Per-call host ms of n calls of draw() over a slow orbit, the device
+    drained before the first and after the last; returns (ms list, frames)."""
+    import torch
+
+    frames, times = [], []
+    torch.cuda.synchronize()
+    for i in range(n):
+        eng.camera.yaw = np.float32(0.002 * i)
+        t0 = time.perf_counter()
+        frames.append(draw())
+        times.append((time.perf_counter() - t0) * 1000.0)
+    torch.cuda.synchronize()
+    return times, frames
+
+
+def scale_and_pipeline_phase(scene_path):
+    """Phase 10: the render scale and the pipelined draw on the bench
+    frame; an effect switch and a resize."""
+    import torch
+
+    from tpu_renderer_torch.utils.bench_frame import bench_engine
+
+    # native against render_scale 0.65, sky background, in turns
+    engines = {s: bench_engine(scene_path, render_scale=s, background_effect=1)
+               for s in (1.0, 0.65)}
+    for eng in engines.values():
+        eng.draw()
+    med = {s: [] for s in engines}
+    for s in (1.0, 0.65, 0.65, 1.0):
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engines[s].draw_device()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000.0)
+        med[s].append(statistics.median(times))
+    ext = engines[0.65]._extents()
+    print(f"[frame] render scale: native 1920x1080 median {med[1.0][0]:.3f} / {med[1.0][1]:.3f} "
+          f"ms; scale 0.65 ({ext['width']}x{ext['height']} blitted to 1920x1080) "
+          f"{med[0.65][0]:.3f} / {med[0.65][1]:.3f} ms (2 x 10 frames each, in turns)",
+          flush=True)
+    del engines
+
+    # draw() against draw_pipelined() over the same orbit, in turns
+    n = 12
+    eng, twin = bench_engine(scene_path), bench_engine(scene_path)
+    for e in (eng, twin):
+        e.draw()
+    pipelined = lambda: eng.draw_pipelined(stats_interval=30)  # noqa: E731
+    sync_med, pipe_med = [], []
+    for turn in ("draw", "pipelined", "pipelined", "draw"):
+        if turn == "draw":
+            ms, want = timed_draws(twin, twin.draw, n)
+            sync_med.append(statistics.median(ms))
+            continue
+        ms, got = timed_draws(eng, pipelined, n)
+        pipe_med.append(statistics.median(ms[2:]))
+        assert got[0] is None and got[1] is None
+        for i in range(2, n):
+            assert np.array_equal(got[i], want[i - 2]), f"pipelined frame {i} differs"
+        assert np.array_equal(eng.flush_pipelined(), want[n - 1])
+    assert all(slot.is_pinned() for slot in eng._slots)
+    print(f"[frame] pipelined: draw() median {sync_med[0]:.3f} / {sync_med[1]:.3f} ms a call, "
+          f"draw_pipelined() {pipe_med[0]:.3f} / {pipe_med[1]:.3f} ms a call (2 x {n} frames "
+          f"of one orbit each, in turns); frames equal byte for byte with a lag of 2",
+          flush=True)
+
+    # an effect switch and a resize, with the launches they cause
+    steps = []
+    reset_counters()
+
+    def step(label):
+        eng.draw()
+        eng.draw()
+        c = read_counters()
+        steps.append((label, c["background_gradient_kernel"], c["background_sky_kernel"]))
+
+    eng.resize(1920, 1080)          # drops the cached background
+    step("first draws")
+    eng.current_background_effect = 1
+    step("effect switch")
+    eng.resize(1700, 900)
+    step("resize")
+    assert [s[1:] for s in steps] == [(1, 0), (1, 1), (1, 2)], steps
+    assert eng.draw().shape == (900, 1700, 4) and eng._bg_fb.shape == (4, 928, 1792)
+    print(f"[frame] background launches (gradient, sky), two draws a step: {steps}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -480,6 +841,9 @@ def main() -> int:
     deferred_path(scene_path, results)
     past_the_guard()
     structure_goldens()
+    background_phase(results)
+    cli_phase(results)
+    scale_and_pipeline_phase(scene_path)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [results[n] for n in KERNELS]}))

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: each CUDA raster kernel (2.1-2.5) against
-its plain PyTorch version, bit for bit, and Engine frames on the card (the
-fused path, textured transparency, the deferred path) against the same
+"""Card-only tests of the port: each CUDA kernel (the raster passes 2.1-2.5,
+the background passes 2.9-2.11) against its plain PyTorch version, bit for
+bit, and Engine frames on the card (the fused path, textured transparency,
+the deferred path, the render scale, the pipelined draw) against the same
 frames on the CPU. They skip without a CUDA device; run them on a machine with an
 sm_90a card:
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_renderer_torch.kernels import raster, vertex
+from tpu_renderer_torch.kernels import background, raster, vertex
 
 pytestmark = pytest.mark.cuda
 
@@ -267,3 +268,146 @@ def test_engine_peel_and_deferred_frames_on_card_equal_cpu(cuda, tmp_path):
             frames.append(eng.draw())
             assert int(eng._last_aux["transparent_layers"]) >= 1
         np.testing.assert_array_equal(frames[1], frames[0])
+
+
+# -- the background passes (kernels 2.9, 2.10, 2.11) --------------------------
+
+BG_EXTENTS = [(200, 100), (256, 64), (333, 222), (1700, 900)]
+
+
+def _bg_extent(w, h):
+    return dict(height=h, width_pad=-(-w // 128) * 128, height_pad=-(-h // 32) * 32)
+
+
+@pytest.mark.parametrize("w,h", BG_EXTENTS)
+def test_background_kernels_match_plain(cuda, w, h):
+    """Kernels 2.9-2.11 on every element of the padded buffer."""
+    ext = _bg_extent(w, h)
+    rng = np.random.default_rng(w)
+    d1, d2 = (torch.tensor(rng.uniform(0, 1, 4), dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    sky = torch.tensor([0.1, 0.2, 0.4, 0.97], device=cuda)
+    before = (background.gradient_counter.launches, background.sky_counter.launches,
+              background.grid_counter.launches)
+    pairs = ((background.gradient(d1, d2, **ext), background.gradient_plain(d1, d2, **ext)),
+             (background.sky(sky, **ext), background.sky_plain(sky, **ext)),
+             (background.grid_gradient(width=w, device=cuda, **ext),
+              background.grid_gradient_plain(width=w, device=cuda, **ext)))
+    torch.cuda.synchronize()
+    assert (background.gradient_counter.launches, background.sky_counter.launches,
+            background.grid_counter.launches) == tuple(b + 1 for b in before)
+    for got, want in pairs:
+        assert got.shape == want.shape == (4, ext["height_pad"], ext["width_pad"])
+        assert _same(got, want)
+    assert float(pairs[1][0][:3].max()) > 0.9          # the sky has stars
+
+
+def test_background_kernels_equal_the_cpu_plain_versions(cuda):
+    """The card's buffers against the CPU's, which the CPU tests hold to
+    the JAX package: the host-evaluated cosines make the sky portable."""
+    ext = _bg_extent(333, 222)
+    sky = torch.tensor([0.1, 0.2, 0.4, 0.97])
+    assert _same(background.sky(sky.to(cuda), **ext).cpu(), background.sky(sky, **ext))
+    d1, d2 = torch.tensor([0.9, 0.3, 0.2, 1.0]), torch.tensor([0.1, 0.2, 0.7, 0.5])
+    assert _same(background.gradient(d1.to(cuda), d2.to(cuda), **ext).cpu(),
+                 background.gradient(d1, d2, **ext))
+    assert _same(background.grid_gradient(width=333, device=cuda, **ext).cpu(),
+                 background.grid_gradient(width=333, device="cpu", **ext))
+
+
+def test_background_launchers_refuse_malformed_arguments(cuda):
+    ext = _bg_extent(256, 64)
+    ok = torch.ones(4, device=cuda)
+    before = (background.gradient_counter.launches, background.sky_counter.launches,
+              background.grid_counter.launches)
+    with pytest.raises(TypeError, match="dtype"):
+        background.gradient(ok.double(), ok, **ext)
+    with pytest.raises(ValueError, match="expected"):          # wrong device
+        background.gradient(ok, torch.ones(4), **ext)
+    with pytest.raises(ValueError, match="shape"):
+        background.sky(torch.ones(5, device=cuda), **ext)
+    with pytest.raises(ValueError, match="contiguous"):
+        background.sky(torch.ones(8, device=cuda)[::2], **ext)
+    for bad in (dict(height=64, width_pad=200, height_pad=64),
+                dict(height=64, width_pad=256, height_pad=48)):
+        with pytest.raises(ValueError, match="whole"):         # not whole tiles
+            background.background_sky_kernel(ok, **bad)
+        with pytest.raises(ValueError, match="whole"):
+            background.grid_gradient(width=200, device=cuda, **bad)
+    with pytest.raises(ValueError, match="tiles"):             # the kernels' own tile
+        background.gradient(ok, ok, tile_h=16, tile_w=256, **ext)
+    with pytest.raises(ValueError, match="CUDA"):
+        background.background_gradient_kernel(torch.ones(4), torch.ones(4), **ext)
+    assert before == (background.gradient_counter.launches, background.sky_counter.launches,
+                      background.grid_counter.launches)
+
+
+def _demo_engine(path, device, **cfg):
+    from tpu_renderer_torch.config import RendererConfig
+    from tpu_renderer_torch.engine import Engine
+
+    eng = Engine(RendererConfig(width=W, height=H, camera_position=(0.0, 6.0, 8.0),
+                                **cfg), device=device)
+    eng.camera.pitch = np.float32(-0.18)
+    eng.init(scene_path=path)
+    return eng
+
+
+def test_engine_background_goes_through_the_kernels(cuda, tmp_path):
+    """One launch at the first draw, none while the cache holds, one at an
+    effect switch and one at a resize; the frames equal the CPU's."""
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng, cpu = _demo_engine(path, cuda), _demo_engine(path, "cpu")
+    g0, s0 = background.gradient_counter.launches, background.sky_counter.launches
+    counts = lambda: (background.gradient_counter.launches - g0,  # noqa: E731
+                      background.sky_counter.launches - s0)
+    np.testing.assert_array_equal(eng.draw(), cpu.draw())
+    eng.draw()
+    assert counts() == (1, 0)
+    eng.current_background_effect = cpu.current_background_effect = 1
+    np.testing.assert_array_equal(eng.draw(), cpu.draw())
+    eng.draw()
+    assert counts() == (1, 1)
+    eng.resize(128, 32)
+    cpu.resize(128, 32)
+    np.testing.assert_array_equal(eng.draw(), cpu.draw())
+    assert counts() == (1, 2) and eng._bg_fb.shape == (4, 32, 128)
+
+
+@pytest.mark.parametrize("scale", [0.65, 2.0])
+def test_render_scale_frame_on_card_equals_cpu(cuda, tmp_path, scale):
+    """The blit adds its taps in one order on both devices, so the scaled
+    frame on the card is the CPU's byte for byte."""
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    frames = [_demo_engine(path, dev, render_scale=scale, background_effect=1).draw()
+              for dev in ("cpu", cuda)]
+    assert frames[0].shape == (H, W, 4)
+    np.testing.assert_array_equal(frames[1], frames[0])
+
+
+def test_draw_pipelined_on_card_lags_draw_by_two(cuda, tmp_path):
+    from tpu_renderer_torch.engine import Engine
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng, twin = _demo_engine(path, cuda), _demo_engine(path, cuda)
+    want, got = [], []
+    for i in range(7):
+        for e in (eng, twin):
+            e.camera.yaw = np.float32(0.05 * i)
+        want.append(twin.draw())
+        got.append(eng.draw_pipelined(stats_interval=2))
+    assert got[0] is None and got[1] is None
+    for i in range(2, 7):
+        np.testing.assert_array_equal(got[i], want[i - 2])
+    assert len(eng._slots) == Engine.FRAME_OVERLAP and all(s.is_pinned() for s in eng._slots)
+    np.testing.assert_array_equal(eng.flush_pipelined(), want[6])
+    cells = [eng.draw_pipelined(present_cells=(40, 6)) for _ in range(3)][2]
+    assert cells.shape == (12, 40, 4)

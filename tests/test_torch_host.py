@@ -1,7 +1,8 @@
 """The port's host side against the JAX package's: the copied loader, scene
 graph, flatten, atlas, math and camera give equal arrays on the same GLB;
-present packs identical bytes; convert carries JAX buffers across; and
-the port never imports JAX or the JAX package.
+present packs identical bytes; convert carries JAX buffers across; the
+copied hud and viewer are their originals' code; and the port never imports
+JAX or the JAX package.
 
 Tolerance (PERF.md): everything here is exact. The JAX package pads
 triangle arrays to its test-tier CHUNK=8 and the port to CHUNK=32, so
@@ -172,11 +173,48 @@ def _imports(path):
             yield node.module
 
 
+def _code(path):
+    """The module's syntax tree without its docstring."""
+    tree = ast.parse(open(path).read())
+    if isinstance(tree.body[0], ast.Expr) and isinstance(tree.body[0].value, ast.Constant):
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["hud.py", "viewer.py"])
+def test_numpy_only_modules_are_their_originals(module):
+    """hud.py and viewer.py import numpy and the standard library only, so
+    the port's copies are the originals' code, statement for statement
+    (their module docstrings apart)."""
+    assert _code(os.path.join(PORT_DIR, module)) == \
+        _code(os.path.join(ROOT, "tpu_renderer", module))
+
+
+def test_hud_overlay_equal():
+    from tpu_renderer import hud as jhud
+    from tpu_renderer.engine import EngineStats as JStats
+    from tpu_renderer_torch import hud
+    from tpu_renderer_torch.engine import EngineStats
+
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, size=(120, 300, 4), dtype=np.uint8)
+    values = dict(frame_time=16.667, triangle_count=46250, drawcall_count=3855,
+                  scene_update_time=0.125, mesh_draw_time=12.5)
+    got = hud.draw_stats(img.copy(), EngineStats(**values))
+    np.testing.assert_array_equal(got, jhud.draw_stats(img.copy(), JStats(**values)))
+    assert not np.array_equal(got, img)
+
+
+NEW_MODULES = ("cli", "hud", "viewer", "utils.profiling", "kernels.background")
+
+
 def test_port_never_imports_jax_or_reference():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT_DIR)
              for f in fs if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
-    assert len(files) > 15
+    assert len(files) > 20
+    for mod in NEW_MODULES:
+        assert os.path.join(PORT_DIR, *mod.split(".")) + ".py" in files, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -184,8 +222,9 @@ def test_port_never_imports_jax_or_reference():
 
 
 def test_import_leaves_jax_out():
+    new = ", ".join(f"tpu_renderer_torch.{m}" for m in NEW_MODULES)
     code = ("import sys, tpu_renderer_torch, tpu_renderer_torch.engine, "
-            "tpu_renderer_torch.convert, tpu_renderer_torch.milestones; "
+            f"tpu_renderer_torch.convert, tpu_renderer_torch.milestones, {new}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_renderer')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -62,6 +62,25 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok"' not in out.stdout and "no CUDA device" in out.stderr
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card refusal")
+@pytest.mark.parametrize("command", [
+    ["demo", "--grid", "2"], ["milestone", "background_sky"],
+    ["view", "--grid", "2", "--frames", "1", "--keys", ""],
+    ["benchmark", "--grid", "2", "--frames", "1"]])
+def test_cli_refuses_without_cuda(tmp_path, command):
+    """The CLI renders on the card by default and does not carry on on the
+    CPU without one: it exits non-zero with the engine's message, and
+    writes no image."""
+    out = subprocess.run(
+        [sys.executable, "-m", "tpu_renderer_torch.cli", *command, "--width", "128",
+         "--height", "32", "--out", str(tmp_path / "frame.png")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 2, out.stderr
+    assert "no CUDA device" in out.stderr and "device=\"cpu\"" in out.stderr
+    assert not (tmp_path / "frame.png").exists()
+
+
 def test_chip_smoke_alone_fails(tmp_path):
     """In a directory that holds chip_smoke.py and nothing else of the
     repo, the script fails and prints no result."""

@@ -6,7 +6,9 @@ plain PyTorch for the elementwise, sort and gather work, and hand-written
 CUDA kernels for the raster passes — the opaque fused raster, the
 transparent accumulation, the textured-transparency depth peel, and the
 deferred path's visibility raster and peel
-(`tpu_renderer_torch.kernels.raster`, sources in `kernels/csrc/`). The JAX
+(`tpu_renderer_torch.kernels.raster`) — and for the background compute
+pass (`tpu_renderer_torch.kernels.background`), sources in `kernels/csrc/`.
+Entry points: `Engine`, and `python -m tpu_renderer_torch.cli`. The JAX
 package `tpu_renderer` stays the reference; this
 package imports neither it nor JAX. Its host modules (config, math3d,
 camera, gltf, the scene graph, utils) are copies of the JAX package's.

@@ -1,9 +1,12 @@
-"""Engine façade — init/run/draw in the shape of the reference's
+"""Engine façade — init/run/draw/cleanup in the shape of the reference's
 VulkanEngine (vk_engine.h:79-227, init vk_engine.cpp:171-201, run
-:1161-1203, draw :1218-1339), headless, on one torch device.
+:1161-1203, draw :1218-1339, cleanup :1131-1159), headless, on one torch
+device.
 
 What stays from the reference: the frame loop, the FPS camera, scene
-update, the EngineStats counters and the background-effect selection. The
+update, the EngineStats counters, the background-effect selection, the
+render scale (draw at a scaled extent, linear-blit to the window extent),
+FRAME_OVERLAP frames in flight (draw_pipelined) and the stats overlay. The
 scene and every frame live on the engine's device: the CUDA card by
 default, the CPU with Engine(config, device="cpu").
 
@@ -12,13 +15,13 @@ capped deferred raster path; a frame whose bins overflow escalates the
 caps and redraws the same frame (draw).
 
 What the port does not have yet raises NotImplementedError naming the
-ROADMAP.md item: render_scale != 1 and target_fps (the upscale blit and
-the auto-quality cost model), multichip, draw_pipelined and the HUD
-overlay.
+ROADMAP.md item: target_fps (the auto-quality cost model), multichip, and
+the tile, chunk, ring-depth and sort knobs.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import time
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from tpu_renderer_torch import math3d, scene as scene_mod
+from tpu_renderer_torch import hud as hud_mod
 from tpu_renderer_torch.camera import Camera
 from tpu_renderer_torch.config import RendererConfig
 from tpu_renderer_torch.kernels import raster
@@ -49,6 +53,10 @@ class EngineStats:
     mesh_draw_time: float = 0.0     # ms
 
 
+class NoDeviceError(RuntimeError):
+    """The engine was asked for the CUDA card and there is none."""
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to tpu_renderer_torch yet: ROADMAP.md {item}")
@@ -57,9 +65,6 @@ def _not_ported(what: str, item: str):
 def _check_config(cfg: RendererConfig) -> None:
     """Raise on every config value the port does not implement."""
     default = RendererConfig()
-    if cfg.render_scale != 1.0:
-        raise _not_ported("render_scale != 1 (the upscale blit)",
-                          "Queue 1 item 8")
     if cfg.target_fps is not None:
         raise _not_ported("target_fps (auto quality; its cost model was "
                           "fitted on another device)", "Queue 1 item 8")
@@ -81,7 +86,26 @@ def _check_config(cfg: RendererConfig) -> None:
         raise _not_ported(f"raster_sort={cfg.raster_sort!r}", "Queue 1 item 12")
 
 
+class _InFlight:
+    """One submitted frame of draw_pipelined: its host image (pinned and
+    still being written until `ready` has passed, on CUDA), its counters and
+    its frame number."""
+
+    def __init__(self, host, ready, aux, frame_number):
+        self.host, self.ready, self.aux = host, ready, aux
+        self.frame_number = frame_number
+
+    def image(self) -> np.ndarray:
+        """Wait for the copy, then the frame as (H, W, 4) uint8."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        # a copy: the pinned slot is written again FRAME_OVERLAP frames on
+        return unpack_u8(self.host.numpy()).copy()
+
+
 class Engine:
+    FRAME_OVERLAP = 3  # frames in flight (vk_engine.h:77)
+
     def __init__(self, config: Optional[RendererConfig] = None, device="cuda"):
         self.config = config or RendererConfig()
         _check_config(self.config)
@@ -96,7 +120,10 @@ class Engine:
         self._last_aux = None
         self._params_key = None
         self._bg_key = None
+        self._bg_fb = None
         self._caps = None
+        self._inflight = collections.deque()
+        self._slots = []   # draw_pipelined's pinned host images, reused in turn
 
     # -- init (vk_engine.cpp:171-201) ---------------------------------------
 
@@ -104,7 +131,7 @@ class Engine:
              scene: Optional[scene_mod.LoadedScene] = None,
              variant=None) -> None:
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
+            raise NoDeviceError(
                 "Engine runs on the CUDA card by default and no CUDA device "
                 "is available: pass device=\"cpu\" to render on the CPU")
         if scene is not None:
@@ -200,27 +227,45 @@ class Engine:
         cfg = self.config
         image, aux = render_frame(
             self.flat.buffers, params,
-            width=cfg.width, height=cfg.height,
             tile_h=cfg.tile_h, tile_w=cfg.tile_w,
             fp16=cfg.framebuffer_fp16,
             transp_textured=self._transp_textured(), fused=self._fused,
             trilinear=self._trilinear, pot=self._pot,
-            bg_fb=self._bg_fb_cached(params), **self._caps)
+            bg_fb=self._bg_fb_cached(params), **self._extents(), **self._caps)
         self.frame_number += 1
         self._last_aux = aux
         return image, aux
 
     def _bg_fb_cached(self, params: FrameParams):
-        """Background framebuffer, cached across frames: a pure function of
-        the background effect/params and the draw extent."""
+        """Background framebuffer (kernel 2.9 or 2.10), cached across
+        frames: a pure function of the background effect/params and the
+        render extent, so it is launched at the first draw, at an effect
+        switch and at a resize. The engine knows the effect on the host, so
+        nothing is read back."""
         cfg = self.config
-        key = (self.current_background_effect, cfg.width, cfg.height)
+        ext = self._extents()
+        key = (self.current_background_effect, ext["width"], ext["height"])
         if self._bg_key != key:
-            self._bg_fb = background_fb(params, width=cfg.width,
-                                        height=cfg.height, tile_h=cfg.tile_h,
-                                        tile_w=cfg.tile_w)
+            self._bg_fb = background_fb(params, width=ext["width"],
+                                        height=ext["height"], tile_h=cfg.tile_h,
+                                        tile_w=cfg.tile_w,
+                                        effect=self.current_background_effect)
             self._bg_key = key
         return self._bg_fb
+
+    def _extents(self) -> dict:
+        """Render and output extents: render_scale scales the draw extent
+        and the frame linear-blits to the window extent (the reference's
+        _render_scale path made live, vk_engine.cpp:1220-1222)."""
+        cfg = self.config
+        s = cfg.render_scale
+        if s == 1.0:
+            return dict(width=cfg.width, height=cfg.height)
+        # the height follows the effective width scale, so a non-round scale
+        # cannot break the aspect ratio
+        w = max(1, int(round(cfg.width * s)))
+        h = max(1, int(round(cfg.height * w / cfg.width)))
+        return dict(width=w, height=h, out_width=cfg.width, out_height=cfg.height)
 
     def draw(self, with_stats: bool = True, hud: bool = False) -> np.ndarray:
         """Render one frame; returns the (H, W, 4) uint8 image on the host.
@@ -229,9 +274,10 @@ class Engine:
         On the deferred path a frame that overflows a bin capacity
         escalates the caps and the same frame (same camera params: the
         scene is not updated again) redraws before draw returns, up to 4
-        times."""
-        if hud:
-            raise _not_ported("the HUD overlay", "Queue 1 item 9")
+        times.
+
+        hud=True burns the stats overlay into the frame (the ImGui window,
+        vk_engine.cpp:1175-1191)."""
         t0 = time.perf_counter()
         params = self.update_scene()
         image, aux = self.draw_device(params)
@@ -246,11 +292,79 @@ class Engine:
                 image, aux = self.draw_device(params)
         out = unpack_u8(image)
         self.stats.mesh_draw_time = (time.perf_counter() - t0) * 1000.0
+        if hud:
+            out = out.copy()
+            hud_mod.draw_stats(out, self.stats)
         return out
 
-    def draw_pipelined(self, *args, **kwargs):
-        raise _not_ported("draw_pipelined (FRAME_OVERLAP frames in flight)",
-                          "Queue 1 item 8")
+    # -- pipelined interactive path (the FRAME_OVERLAP analog) ---------------
+
+    def draw_pipelined(self, hud: bool = False, stats_interval: int = 30,
+                       present_cells=None) -> Optional[np.ndarray]:
+        """Render one frame with FRAME_OVERLAP frames in flight; returns the
+        host image of the frame submitted FRAME_OVERLAP - 1 calls ago (None
+        while the pipeline fills).
+
+        The reference never presents the frame it just recorded either: it
+        keeps 3 frames in flight and blocks only on the fence 3 frames back
+        (vk_engine.cpp:1226-1240). Here frame N is enqueued with a
+        non-blocking copy into a pinned host image and an event after it;
+        the call then waits on frame N-2's event only, so that frame's copy
+        overlaps the device work of the next two. On the CPU the frames are
+        rendered synchronously and returned in the same sequence.
+
+        present_cells=(cols, rows): present only a terminal raster's
+        samples, a nearest subsample on the device with the index map of
+        viewer.frame_to_halfblocks, returned as (rows * 2, cols, 4).
+        Stats (one small device fetch) refresh every stats_interval frames;
+        on the deferred path that delays the cap escalation by up to an
+        interval (the fused path cannot overflow)."""
+        t0 = time.perf_counter()
+        params = self.update_scene()
+        image, aux = self.draw_device(params)
+        if present_cells is not None:
+            cols, rows = present_cells
+            h, w = image.shape
+            ys = (np.arange(rows * 2) * (h / (rows * 2))).astype(np.int64).clip(0, h - 1)
+            xs = (np.arange(cols) * (w / cols)).astype(np.int64).clip(0, w - 1)
+            image = image[torch.as_tensor(ys, device=self.device)][
+                :, torch.as_tensor(xs, device=self.device)]
+        self._inflight.append(self._submit(image, aux))
+        if len(self._inflight) < self.FRAME_OVERLAP:
+            return None
+        old = self._inflight.popleft()
+        out = old.image()
+        if stats_interval and (old.frame_number - 1) % stats_interval == 0:
+            self._update_stats(old.aux)
+        self.stats.mesh_draw_time = (time.perf_counter() - t0) * 1000.0
+        if hud and present_cells is None:
+            hud_mod.draw_stats(out, self.stats)
+        return out
+
+    def _submit(self, image, aux) -> _InFlight:
+        """Start frame `image`'s copy to the host. On CUDA: into the least
+        recently used of FRAME_OVERLAP pinned images (at most FRAME_OVERLAP
+        - 1 frames are in flight here, so its frame has been read), with an
+        event recorded behind the copy."""
+        if self.device.type != "cuda":
+            return _InFlight(image, None, aux, self.frame_number)
+        full = len(self._slots) == self.FRAME_OVERLAP
+        host = self._slots.pop(0) if full else None
+        if host is None or host.shape != image.shape:
+            host = torch.empty(image.shape, dtype=image.dtype, pin_memory=True)
+        self._slots.append(host)
+        host.copy_(image, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return _InFlight(host, ready, aux, self.frame_number)
+
+    def flush_pipelined(self) -> Optional[np.ndarray]:
+        """Drain the frames in flight (the end of an interactive run);
+        returns the last one, or None when there was none."""
+        out = None
+        while self._inflight:
+            out = self._inflight.popleft().image()
+        return out
 
     def _update_stats(self, aux) -> None:
         # one batched device->host transfer for all counters
@@ -298,3 +412,26 @@ class Engine:
             if on_frame is not None:
                 on_frame(self, i, image)
         return image
+
+    def resize(self, width: int, height: int) -> None:
+        """resize_swapchain analog (vk_engine.cpp:1520-1534): the next frame
+        renders at the new extent. Frames in flight, the background and the
+        pinned host images of the old extent are dropped."""
+        self.config = self.config.with_extent(width, height)
+        self._drop_frame_state()
+        self._compute_caps()
+
+    def cleanup(self) -> None:
+        """Drop the scene, its device buffers and every cached frame
+        (vk_engine.cpp:1131-1159)."""
+        self._drop_frame_state()
+        self.scene = None
+        self.flat = None
+        self._caps = None
+
+    def _drop_frame_state(self) -> None:
+        self._inflight.clear()
+        self._slots.clear()
+        self._bg_fb = None
+        self._bg_key = None
+        self._last_aux = None

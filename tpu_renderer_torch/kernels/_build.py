@@ -1,4 +1,5 @@
-"""Build and load the CUDA raster kernels (csrc/*.cu).
+"""Build and load the CUDA kernels (csrc/*.cu: the raster passes and the
+background passes).
 
 The sources are compiled with nvcc for sm_90a, one nvcc process per source,
 all started together, and linked into one shared library with a plain C
@@ -122,6 +123,12 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.raster_deferred_launch.restype = i
         lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p]
         lib.raster_peel_deferred_launch.restype = i
+        lib.background_gradient_launch.argtypes = [p, p, i, i, i, p, p]
+        lib.background_gradient_launch.restype = i
+        lib.background_sky_launch.argtypes = [p, p, p, p, p, i, i, i, p, p]
+        lib.background_sky_launch.restype = i
+        lib.background_grid_launch.argtypes = [i, i, i, i, p, p]
+        lib.background_grid_launch.restype = i
         lib.raster_error_string.argtypes = [i]
         lib.raster_error_string.restype = ctypes.c_char_p
         _lib = lib

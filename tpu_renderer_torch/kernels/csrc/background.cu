@@ -1,0 +1,202 @@
+// Kernels 2.9, 2.10 and 2.11: the background compute passes, each writing
+// the planar (4, Hp, Wp) f32 framebuffer, padding included.
+//
+// 2.9 replaces the Pallas kernel background._gradient_kernel of the JAX
+// package (tpu_renderer/kernels/background.py, from gradient): per row
+// mix(data1, data2, y / height) (gradient_color.comp:14-27).
+// 2.10 replaces background._sky_kernel (from sky): a hash-noise star field,
+// bilinear over the 4 lattice stars around the pixel, plus rgb * y / height;
+// alpha 1 (sky.comp:17-91).
+// 2.11 replaces background._grid_kernel (from grid_gradient): the x / width,
+// y / height ramp, black on the 16-pixel grid lines; b 0, alpha 1
+// (gradient.comp:11-28).
+//
+// What bounds them on the H100: bytes. Each writes 16 B a pixel and reads
+// next to nothing (two 4-float parameter vectors; for the sky four cosine
+// vectors of Wp or Hp floats, which stay in L1/L2), against at most ~60
+// float operations a pixel for the sky and a handful for the others.
+// What the design does about it: one thread computes 4 neighbouring pixels
+// of a row in registers and writes each of the 4 planes with one 16-byte
+// store, a warp covering one 512-byte row segment per plane; no shared
+// memory, no intermediate plane ever reaches device memory (the plain
+// PyTorch version writes some forty).
+//
+// Rounding is spelled out as in the raster kernels: the library builds with
+// -fmad=false, every fused multiply-add the JAX reference has on the CPU is
+// an __fmaf_rn here, every other operation an explicit round-to-nearest
+// intrinsic, and a division by a constant extent is a multiply by its f32
+// reciprocal, as XLA evaluates it. The sky's lattice cosines are not taken
+// here: CUDA's cosf is not the C library's, an ulp of which 415.9x
+// amplifies into another star, so the host evaluates them (2 Wp + 2 Hp
+// values) and the kernel reads them; everything per pixel runs here.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE_H = 32;     // the frame's raster tile: the padded extent
+constexpr int TILE_W = 128;    // is whole tiles
+constexpr int VEC = 4;         // pixels a thread, one float4 store a plane
+constexpr int BLOCK_X = TILE_W / VEC;   // 32 threads: one 128-pixel row segment
+constexpr int BLOCK_Y = 8;              // rows a block
+constexpr int GRID_CELL = 16;           // gradient.comp's workgroup edge
+static_assert(TILE_H % BLOCK_Y == 0, "a block's rows divide the tile height");
+
+__device__ __forceinline__ float recip(int n) {
+  return __fdiv_rn(1.0f, static_cast<float>(n));
+}
+
+__device__ __forceinline__ float fract(float v) { return __fsub_rn(v, floorf(v)); }
+
+__device__ __forceinline__ void store4(float* plane, size_t p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(plane + p) = make_float4(a, b, c, d);
+}
+
+// The first pixel of this thread and its offset in a plane.
+__device__ __forceinline__ void thread_pixel(int wp, int* x, int* y, size_t* p) {
+  *x = (blockIdx.x * BLOCK_X + threadIdx.x) * VEC;
+  *y = blockIdx.y * BLOCK_Y + threadIdx.y;
+  *p = static_cast<size_t>(*y) * wp + *x;
+}
+
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+background_gradient_kernel(const float* __restrict__ data1,
+                           const float* __restrict__ data2, int height, int wp, int hp,
+                           float* __restrict__ out) {
+  int x, y;
+  size_t p;
+  thread_pixel(wp, &x, &y, &p);
+  const size_t plane = static_cast<size_t>(hp) * wp;
+  const float blend = __fmul_rn(static_cast<float>(y), recip(height));
+  const float rest = __fsub_rn(1.0f, blend);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    // mix(d1, d2, a) = d1 * (1 - a) + d2 * a, contracted as fma(d2, a, d1 * (1 - a))
+    const float mix = __fmaf_rn(data2[c], blend, __fmul_rn(data1[c], rest));
+    const float v = __fadd_rn(mix, 0.0f);   // the broadcast add: -0 becomes +0
+    store4(out + c * plane, p, v, v, v, v);
+  }
+}
+
+// sky.comp:18-33: the lattice noise from its two cosines, then the
+// threshold and the pow6 shaping (x2 * (x2 * x2), as the reference
+// multiplies it).
+__device__ __forceinline__ float star(float cx, float cy, float threshold, float span) {
+  const float v = fract(__fmul_rn(415.92653f, __fadd_rn(cx, cy)));
+  const float s = __fdiv_rn(__fsub_rn(v, threshold), span);
+  const float s2 = __fmul_rn(s, s);
+  const float shaped = __fmul_rn(s2, __fmul_rn(s2, s2));
+  return v >= threshold ? shaped : 0.0f;
+}
+
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+background_sky_kernel(const float* __restrict__ data1, const float* __restrict__ cx0,
+                      const float* __restrict__ cx1, const float* __restrict__ cy0,
+                      const float* __restrict__ cy1, int height, int wp, int hp,
+                      float* __restrict__ out) {
+  int x, y;
+  size_t p;
+  thread_pixel(wp, &x, &y, &p);
+  const size_t plane = static_cast<size_t>(hp) * wp;
+  const float threshold = data1[3];
+  const float span = __fsub_rn(1.0f, threshold);
+  const float yf = static_cast<float>(y);
+  // sky.comp:67-69: crawl offset (0.2, -0.06) * frame 1
+  const float fy = fract(__fadd_rn(yf, -0.06f));
+  const float ry = __fsub_rn(1.0f, fy);
+  const float a0 = cy0[y], a1 = cy1[y];
+  const float4 b0 = *reinterpret_cast<const float4*>(cx0 + x);
+  const float4 b1 = *reinterpret_cast<const float4*>(cx1 + x);
+  const float c0[VEC] = {b0.x, b0.y, b0.z, b0.w};
+  const float c1[VEC] = {b1.x, b1.y, b1.z, b1.w};
+
+  float st[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float fx = fract(__fadd_rn(static_cast<float>(x + i), 0.2f));
+    const float rx = __fsub_rn(1.0f, fx);
+    // bilinear blend of the 4 lattice stars (sky.comp:36-54)
+    const float v1 = star(c0[i], a0, threshold, span);
+    const float v2 = star(c0[i], a1, threshold, span);
+    const float v3 = star(c1[i], a0, threshold, span);
+    const float v4 = star(c1[i], a1, threshold, span);
+    float s = __fmaf_rn(__fmul_rn(v1, rx), ry, __fmul_rn(__fmul_rn(v2, rx), fy));
+    s = __fmaf_rn(__fmul_rn(v3, fx), ry, s);
+    st[i] = __fmaf_rn(__fmul_rn(v4, fx), fy, s);
+  }
+  // sky.comp:60: rgb * y / height as (rgb * (1 / height)) * y, then + star
+  const float r = recip(height);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float g = __fmul_rn(__fmul_rn(data1[c], r), yf);
+    store4(out + c * plane, p, __fadd_rn(g, st[0]), __fadd_rn(g, st[1]),
+           __fadd_rn(g, st[2]), __fadd_rn(g, st[3]));
+  }
+  store4(out + 3 * plane, p, 1.0f, 1.0f, 1.0f, 1.0f);
+}
+
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+background_grid_kernel(int height, int width, int wp, int hp, float* __restrict__ out) {
+  int x, y;
+  size_t p;
+  thread_pixel(wp, &x, &y, &p);
+  const size_t plane = static_cast<size_t>(hp) * wp;
+  const bool row_on = y % GRID_CELL != 0;
+  const float g = row_on ? __fmul_rn(static_cast<float>(y), recip(height)) : 0.0f;
+  const float rw = recip(width);
+  float r[VEC], gg[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    // gradient.comp:20: black where the 16x16 workgroup-local id is 0
+    const bool on = row_on && (x + i) % GRID_CELL != 0;
+    r[i] = on ? __fmul_rn(static_cast<float>(x + i), rw) : 0.0f;
+    gg[i] = on ? g : 0.0f;
+  }
+  store4(out, p, r[0], r[1], r[2], r[3]);
+  store4(out + plane, p, gg[0], gg[1], gg[2], gg[3]);
+  store4(out + 2 * plane, p, 0.0f, 0.0f, 0.0f, 0.0f);
+  store4(out + 3 * plane, p, 1.0f, 1.0f, 1.0f, 1.0f);
+}
+
+// The launch grid over a padded extent, or false when the extent is not
+// whole tiles (the kernels have no edge masks).
+bool launch_grid(int wp, int hp, dim3* grid) {
+  if (wp <= 0 || hp <= 0 || wp % TILE_W != 0 || hp % TILE_H != 0) return false;
+  *grid = dim3(wp / TILE_W, hp / BLOCK_Y);
+  return true;
+}
+
+const dim3 BLOCK(BLOCK_X, BLOCK_Y);
+
+}  // namespace
+
+extern "C" int background_gradient_launch(const float* data1, const float* data2,
+                                          int height, int wp, int hp, float* out,
+                                          void* stream) {
+  dim3 grid;
+  if (!launch_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  background_gradient_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      data1, data2, height, wp, hp, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int background_sky_launch(const float* data1, const float* cx0,
+                                     const float* cx1, const float* cy0,
+                                     const float* cy1, int height, int wp, int hp,
+                                     float* out, void* stream) {
+  dim3 grid;
+  if (!launch_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  background_sky_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      data1, cx0, cx1, cy0, cy1, height, wp, hp, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int background_grid_launch(int height, int width, int wp, int hp, float* out,
+                                      void* stream) {
+  dim3 grid;
+  if (!launch_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  background_grid_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      height, width, wp, hp, out);
+  return static_cast<int>(cudaGetLastError());
+}
