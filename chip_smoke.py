@@ -47,7 +47,23 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    against native, draw() against draw_pipelined() over one orbit (equal
    byte for byte with a lag of two), medians printed; then an effect
    switch and a resize on one engine with the launches they cause;
-11. prints a JSON line of per-kernel results (launches on its path,
+11. the gathered oracles (kernels 2.6, 2.7, 2.8, per-triangle bins over the
+   fat rows): 2.6 against its plain version on the deferred bench frame's
+   own rows and refined bins at the settled caps, timed; then, with the
+   counters reset, the cross-checks, each on the very rows its stream
+   kernel ran on: triangle bins built over the fused bench frame's sorted
+   rows (bin_triangles + refine_bins, caps doubled until nothing
+   overflows) and 2.6's z, tid, attrs, metas, inv equal 2.1's; 2.7 on
+   expand_bins of the frame's transparent chunk bins equals 2.2 (cnt
+   exact; acc exact, or within 1e-6 with the maximum printed); 2.8 equals
+   2.3 over the first three peels of the textured-glass frame, `last` fed
+   back. 2.7 and 2.8 are also held to their plain versions and timed;
+12. the raster profile tool (tpu_renderer_torch.tools.profile_raster.main)
+   in-process: its five lines; 2.4 and 2.6 must launch;
+13. the bench (tpu_renderer_torch.bench.main --frames 20) in-process: its
+   JSON line; 2.1 and 2.2 must launch in every frame of every variant, and
+   trilinear_auto_scale must lie in [auto_scale_min, 1];
+14. prints a JSON line of per-kernel results (launches on its path,
    max_abs_err against the plain version, ms and plain ms, the bound from
    this run's inputs, the library call's ms where there is one), the
    nvidia-smi line, and, last, {"ok": true, "device": {...}}.
@@ -74,7 +90,7 @@ FRAME_TOL = 0.001        # whole frame: share of pixels allowed to differ
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_PER_TEST = 16      # 3 edge planes + the depth plane, 4 flops each
-FLOPS_PER_FRAGMENT = 40  # kernel 2.2's shading of a taken fragment
+FLOPS_PER_FRAGMENT = 40  # kernels 2.2 and 2.7: shading a taken fragment
 PIXELS_PER_TILE = 32 * 128
 
 # Float operations a pixel of the background passes: 2.9 a multiply, a
@@ -105,6 +121,18 @@ KERNELS = {
     "raster_peel_kernel": ("raster", "rasterize_peel_plain", "peel_counter",
                            "tpu_renderer_torch/kernels/csrc/raster_deferred.cu",
                            "tpu_renderer/kernels/raster.py:749"),
+    "raster_fused_gathered_kernel": ("raster", "rasterize_fused_gathered_plain",
+                                     "fused_gathered_counter",
+                                     "tpu_renderer_torch/kernels/csrc/raster_gathered.cu",
+                                     "tpu_renderer/kernels/raster.py:868"),
+    "raster_accum_gathered_kernel": ("raster", "rasterize_accum_gathered_plain",
+                                     "accum_gathered_counter",
+                                     "tpu_renderer_torch/kernels/csrc/raster_gathered.cu",
+                                     "tpu_renderer/kernels/raster.py:1551"),
+    "raster_peel_gathered_kernel": ("raster", "rasterize_peel_gathered_plain",
+                                    "peel_gathered_counter",
+                                    "tpu_renderer_torch/kernels/csrc/raster_gathered.cu",
+                                    "tpu_renderer/kernels/raster.py:1865"),
     "background_gradient_kernel": ("background", "gradient_plain", "gradient_counter",
                                    "tpu_renderer_torch/kernels/csrc/background.cu",
                                    "tpu_renderer/kernels/background.py:44"),
@@ -116,6 +144,13 @@ KERNELS = {
                                "tpu_renderer/kernels/background.py:171"),
 }
 BACKGROUND_KERNELS = tuple(n for n in KERNELS if n.startswith("background_"))
+# kernels over dense chunk bins (entries cid << shift | gmask); the other
+# raster kernels walk per-triangle bins
+CHUNK_BIN_KERNELS = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel")
+# peels that may stop at the entry holding the layer (their bins ascend);
+# 2.8's rule takes the slots in any order, so it needs every live entry
+EARLY_EXIT_PEELS = ("raster_peel_fused_kernel", "raster_peel_kernel")
+ACCUM_KERNELS = ("raster_accum_kernel", "raster_accum_gathered_kernel")
 
 
 def kernel_module(name):
@@ -235,14 +270,15 @@ def work_tests(name, args, kwargs, out) -> int:
     pixel. Per-triangle bins: one test a live entry and pixel. A peel
     needs, for each pixel, the entries up to the one that holds the layer
     it finds (ids ascend along a bin), and every live entry where it finds
-    none; the other kernels test every live entry at every pixel."""
+    none; the other kernels (the gathered peel 2.8 among them, whose slots
+    need not ascend) test every live entry at every pixel."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
 
     table, bins, counts = args[0], args[1], args[2]
     live = _live_entries(bins, counts)
-    if name in ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel"):
+    if name in CHUNK_BIN_KERNELS:
         key = bins >> raster.entry_shift(raster.CHUNK // raster.GROUP)   # chunk id
         live &= (bins >= 0) & (key < table.shape[0] // raster.CHUNK)
         work = sum(((bins >> g) & 1) for g in range(raster.CHUNK // raster.GROUP)) * raster.GROUP
@@ -253,7 +289,7 @@ def work_tests(name, args, kwargs, out) -> int:
         work = torch.ones_like(bins)
         per_id = 1
     work = work * live
-    if name not in ("raster_peel_fused_kernel", "raster_peel_kernel"):
+    if name not in EARLY_EXIT_PEELS:
         return int(work.sum()) * PIXELS_PER_TILE
     layer = _frame_tiles(_tuple(out)[0], kwargs["tiles_x"], kwargs["tiles_y"])
     stop = torch.where(layer < raster.ID_INF, layer // per_id, raster.ID_INF)
@@ -269,7 +305,7 @@ def bound(name, args, kwargs, out):
     import torch
 
     flops = work_tests(name, args, kwargs, out) * FLOPS_PER_TEST
-    if name == "raster_accum_kernel":
+    if name in ACCUM_KERNELS:
         flops += int(out[1].sum()) * FLOPS_PER_FRAGMENT
     bins, counts = args[1], args[2]
     tensors = [a for a in args if isinstance(a, torch.Tensor) and a is not bins] + list(_tuple(out))
@@ -395,12 +431,14 @@ def plain_frame(eng, names):
         return eng.draw()
 
 
-def bench_path(eng, results):
-    """Phase 3: the bench frame (kernels 2.1, 2.2)."""
+def bench_path(eng, results, inputs):
+    """Phase 3: the bench frame (kernels 2.1, 2.2). inputs keeps the two
+    kernels' calls for the cross-checks of phase 11."""
     names = ("raster_fused_kernel", "raster_accum_kernel")
     seen = capture_kernel_inputs(eng.draw_device, names)
     for n in names:
         results[n] = check_kernel(n, [(0, seen[n][-1])], "bench frame")
+        inputs[n] = seen[n][-1]
     frame_ms, image, _, _, launches = counted_frames(eng, 20, "bench frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), "kernel frame differs from plain frame"
     print(f"[frame] bench frame == plain-version frame; frame ms {frame_ms:.3f}", flush=True)
@@ -408,8 +446,9 @@ def bench_path(eng, results):
         results[n]["launches"] = launches[n]
 
 
-def textured_glass_path(scene_path, results):
-    """Phase 4: the textured-glass bench frame (kernel 2.3's peel loop)."""
+def textured_glass_path(scene_path, results, inputs):
+    """Phase 4: the textured-glass bench frame (kernel 2.3's peel loop).
+    inputs keeps the first peel's call for the cross-check of phase 11."""
     from tpu_renderer_torch.scene import load_scene
     from tpu_renderer_torch.utils.bench_frame import bench_engine, texture_the_glass
 
@@ -421,6 +460,7 @@ def textured_glass_path(scene_path, results):
     name = "raster_peel_fused_kernel"
     seen = capture_kernel_inputs(eng.draw_device, (name,))
     calls = seen[name]
+    inputs[name] = calls[0]
     later = len(calls) // 2
     results[name] = check_kernel(name, [(0, calls[0]), (later, calls[later])],
                                  "textured-glass frame")
@@ -433,8 +473,10 @@ def textured_glass_path(scene_path, results):
     results[name]["launches"] = launches[name]
 
 
-def deferred_path(scene_path, results):
-    """Phase 5: the deferred bench frame (kernels 2.4 and 2.5)."""
+def deferred_path(scene_path, results, inputs):
+    """Phase 5: the deferred bench frame (kernels 2.4 and 2.5). inputs
+    keeps the frame's fat rows and refined bins for kernel 2.6."""
+    from tpu_renderer_torch.tools.profile_raster import deferred_inputs
     from tpu_renderer_torch.utils.bench_frame import bench_engine
 
     eng = bench_engine(scene_path, fused=False)
@@ -442,6 +484,8 @@ def deferred_path(scene_path, results):
     caps0 = dict(eng._caps)
     eng.draw()                             # escalates the caps on overflow
     print(f"[frame] deferred: caps {caps0} -> {eng._caps}", flush=True)
+    _, rows48, bins, counts, tiles, _ = deferred_inputs(eng)
+    inputs["raster_fused_gathered_kernel"] = ((rows48, bins, counts), tiles)
     names = ("raster_deferred_kernel", "raster_peel_kernel")
     seen = capture_kernel_inputs(eng.draw_device, names)
     results[names[0]] = check_kernel(names[0], [(0, seen[names[0]][0])], "deferred frame")
@@ -810,6 +854,181 @@ def scale_and_pipeline_phase(scene_path):
           flush=True)
 
 
+def triangle_bins(rows, tiles):
+    """Per-triangle bins over fat rows, through the deferred path's own
+    binning (bin_triangles over the chunk boxes, refine_bins), each cap
+    doubled until nothing overflows. The boxes are the rows' own (columns
+    44-47); a dead row carries the empty box."""
+    from tpu_renderer_torch.kernels import raster
+
+    aabb = rows[:, 44:48].contiguous()
+    valid = (aabb[:, 2] >= aabb[:, 0]) & (aabb[:, 3] >= aabb[:, 1])
+    caabb, cvalid = raster.chunk_aabbs(aabb, valid)
+    bin_cap, tri_cap = 512, 1024
+    while True:
+        cbins, _, overflow = raster.bin_triangles(caabb, cvalid, bin_cap=bin_cap, **tiles)
+        if int(overflow) == 0:
+            break
+        bin_cap *= 2
+    while True:
+        bins, counts, overflow = raster.refine_bins(cbins, aabb, tri_cap=tri_cap, **tiles)
+        if int(overflow) == 0:
+            break
+        tri_cap *= 2
+    print(f"[bins] triangle bins over {rows.shape[0]} sorted rows: bin_cap {bin_cap}, "
+          f"tri_cap {tri_cap}, {int(counts.sum())} entries, at most {int(counts.max())} "
+          f"a tile", flush=True)
+    return bins, counts
+
+
+def expanded_bins(dense_bins, counts):
+    """Dense chunk entries (cid << shift | gmask) -> per-triangle bins of
+    every member of each binned chunk (expand_bins)."""
+    import torch
+
+    from tpu_renderer_torch.kernels import raster
+
+    shift = raster.entry_shift(raster.CHUNK // raster.GROUP)
+    live = _live_entries(dense_bins, counts)
+    cbins = torch.where(live, dense_bins >> shift, raster.NO_TRI)
+    return raster.expand_bins(cbins, counts.clamp(max=dense_bins.shape[1]))
+
+
+def equal_outputs(what, got, want, names):
+    """Raise unless each tensor of got equals its twin of want, bit for bit."""
+    import torch
+
+    for name, g, w in zip(names, got, want):
+        same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert same, (f"{what}: {name} differs, max abs "
+                      f"{float((g.double() - w.double()).abs().max())}")
+
+
+def gathered_phase(results, inputs):
+    """Phase 11: kernels 2.6-2.8 against their plain versions, and the
+    stream kernels 2.1-2.3 against them on the same rows."""
+    import torch
+
+    from tpu_renderer_torch.kernels import raster
+
+    # 2.6 on the deferred bench frame's own rows and refined bins
+    name26, name27, name28 = ("raster_fused_gathered_kernel", "raster_accum_gathered_kernel",
+                              "raster_peel_gathered_kernel")
+    results[name26] = check_kernel(name26, [(0, inputs[name26])], "deferred frame")
+
+    # per-triangle bins over the very rows each stream kernel ran on
+    (rows, dense, dcounts), tiles = inputs["raster_fused_kernel"]
+    tbins, tcounts = triangle_bins(rows, tiles)
+    (rows_t, dense_t, dcounts_t, z, light), _ = inputs["raster_accum_kernel"]
+    abins, acounts = expanded_bins(dense_t, dcounts_t)
+    (rows_p, dense_p, dcounts_p, z_p, last0), _ = inputs["raster_peel_fused_kernel"]
+    pbins, pcounts = expanded_bins(dense_p, dcounts_p)
+    results[name27] = check_kernel(
+        name27, [(0, ((rows_t, abins, acounts, z, light), tiles))], "bench frame's glass")
+    results[name28] = check_kernel(
+        name28, [(0, ((rows_p, pbins, pcounts, z_p, last0), tiles))],
+        "textured-glass frame, first peel")
+
+    reset_counters()
+    five = ("z", "tid", "attrs", "metas", "inv")
+    equal_outputs("2.6 against 2.1", raster.rasterize_fused_gathered(rows, tbins, tcounts, **tiles),
+                  raster.rasterize_fused(rows, dense, dcounts, **tiles), five)
+    print("[cross-check] 2.6 == 2.1 on the bench frame's sorted rows: z, tid, attrs, "
+          "metas, inv bit for bit", flush=True)
+
+    acc6, cnt6 = raster.rasterize_accum_gathered(rows_t, abins, acounts, z, light, **tiles)
+    acc2, cnt2 = raster.rasterize_accum(rows_t, dense_t, dcounts_t, z, light, **tiles)
+    assert torch.equal(cnt6, cnt2), "2.7 against 2.2: cnt differs"
+    acc_err = float((acc6.double() - acc2.double()).abs().max())
+    assert acc_err <= 1e-6, f"2.7 against 2.2: acc differs by {acc_err}"
+    print(f"[cross-check] 2.7 == 2.2 on the bench frame's glass: cnt exact "
+          f"({int(cnt6.sum())} fragments, at most {int(cnt6.max())} a pixel), acc max abs "
+          f"difference {acc_err} (bound 1e-6)", flush=True)
+
+    last6 = last3 = last0
+    found = []
+    for peel in range(3):
+        out6 = raster.rasterize_peel_gathered(rows_p, pbins, pcounts, z_p, last6, **tiles)
+        out3 = raster.rasterize_peel_fused(rows_p, dense_p, dcounts_p, z_p, last3, **tiles)
+        equal_outputs(f"2.8 against 2.3, peel {peel}", out6, out3,
+                      ("layer", "attrs", "metas", "inv"))
+        found.append(int((out6[0] < raster.ID_INF).sum()))
+        last6 = torch.where(out6[0] < raster.ID_INF, out6[0], raster.ID_INF)
+        last3 = torch.where(out3[0] < raster.ID_INF, out3[0], raster.ID_INF)
+    assert found[0] > 0
+    print(f"[cross-check] 2.8 == 2.3 over three peels of the textured-glass frame, last fed "
+          f"back: layer, attrs, metas, inv bit for bit; pixels with a layer {found}",
+          flush=True)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"[cross-check] launches: {launches}", flush=True)
+    for n in (name26, name27, name28):
+        assert launches[n] > 0, f"{n} was never launched by the cross-checks"
+        results[n]["launches"] = launches[n]
+
+
+def profile_tool_phase(results):
+    """Phase 12: the raster profile tool in-process; 2.4 and 2.6 launch."""
+    from tpu_renderer_torch.tools import profile_raster
+
+    reset_counters()
+    rc = profile_raster.main(["--iters", "10"])
+    assert rc == 0, f"profile_raster exited {rc}"
+    launches = read_counters()
+    for n in ("raster_deferred_kernel", "raster_fused_gathered_kernel"):
+        assert launches[n] > 0, f"{n} was never launched by the profile tool"
+    print(f"[tool] profile_raster launches: {launches}", flush=True)
+    results["raster_fused_gathered_kernel"]["launches"] += \
+        launches["raster_fused_gathered_kernel"]
+
+
+def bench_phase():
+    """Phase 13: the bench in-process, its JSON line, and the launches of
+    2.1 and 2.2 in each of its variants."""
+    from tpu_renderer_torch import bench
+    from tpu_renderer_torch.config import RendererConfig
+
+    frames = 20
+    variants = []
+    sequence_fps = bench.sequence_fps
+
+    def counted(eng, n, kw=None):
+        reset_counters()
+        out = sequence_fps(eng, n, kw)
+        variants.append(read_counters())
+        return out
+
+    bench.sequence_fps = counted
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            reset_counters()
+            rc = bench.main(["--frames", str(frames)])
+    finally:
+        bench.sequence_fps = sequence_fps
+    assert rc == 0, f"bench exited {rc}"
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"[bench] {line}", flush=True)
+    result = json.loads(line)
+    assert result["metric"] == "fps_1080p_gltf_scene" and result["backend"] == "cuda", result
+    # headline, trilinear, trilinear under target_fps, stress: each runs its
+    # sequence twice (warm, timed), and every frame has glass
+    assert len(variants) == 4, len(variants)
+    for i, launches in enumerate(variants):
+        for n in ("raster_fused_kernel", "raster_accum_kernel"):
+            assert launches[n] == 2 * frames, f"bench variant {i}: {n} launched {launches[n]}"
+    # since the stress variant's reset: its sequences, then the two
+    # pipelined loops (frames, and 3 + frames)
+    interactive = {n: v - variants[-1][n] for n, v in read_counters().items()}
+    for n in ("raster_fused_kernel", "raster_accum_kernel"):
+        assert interactive[n] == 2 * frames + 3, (n, interactive[n])
+    scale = result["detail"]["trilinear_auto_scale"]
+    assert RendererConfig().auto_scale_min <= scale <= 1.0, scale
+    print(f"[bench] 2.1 and 2.2 launched {2 * frames} times in each of 4 sequence variants "
+          f"and {interactive['raster_fused_kernel']} times over the two interactive loops; "
+          f"trilinear_auto_scale {scale}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -835,15 +1054,20 @@ def main() -> int:
     print(f"[scene] bench scene ready in {time.perf_counter() - t0:.2f} s", flush=True)
     results = {}
     t0 = time.perf_counter()
-    bench_path(eng, results)
+    inputs = {}    # frames' own kernel calls, kept for the gathered oracles
+    bench_path(eng, results, inputs)
     del eng
-    textured_glass_path(scene_path, results)
-    deferred_path(scene_path, results)
+    textured_glass_path(scene_path, results, inputs)
+    deferred_path(scene_path, results, inputs)
     past_the_guard()
     structure_goldens()
     background_phase(results)
     cli_phase(results)
     scale_and_pipeline_phase(scene_path)
+    gathered_phase(results, inputs)
+    del inputs
+    profile_tool_phase(results)
+    bench_phase()
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [results[n] for n in KERNELS]}))

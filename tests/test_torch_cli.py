@@ -109,8 +109,26 @@ def test_view_command_runs_the_pipelined_loop(capsys):
     assert "frame 2" in text and "frame 3" in text and "frame 1 " not in text
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("--target-fps", "60", "Queue 1 item 8"), ("--multichip", "2x1", "Queue 1 item 11")])
+@pytest.mark.parametrize("target,scale", [("60", 0.5), ("1", 1.0)])
+def test_target_fps_flag_runs(tmp_path, target, scale):
+    """--target-fps engages the auto quality: a 60 fps budget lies below
+    the cost model's fixed term, so the draw extent floors at
+    auto_scale_min and the frame blits up to the window extent; 1 fps is
+    under budget natively. Either way the PNG has the window extent."""
+    native, out = str(tmp_path / "native.png"), str(tmp_path / "auto.png")
+    args = ["demo", "--grid", "2", *SMALL, "--background", "1"]
+    assert cli.main([*args, "--out", native]) == 0
+    assert cli.main([*args, "--target-fps", target, "--out", out]) == 0
+    a, b = load_png(native), load_png(out)
+    assert a.shape == b.shape == (64, 256, 4)
+    assert np.array_equal(a, b) == (scale == 1.0)
+    if scale < 1.0:     # the same frame as --render-scale at the floor
+        scaled = str(tmp_path / "scaled.png")
+        assert cli.main([*args, "--render-scale", str(scale), "--out", scaled]) == 0
+        np.testing.assert_array_equal(b, load_png(scaled))
+
+
+@pytest.mark.parametrize("flag,value,item", [("--multichip", "2x1", "Queue 1 item 11")])
 def test_unported_flags_exit_with_the_roadmap_item(capsys, flag, value, item):
     assert cli.main(["demo", "--grid", "2", *SMALL, flag, value]) == 2
     err = capsys.readouterr().err

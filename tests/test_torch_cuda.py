@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel (the raster passes 2.1-2.5,
-the background passes 2.9-2.11) against its plain PyTorch version, bit for
-bit, and Engine frames on the card (the fused path, textured transparency,
+the gathered oracles 2.6-2.8, the background passes 2.9-2.11) against its
+plain PyTorch version, bit for bit, each stream kernel against its gathered
+oracle, and Engine frames on the card (the fused path, textured transparency,
 the deferred path, the render scale, the pipelined draw) against the same
 frames on the CPU. They skip without a CUDA device; run them on a machine with an
 sm_90a card:
@@ -268,6 +269,134 @@ def test_engine_peel_and_deferred_frames_on_card_equal_cpu(cuda, tmp_path):
             frames.append(eng.draw())
             assert int(eng._last_aux["transparent_layers"]) >= 1
         np.testing.assert_array_equal(frames[1], frames[0])
+
+
+# -- the gathered oracles (kernels 2.6, 2.7, 2.8) -----------------------------
+
+LIGHT = (0.2, 0.8, 0.5, 1.0, 0.1, 0.15, 0.2, 0.0)
+
+
+def _gathered(device, T=96, seed=0, sort=True):
+    """Fat rows with their dense bins (the stream kernels' input) and both
+    per-triangle bins over the same rows (the oracles')."""
+    rows, aabb, valid = vertex.triangle_setup_rows(
+        _corners(device, T, seed), *_setup_args(device, T),
+        sun_dir=torch.tensor(SUN, device=device))
+    if sort:
+        aabb, valid, rows = raster.spatial_sort(aabb, valid, rows)
+    rows = rows.contiguous()
+    caabb, cvalid = raster.chunk_aabbs(aabb, valid)
+    gaabb, gvalid = raster.group_aabbs(aabb, valid)
+    dense = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **TILES)
+    cbins, ccounts, _ = raster.bin_triangles(caabb, cvalid, bin_cap=64, **TILES)
+    refined = raster.refine_bins(cbins, aabb, tri_cap=1024, **TILES)[:2]
+    expanded = raster.expand_bins(cbins, ccounts)
+    return rows, dense, refined, expanded
+
+
+def test_fused_gathered_kernel_matches_plain_and_stream(cuda):
+    """Kernel 2.6 against its plain version, and kernel 2.1 against 2.6 on
+    the same rows; then on the same bins in descending order (the kernel
+    walks the slots as given, a later slot winning an equal z)."""
+    rows, dense, refined, _ = _gathered(cuda)
+    before = raster.fused_gathered_counter.launches
+    got = raster.raster_fused_gathered_kernel(rows, *refined, **TILES)
+    want = raster.rasterize_fused_gathered_plain(rows, *refined, **TILES)
+    stream = raster.raster_fused_kernel(rows, *dense, **TILES)
+    torch.cuda.synchronize()
+    assert raster.fused_gathered_counter.launches == before + 1
+    assert all(_same(g, w) for g, w in zip(got, want))
+    assert all(_same(g, s) for g, s in zip(got, stream))
+    assert int((got[1] >= 0).sum()) > 1000
+    bins, counts = refined
+    live = torch.arange(bins.shape[1], device=cuda)[None, :] < counts[:, None]
+    key = torch.where(live, -bins, torch.iinfo(torch.int32).max)
+    down = torch.where(live, -key.sort(dim=1).values, -1).to(torch.int32).contiguous()
+    got = raster.raster_fused_gathered_kernel(rows, down, counts, **TILES)
+    want = raster.rasterize_fused_gathered_plain(rows, down, counts, **TILES)
+    torch.cuda.synchronize()
+    assert all(_same(g, w) for g, w in zip(got, want))
+
+
+def test_accum_gathered_kernel_matches_plain_and_stream(cuda):
+    """Kernel 2.7 against its plain version, and kernel 2.2 against 2.7."""
+    rows, dense, _, expanded = _gathered(cuda, seed=1)
+    z = raster.raster_fused_kernel(rows, *dense, **TILES)[0]
+    z[:, 128:] = 0.0
+    light = torch.tensor(LIGHT, device=cuda)
+    before = raster.accum_gathered_counter.launches
+    got = raster.raster_accum_gathered_kernel(rows, *expanded, z, light, **TILES)
+    want = raster.rasterize_accum_gathered_plain(rows, *expanded, z, light, **TILES)
+    stream = raster.raster_accum_kernel(rows, *dense, z, light, **TILES)
+    torch.cuda.synchronize()
+    assert raster.accum_gathered_counter.launches == before + 1
+    assert all(_same(g, w) for g, w in zip(got, want))
+    assert all(_same(g, s) for g, s in zip(got, stream))
+    assert int(got[1].max()) >= 3
+
+
+def test_peel_gathered_kernel_matches_plain_and_stream(cuda):
+    """Kernel 2.8 against its plain version and kernel 2.3 against 2.8 over
+    three peels, `last` fed back."""
+    rows, dense, _, expanded = _gathered(cuda, seed=3, sort=False)
+    z = _opaque_depth(cuda, 3)
+    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    before = raster.peel_gathered_counter.launches
+    for _ in range(3):
+        got = raster.raster_peel_gathered_kernel(rows, *expanded, z, last, **TILES)
+        want = raster.rasterize_peel_gathered_plain(rows, *expanded, z, last, **TILES)
+        stream = raster.raster_peel_fused_kernel(rows, *dense, z, last, **TILES)
+        torch.cuda.synchronize()
+        assert all(_same(g, w) for g, w in zip(got, want))
+        assert all(_same(g, s) for g, s in zip(got, stream))
+        found = got[0] < raster.ID_INF
+        assert int(found.sum()) > 1000
+        last = torch.where(found, got[0], raster.ID_INF)
+    assert raster.peel_gathered_counter.launches == before + 3
+
+
+def test_gathered_kernels_skip_malformed_bin_entries(cuda):
+    """Kernels 2.6-2.8: entries past the bin row, padding inside the count
+    and ids past the table are dropped, never read out of bounds."""
+    rows, dense, _, expanded = _gathered(cuda, seed=6, sort=False)
+    bins, counts = expanded
+    z = _opaque_depth(cuda, 6)
+    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    light = torch.tensor(LIGHT, device=cuda)
+    for launch, extra in ((raster.raster_fused_gathered_kernel, ()),
+                          (raster.raster_accum_gathered_kernel, (z, light)),
+                          (raster.raster_peel_gathered_kernel, (z, last))):
+        # the clean input: live entries first, the row width as the count
+        full = torch.full_like(counts, bins.shape[1])
+        want = launch(rows, bins, full, *extra, **TILES)
+        for value in (rows.shape[0] + 3, -5):
+            pad = torch.full((bins.shape[0], 8), value, dtype=torch.int32, device=cuda)
+            bad = torch.cat([bins, pad], dim=1).contiguous()
+            got = launch(rows, bad, torch.full_like(counts, bad.shape[1] + 100), *extra,
+                         **TILES)
+            torch.cuda.synchronize()
+            assert all(_same(g, w) for g, w in zip(got, want)), (launch.__name__, value)
+
+
+def test_chunk_bin_wrappers_on_card(cuda):
+    """rasterize_fused_chunks / rasterize_accum_chunks launch kernels 2.1 /
+    2.2 and equal the dense-bin calls."""
+    rows, dense, _, _ = _gathered(cuda, seed=7)
+    aabb = rows[:, 44:48].contiguous()
+    valid = aabb[:, 2] >= aabb[:, 0]
+    caabb, cvalid = raster.chunk_aabbs(aabb, valid)
+    cbins, ccounts, _ = raster.bin_triangles(caabb, cvalid, bin_cap=64, **TILES)
+    before = (raster.fused_counter.launches, raster.accum_counter.launches)
+    a = raster.rasterize_fused_chunks(rows, cbins, ccounts, **TILES)
+    b = raster.rasterize_fused(rows, *dense, **TILES)
+    light = torch.tensor(LIGHT, device=cuda)
+    z = torch.zeros((H, W), device=cuda)
+    c = raster.rasterize_accum_chunks(rows, cbins, ccounts, z, light, **TILES)
+    d = raster.rasterize_accum(rows, *dense, z, light, **TILES)
+    torch.cuda.synchronize()
+    assert (raster.fused_counter.launches, raster.accum_counter.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(_same(x, y) for x, y in zip(a + c, b + d))
 
 
 # -- the background passes (kernels 2.9, 2.10, 2.11) --------------------------

@@ -1,7 +1,7 @@
 """The rest of the port's Engine surface against the JAX package's: the
 render scale with its linear blit, _extents, resize, cleanup, the
-background-effect switch, the stats overlay and the pipelined draw; and the
-profiling helpers. Everything runs on the CPU (device="cpu").
+background-effect switch, the stats overlay, the pipelined draw and the
+auto quality (target_fps); and the profiling helpers. Everything runs on the CPU (device="cpu").
 
 Tolerance (PERF.md): the blit's weights are the JAX package's bit for bit,
 but XLA contracts the resize as one einsum whose summation order and fused
@@ -267,3 +267,112 @@ def test_profiling_helpers_equal_jax(tmp_path):
     assert os.path.getsize(tmp_path / "trace" / "key_averages.txt") > 0
     assert profiling.stats_text(eng.stats) == jprofiling.stats_text(eng.stats)
     assert "triangles" in profiling.stats_text(eng.stats)
+
+
+# -- auto quality (config.target_fps) -----------------------------------------
+
+COST = ("_COST_BASE_NS", "_COST_TAP_NS", "_COST_FIXED_MS", "_COST_BLIT_MS", "_COST_MARGIN")
+AUTO_EXTENTS = [(1920, 1080), (1280, 720), (1700, 900), (640, 360), (256, 64), (3840, 2160)]
+
+
+@pytest.mark.parametrize("taps", [0, 1, 2])
+def test_auto_scale_matches_jax_under_its_constants(monkeypatch, taps):
+    """The model's form is the JAX package's: with its five constants
+    patched onto the port's Engine, both pick the same scale and the same
+    extents over extents, targets, render scales and this tap count."""
+    for name in COST:
+        monkeypatch.setattr(Engine, name, getattr(JEngine, name))
+    picks = set()
+    for (w, h) in AUTO_EXTENTS:
+        for target in (30.0, 60.0, 120.0, 10000.0):
+            for render_scale in (1.0, 0.8, 0.55):
+                kw = dict(width=w, height=h, target_fps=target, render_scale=render_scale)
+                je, eng = JEngine(JConfig(**kw)), Engine(RendererConfig(**kw), device="cpu")
+                for e in (je, eng):
+                    e._scene_taps = lambda: taps
+                    e._auto_scale = e._pick_auto_scale()
+                assert eng._auto_scale == je._auto_scale, kw
+                assert eng._predict_frame_ms(0.7) == je._predict_frame_ms(0.7), kw
+                assert eng._extents() == je._extents(), kw
+                picks.add(eng._auto_scale)
+    # the grid reaches native, the floor and scales between (none between
+    # without a per-pixel cost: the untextured model is its fixed term)
+    assert {1.0, 0.5} <= picks and (taps == 0 or len(picks) > 2), picks
+
+
+@pytest.mark.parametrize("trilinear", [False, True])
+def test_scene_taps_match_jax(tmp_path, trilinear):
+    path = str(tmp_path / "scene.glb")
+    build_demo_glb(path, grid=2, trilinear=trilinear)
+    kw = dict(width=256, height=64, target_fps=60.0, camera_position=(0.0, 2.0, 12.0))
+    je = JEngine(JConfig(**kw))
+    je.init(scene_path=path)
+    eng = Engine(RendererConfig(**kw), device="cpu")
+    eng.init(scene_path=path)
+    assert eng._scene_taps() == je._scene_taps() == (2 if trilinear else 1)
+    assert eng._trilinear == je._trilinear == trilinear
+
+
+def _auto_engine(tmp_path, **cfg):
+    path = str(tmp_path / "tri_scene.glb")
+    if not os.path.exists(path):
+        build_demo_glb(path, grid=2, trilinear=True)
+    eng = Engine(RendererConfig(camera_position=(0.0, 2.0, 12.0), **cfg), device="cpu")
+    eng.init(scene_path=path)
+    return eng
+
+
+@pytest.mark.parametrize("case", ["no target", "within bounds", "impossible target",
+                                  "render_scale caps"])
+def test_auto_quality_target_fps(tmp_path, case):
+    """tests/test_engine.py's test_auto_quality_target_fps, the behaviours
+    that hold whatever the constants are."""
+    floor = RendererConfig().auto_scale_min
+    if case == "no target":
+        eng = _auto_engine(tmp_path, width=1920, height=1080)
+        assert eng._auto_scale == 1.0
+        assert eng._extents() == {"width": 1920, "height": 1080}
+    elif case == "within bounds":
+        # stock (trilinear-sampler) content at 1080p under a 60 fps target
+        eng = _auto_engine(tmp_path, width=1920, height=1080, target_fps=60.0)
+        assert eng._trilinear and eng._scene_taps() == 2
+        assert floor <= eng._auto_scale <= 1.0
+        ext = eng._extents()
+        if eng._auto_scale < 1.0:
+            assert ext["out_width"] == 1920 and ext["width"] < 1920
+        # a target any frame meets keeps the native extent
+        slow = _auto_engine(tmp_path, width=1920, height=1080, target_fps=0.01)
+        assert slow._auto_scale == 1.0 and "out_width" not in slow._extents()
+    elif case == "impossible target":
+        eng = _auto_engine(tmp_path, width=256, height=64, target_fps=10000.0)
+        assert eng._auto_scale == floor
+        assert eng._extents() == dict(width=128, height=32, out_width=256, out_height=64)
+        img = eng.draw()
+        assert img.shape == (64, 256, 4) and img.dtype == np.uint8
+        # a resize picks again, for the new extent
+        eng.resize(512, 128)
+        assert eng._auto_scale == floor and eng.draw().shape == (128, 512, 4)
+    else:
+        # never above the configured render_scale, and below it when the
+        # model asks for less
+        eng = _auto_engine(tmp_path, width=256, height=64, target_fps=0.01,
+                           render_scale=0.75)
+        assert eng._auto_scale == 1.0 and eng._extents()["width"] == 192
+        eng = _auto_engine(tmp_path, width=256, height=64, target_fps=10000.0,
+                           render_scale=0.75)
+        assert eng._extents()["width"] == 128
+        eng = _auto_engine(tmp_path, width=256, height=64, target_fps=10000.0,
+                           render_scale=0.25)
+        assert eng._extents()["width"] == 64
+
+
+def test_shipped_cost_model_is_launch_bound():
+    """The constants fitted on the card: no negative term, and a fixed term
+    above a 60 fps budget, so that target floors at auto_scale_min at any
+    extent (the JAX package's behaviour for a target out of reach)."""
+    assert min(getattr(Engine, name) for name in COST) >= 0.0
+    assert Engine._COST_FIXED_MS > Engine._COST_MARGIN * 1000.0 / 60.0
+    for w, h in AUTO_EXTENTS:
+        eng = Engine(RendererConfig(width=w, height=h, target_fps=60.0), device="cpu")
+        eng._scene_taps = lambda: 2
+        assert eng._pick_auto_scale() == eng.config.auto_scale_min

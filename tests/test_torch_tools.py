@@ -1,6 +1,7 @@
 """The port's card-side tooling, on the CPU: the kernel library's build
-cache, chip_smoke.py's refusals without a card, and the bench-frame stage
-timer's wrapping. Nothing here imports JAX or needs nvcc."""
+cache, chip_smoke.py's refusals without a card, the bench-frame stage
+timer's wrapping, and the two profile tools (tools/profile_raster.py,
+tools/profile_stages.py) in-process at a small extent. Nothing here imports JAX or needs nvcc."""
 
 import importlib.util
 import os
@@ -13,6 +14,7 @@ import torch
 
 from tpu_renderer_torch import pipeline
 from tpu_renderer_torch.kernels import _build, raster, shade, vertex
+from tpu_renderer_torch.tools import profile_raster, profile_stages
 from tpu_renderer_torch.utils import bench_frame
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -207,3 +209,105 @@ def test_smoke_sync_timer_counts_the_peel_syncs(tmp_path):
     assert int(aux["transparent_layers"]) > 0
     assert sync.calls == int(aux["transparent_layers"]) + 1 and sync.ms > 0.0
     assert pipeline._layer_found is before
+
+
+SMALL_TOOL = ["--device", "cpu", "--grid", "2", "--width", "256", "--height", "64"]
+
+
+def test_profile_raster_tool_prints_its_five_lines(capsys):
+    """The raster profile tool on the CPU: the settled caps, the live
+    entries, then the JAX tool's five labels in order, each with a time."""
+    assert profile_raster.main([*SMALL_TOOL, "--iters", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("caps: {") and lines[1].startswith("counts: total ")
+    timed = lines[2:]
+    assert len(timed) == len(profile_raster.LABELS) == 5
+    for line, label in zip(timed, profile_raster.LABELS):
+        assert line.startswith(label) and line.endswith(" ms")
+        assert float(line[len(label):-3]) > 0.0
+    assert [label[0] for label in profile_raster.LABELS] == list("ABCDE")
+
+
+def test_profile_raster_inputs_are_the_deferred_frames(tmp_path):
+    """deferred_inputs rebuilds what render_frame's deferred opaque pass
+    feeds kernel 2.4; kernel 2.6's function over the same bins finds the
+    same visibility."""
+    eng = bench_frame.bench_engine(str(tmp_path / "demo4.glb"), device="cpu", grid=4,
+                                   width=256, height=64, fused=False,
+                                   camera_position=(0.0, 6.0, 8.0))
+    eng.draw()
+    seen = []
+    rasterize = raster.rasterize
+
+    def record(*args, **kwargs):
+        seen.append(args)
+        return rasterize(*args, **kwargs)
+
+    raster.rasterize = record
+    try:
+        eng.draw_device()
+    finally:
+        raster.rasterize = rasterize
+    packed, rows48, bins, counts, tiles, _ = profile_raster.deferred_inputs(eng)
+    for got, want in zip((packed, bins, counts), seen[0]):
+        assert torch.equal(got, want)
+    z, tid = raster.rasterize(packed, bins, counts, **tiles)
+    z6, tid6, attrs, meta, inv = raster.rasterize_fused_gathered(rows48, bins, counts, **tiles)
+    assert torch.equal(tid6, tid) and int((tid >= 0).sum()) > 100
+    assert attrs.shape[0] == 6 and meta.shape[0] == 13 and inv.shape == tid.shape
+
+
+def test_profile_stages_tool_prints_the_jax_tools_rows(capsys):
+    assert profile_stages.main([*SMALL_TOOL, "--frames", "2"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    names = [line[:22].strip() for line in lines]
+    assert names == ["background", "cull/setup", "chunk bin", "raster_fused", "shade_fused",
+                     "transp setup/bin", "transp accum", "present", "frame"]
+    ms = {n: float(line[22:-3]) for n, line in zip(names, lines)}
+    assert all(v > 0.0 for v in ms.values()), ms
+    assert sum(v for n, v in ms.items() if n != "frame") <= ms["frame"]
+
+
+def test_stage_timer_keeps_calls_apart_and_runs_the_hook(tmp_path):
+    """per_call: the opaque and the transparent sort+bins of one frame are
+    two entries; before_frame runs ahead of every frame; the wrapped
+    functions are restored."""
+    eng = bench_frame.bench_engine(str(tmp_path / "demo2.glb"), device="cpu", grid=2,
+                                   width=256, height=64)
+    eng.draw()
+    hooked = []
+    before = pipeline._binned
+    times = bench_frame.stage_times(eng, 2, per_call=True, before_frame=hooked.append)
+    assert hooked == [eng, eng] and pipeline._binned is before
+    assert {"sort+bins#0", "sort+bins#1", "raster A + epilogue#0", "frame"} <= set(times)
+    assert "sort+bins" not in times and "sort+bins#2" not in times
+    summed = bench_frame.stage_times(eng, 1)
+    assert "sort+bins" in summed and "sort+bins#0" not in summed
+
+
+def test_smoke_bound_of_the_gathered_peel_counts_every_live_entry():
+    """Kernel 2.8's rule takes the slots in any order, so its bound counts
+    every live entry at every pixel, whatever layer a pixel found."""
+    smoke = _chip_smoke()
+    args, tiles, plane = _peel_inputs("raster_peel_kernel")
+    every = int(args[2].sum()) * 32 * 128
+    assert smoke.work_tests("raster_peel_gathered_kernel", args, tiles, (plane,)) == every
+    assert smoke.work_tests("raster_fused_gathered_kernel", args, tiles, (plane,)) == every
+    assert smoke.work_tests("raster_peel_kernel", args, tiles, plane) < every
+
+
+def test_smoke_kernel_table_names_what_exists():
+    """chip_smoke's KERNELS: eleven kernels, each with its launcher, plain
+    version and counter in the port, its source in the checkout, and the
+    line of the Pallas kernel it replaces in the JAX package."""
+    smoke = _chip_smoke()
+    assert len(smoke.KERNELS) == 11
+    for name, (_, plain, counter, source, replaces) in smoke.KERNELS.items():
+        mod = smoke.kernel_module(name)
+        assert callable(getattr(mod, name)) and callable(getattr(mod, plain)), name
+        assert getattr(mod, counter).launches == 0, name
+        text = open(os.path.join(ROOT, source)).read()
+        assert "__global__" in text and 'extern "C"' in text, (name, source)
+        path, line = replaces.rsplit(":", 1)
+        src = open(os.path.join(ROOT, path)).read().splitlines()[int(line) - 1]
+        assert src.startswith("def _") and "kernel" in src or "_loop(" in src, (name, src)

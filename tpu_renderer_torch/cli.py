@@ -9,8 +9,7 @@ headless rendering (PNG output), a terminal viewer and a benchmark mode.
 
 Every command renders on the CUDA card; --device cpu is the only way to the
 CPU. Without a card, and for an option the port does not have yet
-(--target-fps, --multichip), the command prints the engine's message and
-exits 2.
+(--multichip), the command prints the engine's message and exits 2.
 """
 
 from __future__ import annotations
@@ -48,9 +47,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="draw-extent scale; <1 renders fewer pixels and "
                         "linear-blits up (vk_engine.cpp:1220-1222 made live)")
     p.add_argument("--target-fps", type=float, default=None,
-                   help="auto quality: pick the render scale a cost model "
-                        "predicts hits this target (not ported yet: the "
-                        "engine refuses it)")
+                   help="auto quality: draw at the largest render scale the "
+                        "engine's cost model predicts reaches this target")
     p.add_argument("--multichip", default=None, metavar="ROWSxTRI",
                    help="shard the frame over a ROWSxTRI device mesh, e.g. "
                         "2x4 (not ported yet: the engine refuses it)")

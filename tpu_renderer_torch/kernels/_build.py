@@ -123,6 +123,14 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.raster_deferred_launch.restype = i
         lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p]
         lib.raster_peel_deferred_launch.restype = i
+        # rows, n_tris, bins, counts, bin_width, tiles_x, tiles_y, then the
+        # pass's own planes and the stream
+        lib.raster_fused_gathered_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p]
+        lib.raster_fused_gathered_launch.restype = i
+        lib.raster_accum_gathered_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p]
+        lib.raster_accum_gathered_launch.restype = i
+        lib.raster_peel_gathered_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
+        lib.raster_peel_gathered_launch.restype = i
         lib.background_gradient_launch.argtypes = [p, p, i, i, i, p, p]
         lib.background_gradient_launch.restype = i
         lib.background_sky_launch.argtypes = [p, p, p, p, p, i, i, i, p, p]

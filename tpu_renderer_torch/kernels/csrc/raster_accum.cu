@@ -81,18 +81,9 @@ raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins
           float zv;
           // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
           if (!(tri.covers(x, y[i], &zv) && zv >= zb[i])) continue;
-          const float den = plane(r[41], r[42], r[43], x, y[i]);
-          const float inv = den != 0.0f ? __fdiv_rn(1.0f, den) : 0.0f;
-          const float ln = __fmul_rn(plane(r[13], r[19], r[25], x, y[i]), inv);
-          // jnp.maximum / torch.maximum propagate NaN; fmaxf would not
-          const float lit = ln != ln ? ln : fmaxf(ln, 0.1f);
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float cc = __fmul_rn(plane(r[14 + c], r[20 + c], r[26 + c], x, y[i]), inv);
-            // acc + cc * (lit * power + ambient) (mesh.frag:12-18), with
-            // the reference's two contractions
-            acc[c][i] = __fmaf_rn(cc, __fmaf_rn(lit, power, amb[c]), acc[c][i]);
-          }
+          // numerators in columns 13-16 / 19-22 / 25-28, den in 41-43
+          add_fragment(r + 13, 6, r + 41, x, y[i], power, amb, &acc[0][i], &acc[1][i],
+                       &acc[2][i]);
           cnt[i] += 1;
         }
       }

@@ -108,4 +108,27 @@ __device__ __forceinline__ void store_winner(const float* __restrict__ rows, int
   }
 }
 
+// One taken fragment of the untextured transparent sum (kernels 2.2 and
+// 2.7): acc += rgb * (max(light, 0.1) * power + ambient) (mesh.frag:12-18),
+// with the reference's two contractions. num holds the 4 numerator planes
+// [light, r, g, b]: plane a's (A, B, C) at num[a], num[stride + a],
+// num[2 * stride + a]; den the denominator's (A, B, C). Nothing is carried
+// between fragments but the sums.
+__device__ __forceinline__ void add_fragment(const float* num, int stride,
+                                             const float* den3, float x, float y,
+                                             float power, const float* amb, float* ar,
+                                             float* ag, float* ab) {
+  const float den = plane(den3[0], den3[1], den3[2], x, y);
+  const float inv = den != 0.0f ? __fdiv_rn(1.0f, den) : 0.0f;
+  const float ln = __fmul_rn(plane(num[0], num[stride], num[2 * stride], x, y), inv);
+  // jnp.maximum / torch.maximum propagate NaN; fmaxf would not
+  const float lit = ln != ln ? ln : fmaxf(ln, 0.1f);
+  const float cr = __fmul_rn(plane(num[1], num[stride + 1], num[2 * stride + 1], x, y), inv);
+  const float cg = __fmul_rn(plane(num[2], num[stride + 2], num[2 * stride + 2], x, y), inv);
+  const float cb = __fmul_rn(plane(num[3], num[stride + 3], num[2 * stride + 3], x, y), inv);
+  *ar = __fmaf_rn(cr, __fmaf_rn(lit, power, amb[0]), *ar);
+  *ag = __fmaf_rn(cg, __fmaf_rn(lit, power, amb[1]), *ag);
+  *ab = __fmaf_rn(cb, __fmaf_rn(lit, power, amb[2]), *ab);
+}
+
 }  // namespace tr

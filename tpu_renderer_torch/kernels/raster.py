@@ -16,10 +16,35 @@ Fused path (dense chunk bins, 48-column fat rows):
   smallest triangle id > last that covers it with z >= the opaque z, and
   that triangle's planes (csrc/raster_peel.cu).
 
+``rasterize_fused_chunks`` / ``rasterize_accum_chunks`` take capped chunk
+bins (bin_triangles) instead: every entry gets an all-live group mask and
+goes through the same two kernels.
+
 Deferred path (capped per-triangle bins, 16-column packed setup rows):
 ``bin_triangles`` / ``refine_bins`` / ``expand_bins`` build the bins;
 ``rasterize`` is the visibility pass (z, tid) and ``rasterize_peel`` the
 peel (layer id), both in csrc/raster_deferred.cu.
+
+Gathered-row oracles (per-triangle bins over the 48-column fat rows, walked
+in slot order; csrc/raster_gathered.cu): ``rasterize_fused_gathered``,
+``rasterize_accum_gathered`` and ``rasterize_peel_gathered`` compute what
+the three fused-path passes compute from another bin format. No frame runs
+them: tools/profile_raster.py times the first, and the cross-checks hold
+each stream kernel to its oracle bit for bit.
+
+Names, this module <-> tpu_renderer/kernels/raster.py of the JAX package
+(there the unsuffixed ``*_fused`` names are the gathered oracles):
+
+    rasterize_fused            <-> rasterize_fused_slabs    (kernel 2.1)
+    rasterize_accum            <-> rasterize_accum_slabs    (kernel 2.2)
+    rasterize_peel_fused       <-> rasterize_peel_slabs     (kernel 2.3)
+    rasterize_fused_chunks     <-> rasterize_fused_chunks   (kernel 2.1)
+    rasterize_accum_chunks     <-> rasterize_accum_chunks   (kernel 2.2)
+    rasterize                  <-> rasterize                (kernel 2.4)
+    rasterize_peel             <-> rasterize_peel           (kernel 2.5)
+    rasterize_fused_gathered   <-> rasterize_fused          (kernel 2.6)
+    rasterize_accum_gathered   <-> rasterize_accum_fused    (kernel 2.7)
+    rasterize_peel_gathered    <-> rasterize_peel_fused     (kernel 2.8)
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (and raises if it cannot). The plain versions loop over
@@ -34,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpu_renderer_torch.kernels import _build
@@ -57,6 +83,10 @@ _EMPTY_AABB = (-1.0, -1.0, -2.0, -2.0)
 # [C_TEX x6 (31-36), C_GRAD x6 (37-42), den_c (43), nu_c (29), nv_c (30)]
 META_COLS = tuple(range(31, 44)) + (29, 30)
 N_NUMS = 4   # interpolated numerator planes: light_num, r, g, b
+# The JAX package's gathered kernels carry the triangle id as a float in
+# column 47, exact below 2^24; the port's take the bin entry itself and
+# refuse larger tables, so the two cannot diverge silently.
+MAX_GATHERED_TRIS = 1 << 24
 
 
 def entry_shift(n_groups: int) -> int:
@@ -366,13 +396,18 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
                   cols: int = ROW_COLS):
     """Validate a raster pass's tensors (device, dtype, shape, contiguity)
     before they reach the plain version or, as pointers, a kernel. rows
-    are (T, 48) fat rows in whole chunks, or (T, 16) packed setup rows
-    (cols=SETUP_COLS, the deferred path)."""
+    are (T, 48) fat rows in whole chunks, (T, 48) fat rows of any T < 2^24
+    under per-triangle bins (chunk=None, the gathered oracles), or (T, 16)
+    packed setup rows (cols=SETUP_COLS, the deferred path)."""
     dev = rows.device
-    whole = cols != ROW_COLS or rows.shape[0] % chunk == 0
+    chunked = cols == ROW_COLS and chunk is not None
+    whole = not chunked or rows.shape[0] % chunk == 0
     if rows.dim() != 2 or rows.shape[1] != cols or not whole:
-        need = f" with T % {chunk} == 0" if cols == ROW_COLS else ""
+        need = f" with T % {chunk} == 0" if chunked else ""
         raise ValueError(f"rows must be (T, {cols}){need}, got {tuple(rows.shape)}")
+    if chunk is None and rows.shape[0] >= MAX_GATHERED_TRIS:
+        raise ValueError(f"the gathered raster passes take fewer than 2^24 "
+                         f"triangles, got {rows.shape[0]}")
     _check("rows", rows, torch.float32, rows.shape, dev)
     n_tiles = tiles_x * tiles_y
     if bins.dim() != 2:
@@ -385,7 +420,7 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
         if (tile_h, tile_w) != (TILE_H, TILE_W):
             raise ValueError(f"the CUDA raster kernels take {TILE_H}x{TILE_W} "
                              f"tiles, got {tile_h}x{tile_w}")
-        if cols == ROW_COLS and (chunk, group) != (CHUNK, GROUP):
+        if chunked and (chunk, group) != (CHUNK, GROUP):
             raise ValueError(f"the CUDA raster kernels are built for chunk="
                              f"{CHUNK}, group={GROUP}; got chunk={chunk}, "
                              f"group={group}")
@@ -427,6 +462,9 @@ accum_counter = _Counter()
 peel_fused_counter = _Counter()
 deferred_counter = _Counter()
 peel_counter = _Counter()
+fused_gathered_counter = _Counter()
+accum_gathered_counter = _Counter()
+peel_gathered_counter = _Counter()
 
 
 def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
@@ -481,6 +519,25 @@ def rasterize_fused(rows, bins, counts, *, tiles_x: int, tiles_y: int,
 # ---------------------------------------------------------------------------
 
 
+def _add_fragments(acc, cnt, c, take, X, Y, light):
+    """Add the shaded fragments of triangle rows c (n_tiles, 48, 1, 1) to
+    the sums acc (3 planes, in place) where take; returns the new count.
+    acc + col * (max(light, 0.1) * power + ambient) (mesh.frag:12-18),
+    contracted as XLA does."""
+    power, amb = light[3], light[4:7]
+    zero = torch.zeros((), device=X.device)
+    floor = torch.tensor(0.1, dtype=torch.float32, device=X.device)
+    den = _plane(c[:, 41], c[:, 42], c[:, 43], X, Y)
+    inv = torch.where(den != 0.0, 1.0 / den, zero)
+    ln = _plane(c[:, 13], c[:, 19], c[:, 25], X, Y) * inv
+    lit = torch.maximum(ln, floor)
+    for ch in range(3):
+        col = _plane(c[:, 14 + ch], c[:, 20 + ch], c[:, 26 + ch], X, Y) * inv
+        add = fma(col, fma(lit, power, amb[ch]), acc[ch])
+        acc[ch] = torch.where(take, add, acc[ch])
+    return torch.where(take, cnt + 1, cnt)
+
+
 def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
                           tiles_y: int, tile_w: int, tile_h: int,
                           chunk: int = CHUNK, group: int = GROUP):
@@ -489,12 +546,9 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
     X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
     n_tiles = X.shape[0]
     zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
-    power, amb = light[3], light[4:7]
     acc = [torch.zeros(X.shape, dtype=torch.float32, device=X.device)
            for _ in range(3)]
     cnt = torch.zeros(X.shape, dtype=torch.int32, device=X.device)
-    zero = torch.zeros((), device=X.device)
-    floor = torch.tensor(0.1, dtype=torch.float32, device=X.device)
     for k in range(int(counts.max()) if n_tiles else 0):
         r, _, on = _slot_rows(rows, bins, counts, k, chunk, group)
         for t in range(chunk):
@@ -502,16 +556,7 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
             cov, zv = _coverage(c, X, Y)
             # zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
             take = cov & (zv >= zb) & on[:, t, None, None]
-            den = _plane(c[:, 41], c[:, 42], c[:, 43], X, Y)
-            inv = torch.where(den != 0.0, 1.0 / den, zero)
-            ln = _plane(c[:, 13], c[:, 19], c[:, 25], X, Y) * inv
-            lit = torch.maximum(ln, floor)   # mesh.frag:12-18
-            for ch in range(3):
-                col = _plane(c[:, 14 + ch], c[:, 20 + ch], c[:, 26 + ch], X, Y) * inv
-                # acc + col * (lit * power + ambient), contracted as XLA does
-                add = fma(col, fma(lit, power, amb[ch]), acc[ch])
-                acc[ch] = torch.where(take, add, acc[ch])
-            cnt = torch.where(take, cnt + 1, cnt)
+            cnt = _add_fragments(acc, cnt, c, take, X, Y, light)
     return (_tiles_to_frame(torch.stack(acc), tiles_x, tiles_y).contiguous(),
             _tiles_to_frame(cnt, tiles_x, tiles_y).contiguous())
 
@@ -553,6 +598,44 @@ def rasterize_accum(rows, bins, counts, z_base, light, *, tiles_x: int,
         return raster_accum_kernel(rows, bins, counts, z_base, light, **tiles)
     return rasterize_accum_plain(rows, bins, counts, z_base, light, chunk=chunk,
                                  group=group, **tiles)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2.1 and 2.2 from capped chunk bins
+# ---------------------------------------------------------------------------
+
+
+def _all_live_entries(cbins, n_chunks: int, chunk: int, group: int):
+    """Capped chunk bins (raw chunk ids, -1 padding past the count) -> dense
+    bin entries with every group live: (cid << entry_shift) | ALL. Padding
+    clips onto a real chunk; it lies past the count and is never walked."""
+    n_groups = chunk // group
+    ids = torch.clamp(cbins, 0, max(n_chunks - 1, 0))
+    return ((ids << entry_shift(n_groups)) | ((1 << n_groups) - 1)).contiguous()
+
+
+def rasterize_fused_chunks(rows, cbins, ccounts, *, tiles_x: int, tiles_y: int,
+                           tile_w: int, tile_h: int, chunk: int = CHUNK,
+                           group: int = GROUP):
+    """Opaque fused raster from capped chunk bins (the JAX package's
+    rasterize_fused_chunks): cbins/ccounts are bin_triangles' output over
+    the chunk boxes; each entry gets an all-live group mask and the walk is
+    rasterize_fused's (kernel 2.1). Same returns."""
+    entries = _all_live_entries(cbins, rows.shape[0] // chunk, chunk, group)
+    return rasterize_fused(rows, entries, ccounts, tiles_x=tiles_x, tiles_y=tiles_y,
+                           tile_w=tile_w, tile_h=tile_h, chunk=chunk, group=group)
+
+
+def rasterize_accum_chunks(rows, cbins, ccounts, z_base, light, *, tiles_x: int,
+                           tiles_y: int, tile_w: int, tile_h: int,
+                           chunk: int = CHUNK, group: int = GROUP):
+    """Untextured transparent accumulation from capped chunk bins (the JAX
+    package's rasterize_accum_chunks), through rasterize_accum (kernel
+    2.2). Same returns."""
+    entries = _all_live_entries(cbins, rows.shape[0] // chunk, chunk, group)
+    return rasterize_accum(rows, entries, ccounts, z_base, light, tiles_x=tiles_x,
+                           tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+                           chunk=chunk, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -862,3 +945,252 @@ def rasterize_peel(packed, bins, counts, z_base, last, *, tiles_x: int,
     if packed.device.type == "cuda":
         return raster_peel_kernel(packed, bins, counts, z_base, last, **tiles)
     return rasterize_peel_plain(packed, bins, counts, z_base, last, **tiles)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 2.6, 2.7 and 2.8: the gathered-row oracles over per-triangle bins
+# of fat rows. Contract of the bins: counts <= bin width, and every entry
+# inside a tile's count is a row of the table. Entries past the count are
+# never read; an entry inside it that is no row (negative, >= T) is
+# dropped, by the kernels and the plain versions alike (the JAX wrappers
+# clip it onto row 0 or T-1 instead). Slots are walked in order and need
+# not ascend.
+# ---------------------------------------------------------------------------
+
+
+def _check_gathered(rows, bins, counts, tiles, **planes):
+    _check_inputs(rows, bins, counts, chunk=None, group=None, **tiles, **planes)
+
+
+def rasterize_fused_gathered_plain(rows, bins, counts, *, tiles_x: int,
+                                   tiles_y: int, tile_w: int, tile_h: int):
+    """Plain PyTorch twin of the raster_fused_gathered kernel: (z (Hp, Wp)
+    f32, tid (Hp, Wp) i32, nums (4, Hp, Wp) f32, metas (15, Hp, Wp) f32);
+    a later slot wins an equal z."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    z = torch.full(X.shape, DEPTH_CLEAR, dtype=torch.float32, device=X.device)
+    tid = torch.full(X.shape, NO_TRI, dtype=torch.int32, device=X.device)
+    for k in range(_slots(bins, counts)):
+        c, ids, ok = _triangle_slot(rows, bins, counts, k)
+        cov, zv = _coverage(c, X, Y)
+        take = cov & (zv >= 0.0) & (zv >= z) & ok
+        z = torch.where(take, zv, z)
+        tid = torch.where(take, ids, tid)
+    # the planes are a pure function of (row, pixel): the last taker's,
+    # evaluated once, equal a select at every take
+    nums, metas = _winner_planes(rows, tid, X, Y)
+    f = lambda t: _tiles_to_frame(t, tiles_x, tiles_y).contiguous()  # noqa: E731
+    return f(z), f(tid), f(nums), f(metas)
+
+
+def _gathered_launch_args(rows, bins, counts, tiles_x, tiles_y):
+    return (_ptr(rows), ctypes.c_int(rows.shape[0]), _ptr(bins), _ptr(counts),
+            ctypes.c_int(bins.shape[1]), ctypes.c_int(tiles_x), ctypes.c_int(tiles_y))
+
+
+def raster_fused_gathered_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
+                                 tile_w: int, tile_h: int):
+    """Launch the raster_fused_gathered CUDA kernel (csrc/raster_gathered.cu)
+    on CUDA tensors: the same (z, tid, nums, metas) as
+    rasterize_fused_gathered_plain."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_fused_gathered_kernel takes CUDA tensors, got {dev}")
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_gathered(rows, bins, counts, tiles)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    z = torch.empty((hp, wp), dtype=torch.float32, device=dev)
+    tid = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
+    metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
+    _launch("raster_fused_gathered_launch",
+            *_gathered_launch_args(rows, bins, counts, tiles_x, tiles_y),
+            _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev))
+    fused_gathered_counter.launches += 1
+    return z, tid, nums, metas
+
+
+def rasterize_fused_gathered(rows, bins, counts, *, tiles_x: int, tiles_y: int,
+                             tile_w: int, tile_h: int):
+    """Fused visibility + attribute raster over per-triangle bins (the JAX
+    package's raster.rasterize_fused, the oracle of rasterize_fused).
+
+    rows: (T, 48) f32 fat rows, T < 2^24; bins: (n_tiles, W) i32 triangle
+    ids in slot order (refine_bins / expand_bins); counts: (n_tiles,) i32.
+    Returns (z (Hp, Wp) f32, tid (Hp, Wp) i32, attrs (6, Hp, Wp), metas
+    (13, Hp, Wp), inv (Hp, Wp)). Reversed-Z >= with 0 <= z <= 1; a later
+    slot wins an equal z. CPU tensors take the plain version, CUDA tensors
+    the kernel.
+    """
+    dev = rows.device
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_gathered(rows, bins, counts, tiles)
+    if dev.type == "cuda":
+        z, tid, nums, metas = raster_fused_gathered_kernel(rows, bins, counts, **tiles)
+    else:
+        z, tid, nums, metas = rasterize_fused_gathered_plain(rows, bins, counts, **tiles)
+    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev)
+    attrs, metas13, inv = reconstruct_outputs(nums, metas, X, Y)
+    return z, tid, attrs, metas13, inv
+
+
+def rasterize_accum_gathered_plain(rows, bins, counts, z_base, light, *,
+                                   tiles_x: int, tiles_y: int, tile_w: int,
+                                   tile_h: int):
+    """Plain PyTorch twin of the raster_accum_gathered kernel: (acc (3, Hp,
+    Wp) f32, cnt (Hp, Wp) i32). Adds per pixel in slot order."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
+    acc = [torch.zeros(X.shape, dtype=torch.float32, device=X.device)
+           for _ in range(3)]
+    cnt = torch.zeros(X.shape, dtype=torch.int32, device=X.device)
+    for k in range(_slots(bins, counts)):
+        c, _, ok = _triangle_slot(rows, bins, counts, k)
+        cov, zv = _coverage(c, X, Y)
+        take = cov & (zv >= 0.0) & (zv >= zb) & ok
+        cnt = _add_fragments(acc, cnt, c, take, X, Y, light)
+    return (_tiles_to_frame(torch.stack(acc), tiles_x, tiles_y).contiguous(),
+            _tiles_to_frame(cnt, tiles_x, tiles_y).contiguous())
+
+
+def raster_accum_gathered_kernel(rows, bins, counts, z_base, light, *,
+                                 tiles_x: int, tiles_y: int, tile_w: int,
+                                 tile_h: int):
+    """Launch the raster_accum_gathered CUDA kernel (csrc/raster_gathered.cu)
+    on CUDA tensors: the same (acc, cnt) as rasterize_accum_gathered_plain."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_accum_gathered_kernel takes CUDA tensors, got {dev}")
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_gathered(rows, bins, counts, tiles, z_base=z_base, light=light)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    acc = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
+    cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    _launch("raster_accum_gathered_launch",
+            *_gathered_launch_args(rows, bins, counts, tiles_x, tiles_y),
+            _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev))
+    accum_gathered_counter.launches += 1
+    return acc, cnt
+
+
+def rasterize_accum_gathered(rows, bins, counts, z_base, light, *, tiles_x: int,
+                             tiles_y: int, tile_w: int, tile_h: int):
+    """Sum-shade every untextured transparent fragment with 0 <= z <= 1 and
+    z >= z_base over per-triangle bins (the JAX package's
+    raster.rasterize_accum_fused, the oracle of rasterize_accum), adding in
+    slot order. light: (8,) f32 [sun_dir xyz, sun_power, ambient rgb, 0].
+    Returns (acc (3, Hp, Wp) f32, cnt (Hp, Wp) i32). CPU tensors take the
+    plain version, CUDA tensors the kernel.
+    """
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_gathered(rows, bins, counts, tiles, z_base=z_base, light=light)
+    if rows.device.type == "cuda":
+        return raster_accum_gathered_kernel(rows, bins, counts, z_base, light, **tiles)
+    return rasterize_accum_gathered_plain(rows, bins, counts, z_base, light, **tiles)
+
+
+def rasterize_peel_gathered_plain(rows, bins, counts, z_base, last, *,
+                                  tiles_x: int, tiles_y: int, tile_w: int,
+                                  tile_h: int):
+    """Plain PyTorch twin of the raster_peel_gathered kernel: (best (Hp, Wp)
+    i32, ID_INF where the pixel has no further layer, nums (4, Hp, Wp) f32,
+    metas (15, Hp, Wp) f32 of the triangle `best`). Every live slot is
+    walked: the rule needs no order of the ids."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
+    lt = _frame_to_tiles(last, tiles_x, tiles_y, tile_w, tile_h)
+    best = torch.full(X.shape, ID_INF, dtype=torch.int32, device=X.device)
+    for k in range(_slots(bins, counts)):
+        c, ids, ok = _triangle_slot(rows, bins, counts, k)
+        cov, zv = _coverage(c, X, Y)
+        take = (cov & (zv >= 0.0) & (zv >= zb) & (ids > lt) & (ids < best)
+                & ok)
+        best = torch.where(take, ids, best)
+    tid = torch.where(best < ID_INF, best, NO_TRI)
+    nums, metas = _winner_planes(rows, tid, X, Y)
+    f = lambda t: _tiles_to_frame(t, tiles_x, tiles_y).contiguous()  # noqa: E731
+    return f(best), f(nums), f(metas)
+
+
+def raster_peel_gathered_kernel(rows, bins, counts, z_base, last, *,
+                                tiles_x: int, tiles_y: int, tile_w: int,
+                                tile_h: int):
+    """Launch the raster_peel_gathered CUDA kernel (csrc/raster_gathered.cu)
+    on CUDA tensors: the same (best, nums, metas) as
+    rasterize_peel_gathered_plain."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster_peel_gathered_kernel takes CUDA tensors, got {dev}")
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_gathered(rows, bins, counts, tiles, z_base=z_base, last=last)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    best = torch.empty((hp, wp), dtype=torch.int32, device=dev)
+    nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
+    metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
+    _launch("raster_peel_gathered_launch",
+            *_gathered_launch_args(rows, bins, counts, tiles_x, tiles_y),
+            _ptr(z_base), _ptr(last), _ptr(best), _ptr(nums), _ptr(metas),
+            _stream(dev))
+    peel_gathered_counter.launches += 1
+    return best, nums, metas
+
+
+def rasterize_peel_gathered(rows, bins, counts, z_base, last, *, tiles_x: int,
+                            tiles_y: int, tile_w: int, tile_h: int):
+    """One transparency peel over per-triangle bins of fat rows (the JAX
+    package's raster.rasterize_peel_fused, the oracle of
+    rasterize_peel_fused): per pixel the smallest binned id > last that
+    covers it with 0 <= z <= 1 and z >= z_base, and its planes.
+
+    Returns (best (Hp, Wp) i32, ID_INF where no layer, attrs (6, Hp, Wp),
+    metas (13, Hp, Wp), inv (Hp, Wp)). CPU tensors take the plain version,
+    CUDA tensors the kernel.
+    """
+    dev = rows.device
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    _check_gathered(rows, bins, counts, tiles, z_base=z_base, last=last)
+    if dev.type == "cuda":
+        best, nums, metas = raster_peel_gathered_kernel(rows, bins, counts, z_base,
+                                                        last, **tiles)
+    else:
+        best, nums, metas = rasterize_peel_gathered_plain(rows, bins, counts, z_base,
+                                                          last, **tiles)
+    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev)
+    attrs, metas13, inv = reconstruct_outputs(nums, metas, X, Y)
+    return best, attrs, metas13, inv
+
+
+# ---------------------------------------------------------------------------
+# Reference rasterizer (numpy, per-pixel loop): the unit tests' oracle
+# ---------------------------------------------------------------------------
+
+
+def rasterize_reference(packed, width: int, height: int):
+    """Direct per-pixel evaluation of the deferred raster's rule over every
+    valid row of packed (T, 16), in order, in plain float32 numpy (no fused
+    multiply-add: z agrees with the kernels to rounding, not bit for bit).
+    Tiny inputs only. Returns (z (H, W) f32, tid (H, W) i32) arrays."""
+    packed = np.asarray(packed, np.float32)
+    z = np.full((height, width), DEPTH_CLEAR, np.float32)
+    tid = np.full((height, width), NO_TRI, np.int32)
+    for t, row in enumerate(packed):
+        if row[12] == 0.0:   # the valid column
+            continue
+        for y in range(height):
+            for x in range(width):
+                X, Y = np.float32(x + 0.5), np.float32(y + 0.5)
+                cov = True
+                for e in range(3):
+                    a, b, c = row[3 * e], row[3 * e + 1], row[3 * e + 2]
+                    val = a * X + b * Y + c
+                    tl = (a > 0) or (a == 0 and b > 0)
+                    cov &= (val > 0) or (val == 0 and tl)
+                if not cov:
+                    continue
+                zv = row[9] * X + row[10] * Y + row[11]
+                if zv < 0.0 or zv > 1.0:
+                    continue
+                if zv >= z[y, x]:
+                    z[y, x] = zv
+                    tid[y, x] = t
+    return z, tid

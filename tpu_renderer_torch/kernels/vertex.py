@@ -238,6 +238,28 @@ def triangle_setup_c(corners: CornerData, tri_draw, tri_valid, draw_model,
                          attrs=attrs.contiguous(), valid=good)
 
 
+def triangle_setup(positions, normals, colors, uvs, tri_vidx, tri_draw,
+                   tri_valid, draw_model, draw_visible, draw_mat,
+                   mat_color_factors, viewproj, width: int, height: int,
+                   sun_dir=None) -> TriangleSetup:
+    """mesh.vert + primitive setup over indexed geometry (the JAX package's
+    vertex.triangle_setup): expands the corners inline and calls
+    triangle_setup_c. For oracle tests, the profile tools and small scenes;
+    the frame path expands once per scene. Arrays or tensors; everything is
+    built on draw_model's device. No material binds a texture (meta6 = 0)."""
+    host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)  # noqa: E731
+    dev = draw_model.device
+    factors = host(mat_color_factors)
+    corners = expand_corners(
+        host(positions), host(normals), host(colors), host(uvs), host(tri_vidx),
+        host(tri_draw), host(tri_valid), host(draw_mat), factors,
+        np.zeros((max(factors.shape[0], 1), 8), np.float32), device=dev)
+    return triangle_setup_c(
+        corners, torch.as_tensor(tri_draw, device=dev).to(torch.int32),
+        torch.as_tensor(tri_valid, device=dev).to(torch.bool), draw_model,
+        draw_visible, viewproj, width, height, sun_dir=sun_dir)
+
+
 def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
                         draw_visible, viewproj, width: int, height: int,
                         sun_dir=None):

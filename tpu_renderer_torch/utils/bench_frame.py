@@ -124,18 +124,19 @@ def texture_the_glass(scene):
 
 def bench_engine(scene_path: str, device="cuda", grid: int = BENCH["grid"],
                  width: int = BENCH["width"], height: int = BENCH["height"],
-                 scene=None, **config) -> Engine:
+                 scene=None, trilinear: bool = False, **config) -> Engine:
     """An initialised Engine on the bench scene, at the bench camera. With
-    no scene given, writes the scene's GLB (demo grid `grid`) to scene_path
-    and loads it; otherwise renders the given LoadedScene. The size
-    arguments exist for small runs on the CPU; config holds further
-    RendererConfig fields (fused=False: the deferred path)."""
+    no scene given, writes the scene's GLB (demo grid `grid`; trilinear:
+    with LINEAR_MIPMAP_LINEAR samplers) to scene_path and loads it;
+    otherwise renders the given LoadedScene. The size arguments exist for
+    small runs on the CPU; config holds further RendererConfig fields
+    (fused=False: the deferred path)."""
     cfg = RendererConfig(width=width, height=height,
                          **{"camera_position": BENCH["camera"], **config})
     eng = Engine(cfg, device=device)
     eng.camera.pitch = np.float32(BENCH["pitch"])
     if scene is None:
-        build_demo_glb(scene_path, grid=grid, seed=0)
+        build_demo_glb(scene_path, grid=grid, seed=0, trilinear=trilinear)
         eng.init(scene_path=scene_path)
     else:
         eng.init(scene=scene)
@@ -201,19 +202,29 @@ def frame_times(eng: Engine, n: int) -> list:
     return times
 
 
-def stage_times(eng: Engine, n: int, stages=STAGES) -> dict:
+def stage_times(eng: Engine, n: int, stages=STAGES, per_call: bool = False,
+                before_frame=None) -> dict:
     """Median host ms of each stage (summed within a frame) and of the
-    synchronised frame, over n frames."""
-    frames = []
+    synchronised frame, over n frames. per_call: a stage's k-th call in a
+    frame is kept apart, under "name#k". before_frame(eng) runs ahead of
+    each frame, outside its time."""
+    frames, seen = [], []
 
     def record(name, ms):
+        if per_call:
+            k = sum(1 for key in frames[-1] if key.split("#")[0] == name)
+            name = f"{name}#{k}"
+        if name not in seen:
+            seen.append(name)
         frames[-1][name] = frames[-1].get(name, 0.0) + ms
 
     with staged(eng.device, record, stages):
         for _ in range(n):
+            if before_frame is not None:
+                before_frame(eng)
             frames.append({})
             frames[-1]["frame"] = frame_times(eng, 1)[0]
-    names = [s[0] for s in stages] + ["frame"]
+    names = (seen if per_call else [s[0] for s in stages]) + ["frame"]
     return {k: statistics.median(f.get(k, 0.0) for f in frames) for k in names}
 
 
