@@ -16,6 +16,15 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    resets the launch counters, renders 1 + 20 frames through
    Engine(device="cuda") and fails unless both kernels were launched; the
    same frame rendered through the plain versions must be identical;
+   It prints how 2.1 and 2.2 spread that call's work: the wrapper's
+   launches and the device's kernels for one call, the blocks, the
+   busiest tile's entries and live groups (and 2.1's segments of it);
+3b. the stress frame (grid 128, the bench's stress variant): 2.1 and 2.2
+   on its captured inputs against their plain versions, timed;
+3c. the adversarial rows of tpu_renderer_torch/utils/hazards.py (equal-z
+   copies across every segment boundary of 2.1, -0.0 / +0.0 depth ties,
+   edges on region borders, full-screen and dead rows) on one tile of 64
+   entries and on 2x2 tiles: 2.1 and 2.2 exact against their plain versions;
 4. the textured-glass bench frame (the same scene, its glass sampling the
    checker texture, so its transparency takes the depth peel): kernel 2.3
    against its plain version on the first peel's inputs and a later one's,
@@ -347,6 +356,64 @@ def check_kernel(name, calls, label):
                 bound_by=bound_by, library_ms=None)
 
 
+def device_kernels(calls) -> dict:
+    """Kernels the device ran in one call of each wrapper: calls maps a
+    kernel's name to (args, kwargs); one torch.profiler session runs each
+    once. Returns name -> (the wrapper's launches by its counter, the device
+    kernels of that name), and "all" -> every device kernel of the session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_renderer_torch.kernels import raster
+
+    launches = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for name, (args, kwargs) in calls.items():
+            counter = getattr(raster, KERNELS[name][2])
+            before = counter.launches
+            getattr(raster, name)(*args, **kwargs)
+            launches[name] = counter.launches - before
+        torch.cuda.synchronize()
+    events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {n: (launches[n], sum(1 for e in events if n in e)) for n in calls}
+    out["all"] = len(events)
+    return out
+
+
+def decomposition(name, args, kwargs, launched) -> str:
+    """How kernel 2.1 or 2.2 spread this call's work: launched is its
+    (wrapper launches, device kernels) for one call (device_kernels); the
+    blocks, and the busiest tile's entries and live groups."""
+    import torch
+
+    from tpu_renderer_torch.kernels import raster
+
+    launches, kernels = launched
+    assert launches == 1 and kernels == 1, (name, launches, kernels)
+    bins, counts = args[1], args[2]
+    live = _live_entries(bins, counts) & (bins >= 0) & (
+        (bins >> raster.entry_shift(raster.CHUNK // raster.GROUP))
+        < args[0].shape[0] // raster.CHUNK)
+    groups = sum(((bins >> g) & 1) for g in range(raster.CHUNK // raster.GROUP)) * live
+    busiest = int(groups.sum(1).argmax())
+    n_tiles = bins.shape[0]
+    line = (f"[split] {name}: {launches} launch a call ({kernels} device kernel); busiest "
+            f"tile {int(counts[busiest])} entries, {int(groups[busiest].sum())} live groups")
+    if name == "raster_fused_kernel":
+        segs = raster.fused_segments(counts, bins.shape[1])
+        n = int(counts[busiest].clamp(0, bins.shape[1]))
+        s = int(segs[busiest])
+        seg_groups = [int(groups[busiest, b:e].sum())
+                      for b, e in (raster.segment_bounds(n, s, q) for q in range(s))]
+        return (f"{line}; {n_tiles * raster.FUSED_SPLIT} blocks in {n_tiles} clusters of "
+                f"{raster.FUSED_SPLIT}, {int(segs.sum())} segments walked, the busiest "
+                f"tile's {s} segments holding {seg_groups} live groups")
+    return (f"{line}; {n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} "
+            f"32-column strips a tile), each walking its tile's whole list; "
+            f"{int(torch.count_nonzero(live))} live entries")
+
+
 def reset_counters():
     for name, (_, _, counter, _, _) in KERNELS.items():
         getattr(kernel_module(name), counter).launches = 0
@@ -439,11 +506,83 @@ def bench_path(eng, results, inputs):
     for n in names:
         results[n] = check_kernel(n, [(0, seen[n][-1])], "bench frame")
         inputs[n] = seen[n][-1]
+    launched = device_kernels({n: seen[n][-1] for n in names})
+    # one launch a wrapper call, and nothing else on the device
+    assert launched["all"] == len(names), launched
+    for n in names:
+        print(decomposition(n, *seen[n][-1], launched[n]), flush=True)
     frame_ms, image, _, _, launches = counted_frames(eng, 20, "bench frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), "kernel frame differs from plain frame"
     print(f"[frame] bench frame == plain-version frame; frame ms {frame_ms:.3f}", flush=True)
     for n in names:
         results[n]["launches"] = launches[n]
+
+
+def stress_path(scene_path):
+    """Phase 3b: kernels 2.1 and 2.2 on the stress frame (the bench's
+    stress variant: grid 128, about 4x the entries), each against its plain
+    version once and timed."""
+    from tpu_renderer_torch.kernels import raster
+    from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine
+
+    grid = 2 * BENCH["grid"]
+    t0 = time.perf_counter()
+    eng = bench_engine(scene_path, grid=grid, camera_position=(0.0, 6.0, 2.0 * grid))
+    print(f"[scene] stress scene (grid {grid}) ready in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    names = ("raster_fused_kernel", "raster_accum_kernel")
+    seen = capture_kernel_inputs(eng.draw_device, names)
+    for n in names:
+        args, kwargs = seen[n][-1]
+        kernel, plain = getattr(raster, n), getattr(raster, KERNELS[n][1])
+        err = max_abs_err(kernel(*args, **kwargs), plain(*args, **kwargs))
+        ms = cuda_ms(lambda: kernel(*args, **kwargs), runs=20)
+        bound_ms, bound_by = bound(n, args, kwargs, kernel(*args, **kwargs))
+        bins, counts = args[1], args[2]
+        print(f"[kernel] {n} (stress frame): bins {tuple(bins.shape)}, entries "
+              f"{int(counts.clamp(max=bins.shape[1]).sum())}, max/tile {int(counts.max())}; "
+              f"exact vs plain (max_abs_err {err}); {ms:.4f} ms (median of 20), bound "
+              f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+        print(decomposition(n, args, kwargs, (1, 1)), flush=True)
+
+
+def hazard_path():
+    """Phase 3c: kernels 2.1 and 2.2 on the adversarial rows of
+    utils/hazards.py (equal-z copies across every segment boundary, -0.0
+    and +0.0 depth ties, edges on region borders that only the reject's
+    rounding margin keeps, full-screen and dead rows): one tile of 64
+    entries, cut 8 ways by 2.1, and 2x2 tiles; exact against the plain
+    versions."""
+    import torch
+
+    from tpu_renderer_torch.kernels import raster
+    from tpu_renderer_torch.utils import hazards
+
+    dev = torch.device("cuda")
+    light = torch.tensor([0.2, 0.8, 0.5, 1.0, 0.1, 0.15, 0.2, 0.0], device=dev)
+    for n_chunks, tx, ty in ((64, 1, 1), (48, 2, 2)):
+        tiles = dict(tiles_x=tx, tiles_y=ty, tile_w=128, tile_h=32)
+        w, h = 128 * tx, 32 * ty
+        rows_np = hazards.hazard_rows(n_chunks, w, h, seed=n_chunks)
+        box, valid = (torch.from_numpy(a).to(dev) for a in hazards.hazard_boxes(rows_np))
+        caabb, cvalid = raster.chunk_aabbs(box, valid)
+        gaabb, gvalid = raster.group_aabbs(box, valid)
+        bins, counts = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **tiles)
+        rows = torch.from_numpy(rows_np).to(dev)
+        z_base = torch.from_numpy(hazards.hazard_z_base(w, h)).to(dev)
+        fused = raster.raster_fused_kernel(rows, bins, counts, **tiles)
+        err = max_abs_err(fused, raster.rasterize_fused_plain(rows, bins, counts, **tiles))
+        z, tid = fused[:2]
+        zero = (z == 0) & (tid >= 0)
+        signs = (int((zero & torch.signbit(z)).sum()), int((zero & ~torch.signbit(z)).sum()))
+        acc = raster.raster_accum_kernel(rows, bins, counts, z_base, light, **tiles)
+        err = max(err, max_abs_err(
+            acc, raster.rasterize_accum_plain(rows, bins, counts, z_base, light, **tiles)))
+        segs = raster.fused_segments(counts, bins.shape[1])
+        print(f"[hazards] {tx}x{ty} tiles, {n_chunks} chunks, entries a tile "
+              f"{counts.tolist()}, 2.1 segments {segs.tolist()}: 2.1 and 2.2 exact vs "
+              f"plain (max_abs_err {err}); zero-depth winners -0.0 / +0.0: {signs}; "
+              f"fragments summed {int(acc[1].sum())}", flush=True)
 
 
 def textured_glass_path(scene_path, results, inputs):
@@ -1057,6 +1196,8 @@ def main() -> int:
     inputs = {}    # frames' own kernel calls, kept for the gathered oracles
     bench_path(eng, results, inputs)
     del eng
+    stress_path(os.path.join(OUT_DIR, f"bench_scene_{2 * BENCH['grid']}.glb"))
+    hazard_path()
     textured_glass_path(scene_path, results, inputs)
     deferred_path(scene_path, results, inputs)
     past_the_guard()

@@ -1,4 +1,5 @@
 """Card-only tests of the port: each CUDA kernel (the raster passes 2.1-2.5,
+2.1 and 2.2 also on adversarial dense tiles that force their split,
 the gathered oracles 2.6-2.8, the background passes 2.9-2.11) against its
 plain PyTorch version, bit for bit, each stream kernel against its gathered
 oracle, and Engine frames on the card (the fused path, textured transparency,
@@ -397,6 +398,67 @@ def test_chunk_bin_wrappers_on_card(cuda):
     assert (raster.fused_counter.launches, raster.accum_counter.launches) == \
         (before[0] + 2, before[1] + 2)
     assert all(_same(x, y) for x, y in zip(a + c, b + d))
+
+
+# -- kernels 2.1 and 2.2 spread over the card: the dense-tile hazards ---------
+
+
+def _hazards(device, n_chunks, tiles, seed):
+    """utils/hazards.py's adversarial rows over the tiles, their dense
+    bins, and the opaque depth for 2.2."""
+    from tpu_renderer_torch.utils import hazards
+
+    w, h = tiles["tiles_x"] * tiles["tile_w"], tiles["tiles_y"] * tiles["tile_h"]
+    rows = hazards.hazard_rows(n_chunks, w, h, seed=seed)
+    box, valid = (torch.from_numpy(a).to(device) for a in hazards.hazard_boxes(rows))
+    caabb, cvalid = raster.chunk_aabbs(box, valid)
+    gaabb, gvalid = raster.group_aabbs(box, valid)
+    bins, counts = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **tiles)
+    z_base = torch.from_numpy(hazards.hazard_z_base(w, h)).to(device)
+    return torch.from_numpy(rows).to(device), bins, counts, z_base
+
+
+@pytest.mark.parametrize("n_chunks,tx,ty", [(1000, 1, 1), (40, 2, 2)])
+def test_split_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty):
+    """One tile of 1,000 entries (2.1 cuts it into 8 segments of 125, each
+    boundary straddled by an equal-z copy of the tie triangle), and 2x2
+    tiles: 2.1 and 2.2 bit-exact against their plain versions, with the
+    hazards reached (-0.0 and +0.0 zero-depth winners, the tie won by its
+    latest copy, fragments summed)."""
+    tiles = dict(tiles_x=tx, tiles_y=ty, tile_w=128, tile_h=32)
+    rows, bins, counts, z_base = _hazards(cuda, n_chunks, tiles, seed=n_chunks)
+    if tx * ty == 1:
+        assert int(counts[0]) == n_chunks
+        assert int(raster.fused_segments(counts, bins.shape[1])[0]) == raster.FUSED_SPLIT
+    got = raster.raster_fused_kernel(rows, bins, counts, **tiles)
+    want = raster.rasterize_fused_plain(rows, bins, counts, **tiles)
+    torch.cuda.synchronize()
+    assert all(_same(g, w) for g, w in zip(got, want))
+    z, tid = got[:2]
+    zero = (z == 0) & (tid >= 0)
+    assert (zero & torch.signbit(z)).any() and (zero & ~torch.signbit(z)).any()
+    tie = (tid % raster.CHUNK) == 7
+    assert tie.any() and int(tid[tie].max()) == (n_chunks - 1) * raster.CHUNK + 7
+    light = torch.tensor(LIGHT, device=cuda)
+    got = raster.raster_accum_kernel(rows, bins, counts, z_base, light, **tiles)
+    want = raster.rasterize_accum_plain(rows, bins, counts, z_base, light, **tiles)
+    torch.cuda.synchronize()
+    assert all(_same(g, w) for g, w in zip(got, want))
+    assert int(got[1].max()) >= 3
+
+
+def test_split_wrappers_refuse_misaligned_rows(cuda):
+    """2.1 and 2.2 copy rows 16 bytes at a time: a view that starts off a
+    16-byte boundary is refused, never read misaligned."""
+    rows, bins, counts = _rows(cuda)
+    flat = torch.zeros(rows.numel() + 1, device=cuda)
+    flat[1:] = rows.flatten()
+    off = flat[1:].view(rows.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        raster.raster_fused_kernel(off, bins, counts, **TILES)
+    with pytest.raises(ValueError, match="16-byte"):
+        raster.raster_accum_kernel(off, bins, counts, torch.zeros((H, W), device=cuda),
+                                   torch.tensor(LIGHT, device=cuda), **TILES)
 
 
 # -- the background passes (kernels 2.9, 2.10, 2.11) --------------------------

@@ -1,12 +1,12 @@
-// Kernel B: the untextured transparent accumulation.
+// Kernel 2.2: the untextured transparent accumulation.
 //
 // Replaces the Pallas kernel raster._accum_chunks_kernel of the JAX package
 // (tpu_renderer/kernels/raster.py, launched by _accum_slab_call from
 // rasterize_accum_slabs). mesh.frag writes alpha = 1, so the reference's
 // additive blend reduces to a sum over every transparent fragment that
 // passes the depth test against the opaque z. Per 32x128 tile the kernel
-// walks the tile's bin entries in ascending chunk id, skips groups whose
-// gmask bit is 0, and for every covered fragment with z >= z_base adds
+// walks the tile's bin entries in bin order, skips groups whose gmask bit
+// is 0, and for every covered fragment with z >= z_base adds
 // rgb * (max(light, 0.1) * power + ambient) and counts it. Float addition is
 // order-dependent, so each pixel adds in ascending triangle order, the order
 // of the plain PyTorch version and of the JAX kernel.
@@ -14,12 +14,25 @@
 // What bounds it on the H100: per-pixel ALU work over bin entries (the edge
 // and depth planes for every live triangle, plus 5 planes and one IEEE
 // divide for each fragment taken), not bytes: 6 KB of fat rows per entry
-// against ~16-40 float operations per triangle per pixel over 4096 pixels.
-// As in raster_fused.cu, the densest tile's serial walk sets the time.
-// What the design does about it: one block per tile, 256 threads x 16
-// pixels with the sums, counts and opaque depth in registers; the chunk's
-// rows staged once in shared memory; dead groups skipped on the gmask bit;
-// shading math only for the fragments actually taken.
+// against ~16-40 float operations per triangle per pixel. A tile's walk is
+// serial, so the densest tile (24 entries on the bench frame) sets the time
+// unless its pixels are spread; with them spread (measured on an H100
+// 80GB HBM3 at 700 W, bench frame, 0.19-0.23 ms) it still sets ~0.11 ms of
+// it, the launch and the write of the sums 0.04-0.07.
+// What the design does about it: the sum's order forbids splitting the
+// entry list, so the pixels are split instead. SPLIT blocks a tile, each a
+// 32-column strip, each walking the tile's whole entry list in order; a
+// warp owns a 32x8 region (8 pixels a thread, with the sums, count and
+// opaque depth in registers) and skips, on warp-uniform branches, every
+// triangle whose edge planes miss the region and every row they miss
+// (edge_rows in raster_common.cuh: exact, so each pixel's sequence of adds
+// is unchanged).
+// Chunks e + 1 and e + 2 are copied into a 4-slot shared-memory ring
+// (cp.async) while chunk e is rasterised. Shading math runs only for the fragments taken.
+// Rounding: -fmad=false and spelled-out __fmaf_rn plane evaluation, the
+// IEEE divide and the NaN-propagating max of add_fragment, so the sums are
+// bit-exact against the plain version; the tensor cores are ruled out for
+// the same reason (TF32 or bf16 products would not round as the reference).
 
 #include "raster_common.cuh"
 
@@ -27,74 +40,75 @@ namespace {
 
 using namespace tr;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int SPLIT = TILE_W / REGION_W;                 // 4 strips a tile
+constexpr int A_THREADS = (TILE_H / REGION_H) * 32;      // 128: 4 regions a strip
+constexpr int A_PIX = REGION_H;                          // 8 a thread
+
+__global__ void __launch_bounds__(A_THREADS)
 raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
                     int tiles_x, const float* __restrict__ z_base, const float* __restrict__ light,
                     float* __restrict__ acc_out, int* __restrict__ cnt_out, int hp,
                     int wp) {
-  __shared__ float srow[CHUNK * ROW_COLS];
-  const int tile = blockIdx.x;
+  __shared__ __align__(16) float ring[RING_SLOTS * CHUNK_FLOATS];
+  const int tile = blockIdx.x / SPLIT;
+  const int strip = blockIdx.x % SPLIT;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const int row0 = threadIdx.x / TILE_W;
-  const float x = static_cast<float>(tx * TILE_W + col) + 0.5f;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int px = tx * TILE_W + strip * REGION_W + lane;
+  const int py0 = ty * TILE_H + warp * REGION_H;
+  const float x = static_cast<float>(px) + 0.5f;
+  const Region region(tx * TILE_W + strip * REGION_W, py0);
   // light: [sun_dir xyz (baked into the light numerator at setup), power,
   // ambient rgb, 0]
   const float power = light[3];
   const float amb[3] = {light[4], light[5], light[6]};
 
-  float y[PIX], zb[PIX], acc[3][PIX];
-  int cnt[PIX];
+  float zb[A_PIX], acc[3][A_PIX];
+  int cnt[A_PIX];
 #pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const int py = ty * TILE_H + row0 + i * ROWS_PER_PASS;
-    y[i] = static_cast<float>(py) + 0.5f;
-    zb[i] = z_base[static_cast<size_t>(py) * wp + tx * TILE_W + col];
+  for (int i = 0; i < A_PIX; ++i) {
+    zb[i] = z_base[static_cast<size_t>(py0 + i) * wp + px];
     acc[0][i] = acc[1][i] = acc[2][i] = 0.0f;
     cnt[i] = 0;
   }
 
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
-  const int n = min(counts[tile], bin_width);
+  const int n = max(0, min(counts[tile], bin_width));
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  for (int e = 0; e < n; ++e) {
-    const int entry = tbins[e];
-    const int cid = entry >> ENTRY_SHIFT;
-    const int gmask = entry & GMASK_ALL;
-    if (cid < 0 || cid >= n_chunks) continue;  // uniform across the block
-    __syncthreads();
-    stage_chunk(srow, rows, cid);
-    __syncthreads();
-#pragma unroll 1
-    for (int g = 0; g < N_GROUPS; ++g) {
-      if (!((gmask >> g) & 1)) continue;
-#pragma unroll 1
-      for (int t = g * GROUP; t < (g + 1) * GROUP; ++t) {
-        const float* r = srow + t * ROW_COLS;
-        Tri tri;
-        tri.load(r);
+  walk_entries<A_THREADS>(rows, tbins, 0, n, n_chunks, ring,
+                          [&](const float* slot, int cid, int gmask) {
+    const unsigned rows_of = lane_rows(slot, gmask, region);
+    unsigned m = __ballot_sync(FULL_WARP, rows_of != 0);
+    while (m) {
+      const int t = __ffs(m) - 1;
+      m &= m - 1;
+      const unsigned rows_t = __shfl_sync(FULL_WARP, rows_of, t);
+      const float* r = slot + t * ROW_COLS;
+      Tri tri;
+      tri.load(r);
 #pragma unroll
-        for (int i = 0; i < PIX; ++i) {
-          float zv;
-          // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
-          if (!(tri.covers(x, y[i], &zv) && zv >= zb[i])) continue;
-          // numerators in columns 13-16 / 19-22 / 25-28, den in 41-43
-          add_fragment(r + 13, 6, r + 41, x, y[i], power, amb, &acc[0][i], &acc[1][i],
-                       &acc[2][i]);
-          cnt[i] += 1;
-        }
+      for (int i = 0; i < A_PIX; ++i) {
+        if (!((rows_t >> i) & 1)) continue;   // uniform across the warp
+        const float y = static_cast<float>(py0 + i) + 0.5f;
+        float zv;
+        // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
+        if (!(tri.covers(x, y, &zv) && zv >= zb[i])) continue;
+        // numerators in columns 13-16 / 19-22 / 25-28, den in 41-43
+        add_fragment(r + 13, 6, r + 41, x, y, power, amb, &acc[0][i], &acc[1][i],
+                     &acc[2][i]);
+        cnt[i] += 1;
       }
     }
-  }
+  });
 
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
 #pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(ty * TILE_H + row0 + i * ROWS_PER_PASS) * wp +
-                     tx * TILE_W + col;
+  for (int i = 0; i < A_PIX; ++i) {
+    const size_t p = static_cast<size_t>(py0 + i) * wp + px;
 #pragma unroll
     for (int c = 0; c < 3; ++c) acc_out[c * plane_stride + p] = acc[c][i];
     cnt_out[p] = cnt[i];
@@ -109,7 +123,7 @@ extern "C" int raster_accum_launch(const float* rows, const int* bins,
                                    const float* z_base, const float* light,
                                    float* acc, int* cnt, void* stream) {
   const int n_tiles = tiles_x * tiles_y;
-  raster_accum_kernel<<<n_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_accum_kernel<<<n_tiles * SPLIT, A_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, light, acc, cnt,
       tiles_y * TILE_H, tiles_x * TILE_W);
   return static_cast<int>(cudaGetLastError());

@@ -131,4 +131,134 @@ __device__ __forceinline__ void add_fragment(const float* num, int stride,
   *ab = __fmaf_rn(cb, __fmaf_rn(lit, power, amb[2]), *ab);
 }
 
+// ---------------------------------------------------------------------------
+// The walk of kernels 2.1 and 2.2: a ring of staged chunks, and the exact
+// per-region reject.
+// ---------------------------------------------------------------------------
+
+constexpr int CHUNK_FLOATS = CHUNK * ROW_COLS;   // 6,144 B of fat rows
+constexpr int AHEAD = 2;                         // chunks copied ahead of the raster
+constexpr int RING_SLOTS = AHEAD + 2;            // shared-memory chunk slots
+constexpr int REGION_W = 32;                     // a warp's pixels: 32 columns
+constexpr int REGION_H = 8;                      //   x 8 rows, one column a lane
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
+static_assert(CHUNK == 32, "one lane tests one triangle of a chunk for its warp");
+static_assert(TILE_W % REGION_W == 0 && TILE_H % REGION_H == 0, "regions tile a tile");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of chunk cid's fat rows into a ring slot, 16 B a piece
+// over NTHREADS threads (the wrapper checks that rows is 16-B aligned).
+template <int NTHREADS>
+__device__ __forceinline__ void stage_chunk_async(float* slot, const float* rows, int cid) {
+  const float4* src = reinterpret_cast<const float4*>(rows + static_cast<size_t>(cid) * CHUNK_FLOATS);
+  float4* dst = reinterpret_cast<float4*>(slot);
+  for (int k = threadIdx.x; k < CHUNK_FLOATS / 4; k += NTHREADS) cp_async16(dst + k, src + k);
+}
+
+// Entry e of a tile's bin: false for an entry the walk skips (a chunk id
+// that is no chunk of rows, or no live group).
+__device__ __forceinline__ bool bin_entry(const int* tbins, int e, int n_chunks, int* cid,
+                                          int* gmask) {
+  const int entry = tbins[e];
+  *cid = entry >> ENTRY_SHIFT;
+  *gmask = entry & GMASK_ALL;
+  return *cid >= 0 && *cid < n_chunks && *gmask != 0;
+}
+
+// Walk the entries [e0, e1) of a tile's bin in order, calling
+// body(slot, cid, gmask) on each chunk once all NTHREADS threads of the
+// block see its rows in shared memory. The copies (cp.async) run AHEAD
+// chunks ahead of the raster; with AHEAD + 2 slots one barrier an entry
+// keeps a slot from being refilled before every thread is done with it.
+// Every thread of the block must call this with the same arguments.
+template <int NTHREADS, typename Body>
+__device__ __forceinline__ void walk_entries(const float* rows, const int* tbins, int e0,
+                                             int e1, int n_chunks, float* ring, Body&& body) {
+  int cid, gmask;
+#pragma unroll
+  for (int d = 0; d < AHEAD; ++d) {
+    if (e0 + d < e1 && bin_entry(tbins, e0 + d, n_chunks, &cid, &gmask))
+      stage_chunk_async<NTHREADS>(ring + d * CHUNK_FLOATS, rows, cid);
+    cp_async_commit();
+  }
+  for (int e = e0; e < e1; ++e) {
+    const int k = e - e0;
+    // slot (k + AHEAD) % RING_SLOTS was last read at entry k - 2: every
+    // thread passed entry k - 1's barrier after it
+    if (e + AHEAD < e1 && bin_entry(tbins, e + AHEAD, n_chunks, &cid, &gmask))
+      stage_chunk_async<NTHREADS>(ring + ((k + AHEAD) % RING_SLOTS) * CHUNK_FLOATS, rows, cid);
+    cp_async_commit();
+    cp_async_wait<AHEAD>();   // this thread's copies of chunk e have landed
+    __syncthreads();          // and every other thread's
+    if (bin_entry(tbins, e, n_chunks, &cid, &gmask))
+      body(ring + (k % RING_SLOTS) * CHUNK_FLOATS, cid, gmask);
+  }
+  cp_async_wait<0>();
+  __syncthreads();            // the ring is free for other use
+}
+
+// A warp's pixel region: REGION_W columns by REGION_H rows from pixel (x0,
+// y0); centers x in [x0 + 0.5, x0 + REGION_W - 0.5], row r at y0 + r + 0.5.
+struct Region {
+  double xc, hw, y0c, xa, ya;   // x center and half extent, row 0's y, largest |x| / |y|
+
+  __device__ Region(int x0, int y0)
+      : xc(x0 + 0.5 * REGION_W), hw(0.5 * (REGION_W - 1)), y0c(y0 + 0.5),
+        xa(x0 + REGION_W - 0.5), ya(y0 + REGION_H - 0.5) {}
+};
+
+constexpr unsigned ALL_ROWS = (1u << REGION_H) - 1;
+
+// The rows of the region where edge plane (a, b, c) may be >= 0 as the
+// kernels evaluate it (one bit a row); on a row whose bit is 0 it is
+// negative at every pixel center, so no pixel there is covered. The float
+// value v = fl(fl(fma(a, x, fl(b*y))) + c) differs from the exact
+// a*x + b*y + c by at most 3 u (|a x| + |b y| + |c|) + 3 * 2^-150 (three
+// roundings, u = 2^-24, the last term for subnormal results), below
+// M = mag * 2^-21 + 2^-140 with mag = |a| max|x| + |b| max|y| + |c| over
+// the region. In double, the exact maximum over a row's centers,
+// a xc + |a| hw + b y + c, is computed to within ~2^-50 of mag, so
+// max + M < 0 proves v < 0 at every center of the row, -0.0 and the
+// top-left rule's v == 0 included. mag < 2^100 keeps every float step
+// finite; NaN and infinite coefficients fail it and reject no row.
+__device__ __forceinline__ unsigned edge_rows(float a, float b, float c, const Region& g) {
+  const double da = a, db = b, dc = c;
+  const double mag = fabs(da) * g.xa + fabs(db) * g.ya + fabs(dc);
+  if (!(mag < 0x1p100)) return ALL_ROWS;
+  const double top = da * g.xc + fabs(da) * g.hw + dc + (mag * 0x1p-21 + 0x1p-140);
+  unsigned rows = 0;
+#pragma unroll
+  for (int r = 0; r < REGION_H; ++r)
+    if (!(top + db * (g.y0c + r) < 0.0)) rows |= 1u << r;
+  return rows;
+}
+
+// The region's rows triangle row r may cover; 0 is exact (it covers no
+// pixel of the region), a set bit may be wrong and the per-pixel test
+// decides.
+__device__ __forceinline__ unsigned cover_rows(const float* r, const Region& g) {
+  return edge_rows(r[0], r[1], r[2], g) & edge_rows(r[3], r[4], r[5], g) &
+         edge_rows(r[6], r[7], r[8], g);
+}
+
+// Lane t's triangle of the chunk, for its warp's region: the rows it may
+// cover (0 if its gmask group is dead). The chunk's triangles to test are
+// __ballot_sync(FULL_WARP, rows != 0); triangle t's rows reach every lane
+// through __shfl_sync(FULL_WARP, rows, t).
+__device__ __forceinline__ unsigned lane_rows(const float* slot, int gmask, const Region& g) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  return ((gmask >> (lane / GROUP)) & 1) ? cover_rows(slot + lane * ROW_COLS, g) : 0u;
+}
+
 }  // namespace tr

@@ -1,9 +1,9 @@
-// Kernel A: the opaque fused raster.
+// Kernel 2.1: the opaque fused raster.
 //
 // Replaces the Pallas kernel raster._chunks_stream_loop of the JAX package
 // (tpu_renderer/kernels/raster.py, launched as _raster_chunks_fresh_kernel /
 // _raster_chunks_state_kernel from rasterize_fused_slabs). Per 32x128 tile it
-// walks the tile's bin entries (cid << ENTRY_SHIFT | gmask) in ascending chunk id;
+// walks the tile's bin entries (cid << ENTRY_SHIFT | gmask) in bin order;
 // for each group whose gmask bit is set it tests every triangle's 3 edge
 // planes (top-left fill rule) and depth plane at each pixel center, keeping
 // z and tid with reversed-Z `>=` and later-wins on ties. After the walk each
@@ -13,90 +13,153 @@
 //
 // What bounds it on the H100: per-pixel ALU work over bin entries — 4
 // planes (~16 float operations) per triangle per pixel, against 6 KB of
-// fat rows read once per entry; not bytes. Blocks are independent and each
-// walks its own tile serially, so the kernel lasts as long as its densest
-// tile: on the bench frame 589 live groups in the busiest tile against a
-// mean of 15.5 (75k triangle-pixel tests per thread), while the ALU work
-// of all tiles together would take 0.06 ms at the fp32 peak.
-// What the design does about it: one thread block per tile, 256 threads
-// owning 16 pixels each in registers (z, tid and the pixel rows never leave
-// registers during the walk); a chunk's rows are staged once in shared
-// memory and read as broadcasts; dead groups are skipped on the gmask bit,
-// so their triangles cost no ALU at all; the attribute planes are evaluated
-// once per pixel instead of once per winning chunk. Splitting a dense
-// tile's entries over several blocks (the winner is the lexicographic max
-// of (z, tid), so partial results merge exactly) is left for later.
+// fat rows read once per entry — and, unless the work is spread, the
+// densest tile: on the bench frame one tile holds 154 entries (589 live
+// groups) against a mean of 5, while the ALU work of all tiles together
+// would take 0.06 ms at the fp32 peak. With this design (measured on an
+// H100 80GB HBM3 at 700 W, bench frame, 0.46-0.51 ms) about 0.13 ms is the
+// launch, merge and epilogue of the 4,080 blocks (21 output planes, 175 MB
+// at 1080p) and about 0.25 ms the densest tile's 8 segments of ~75 live
+// groups each: SPLIT = 8 is the portable cluster's limit.
+// What the design does about it:
+// * a cluster of SPLIT blocks per tile (__cluster_dims__): the tile's
+//   entries are cut into contiguous segments, one for every SEG_MIN
+//   entries and at most SPLIT, one a block. The winner at a pixel is the last
+//   triangle in walk order with the largest z, so per-segment winners fold
+//   exactly, in segment order, with the walk's own rule (take if the
+//   segment has a winner and its z >= the running z). The blocks exchange
+//   (z, tid) through distributed shared memory; each then runs the epilogue
+//   for its 1/SPLIT of the tile's pixels. No global scratch, one launch.
+//   The z carried is the winner's own, so -0.0 and +0.0 tie as `>=` ties
+//   them and the output keeps the winner's bits.
+// * each warp owns a compact 32x8 region (one column a lane, 8 rows) and
+//   skips, on warp-uniform branches, every triangle whose edge planes miss
+//   the region and, for the others, every row they miss (edge_rows in
+//   raster_common.cuh: exact, with a rounding margin; the screen boxes of
+//   columns 44-47 are not used, since they are clipped to the unpadded
+//   extent and the pad rows and columns are rasterised too). A lane
+//   decides for one triangle of the chunk; the small triangles of a dense
+//   tile touch one region and two or three of its rows.
+// * chunks e + 1 and e + 2 are copied into a 4-slot shared-memory ring
+//   (cp.async) while chunk e is rasterised.
+// * the attribute planes are evaluated once per pixel in the epilogue.
+// Rounding: -fmad=false and spelled-out __fmaf_rn plane evaluation (as XLA
+// contracts the reference on the CPU), so the result is bit-exact against
+// the plain PyTorch version. That rules out the tensor cores: a TF32 or
+// bf16 product of the edge planes would not round as the reference does.
+
+#include <cooperative_groups.h>
 
 #include "raster_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace tr;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int SPLIT = 8;       // blocks a tile: the cluster (portable maximum)
+constexpr int SEG_MIN = 4;     // a segment for every SEG_MIN entries
+constexpr int F_THREADS = (TILE_W / REGION_W) * (TILE_H / REGION_H) * 32;   // 512
+constexpr int F_PIX = REGION_H;                                             // 8 a thread
+constexpr int TILE_PIX = TILE_H * TILE_W;
+static_assert(TILE_PIX == SPLIT * F_THREADS, "the epilogue gives each thread one pixel");
+static_assert(RING_SLOTS * CHUNK_FLOATS <= 2 * TILE_PIX, "the ring fits the merge buffer");
+
+__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(F_THREADS, 2)
 raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
                     int tiles_x, float* __restrict__ z_out,
                     int* __restrict__ tid_out, float* __restrict__ nums_out,
                     float* __restrict__ metas_out, int hp, int wp) {
-  __shared__ float srow[CHUNK * ROW_COLS];
-  const int tile = blockIdx.x;
+  // the walk's chunk ring, then the segment's (z, tid) for the merge
+  __shared__ __align__(16) float smem[2 * TILE_PIX];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / SPLIT;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const int row0 = threadIdx.x / TILE_W;
-  const float x = static_cast<float>(tx * TILE_W + col) + 0.5f;
-
-  float y[PIX], z[PIX];
-  int tid[PIX];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    y[i] = static_cast<float>(ty * TILE_H + row0 + i * ROWS_PER_PASS) + 0.5f;
-    z[i] = 0.0f;  // DEPTH_CLEAR
-    tid[i] = -1;
-  }
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
+  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
+  const int px = tx * TILE_W + rx0 + lane;
+  const int py0 = ty * TILE_H + ry0;
+  const float x = static_cast<float>(px) + 0.5f;
+  const Region region(tx * TILE_W + rx0, py0);
 
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
-  const int n = min(counts[tile], bin_width);
-  const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  for (int e = 0; e < n; ++e) {
-    const int entry = tbins[e];
-    const int cid = entry >> ENTRY_SHIFT;
-    const int gmask = entry & GMASK_ALL;
-    if (cid < 0 || cid >= n_chunks) continue;  // uniform across the block
-    __syncthreads();
-    stage_chunk(srow, rows, cid);
-    __syncthreads();
-#pragma unroll 1
-    for (int g = 0; g < N_GROUPS; ++g) {
-      if (!((gmask >> g) & 1)) continue;
-#pragma unroll 1
-      for (int t = g * GROUP; t < (g + 1) * GROUP; ++t) {
-        Tri tri;
-        tri.load(srow + t * ROW_COLS);
-        const int id = cid * CHUNK + t;
+  const int n = max(0, min(counts[tile], bin_width));
+  const int segs = min(SPLIT, max(1, (n + SEG_MIN - 1) / SEG_MIN));
+  const int e0 = rank < segs ? static_cast<int>(static_cast<long long>(n) * rank / segs) : 0;
+  const int e1 = rank < segs ? static_cast<int>(static_cast<long long>(n) * (rank + 1) / segs) : 0;
+
+  float z[F_PIX];
+  int tid[F_PIX];
 #pragma unroll
-        for (int i = 0; i < PIX; ++i) {
-          float zv;
-          // zv >= 0 is subsumed by zv >= z (z starts at 0)
-          if (tri.covers(x, y[i], &zv) && zv >= z[i]) {
-            z[i] = zv;
-            tid[i] = id;
-          }
+  for (int i = 0; i < F_PIX; ++i) {
+    z[i] = 0.0f;  // DEPTH_CLEAR
+    tid[i] = -1;
+  }
+  const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
+  walk_entries<F_THREADS>(rows, tbins, e0, e1, n_chunks, smem,
+                          [&](const float* slot, int cid, int gmask) {
+    const unsigned rows_of = lane_rows(slot, gmask, region);
+    unsigned m = __ballot_sync(FULL_WARP, rows_of != 0);
+    while (m) {
+      const int t = __ffs(m) - 1;
+      m &= m - 1;
+      const unsigned rows_t = __shfl_sync(FULL_WARP, rows_of, t);
+      Tri tri;
+      tri.load(slot + t * ROW_COLS);
+      const int id = cid * CHUNK + t;
+#pragma unroll
+      for (int i = 0; i < F_PIX; ++i) {
+        if (!((rows_t >> i) & 1)) continue;   // uniform across the warp
+        float zv;
+        // zv >= 0 is subsumed by zv >= z (z starts at 0)
+        if (tri.covers(x, static_cast<float>(py0 + i) + 0.5f, &zv) && zv >= z[i]) {
+          z[i] = zv;
+          tid[i] = id;
         }
       }
     }
-  }
+  });
 
-  const size_t plane_stride = static_cast<size_t>(hp) * wp;
+  // the merge: segment winners in segment order, the walk's own rule
+  float* zs = smem;
+  int* ts = reinterpret_cast<int*>(smem + TILE_PIX);
+  if (rank < segs) {
 #pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-    z_out[p] = z[i];
-    tid_out[p] = tid[i];
-    store_winner(rows, tid[i], x, y[i], p, plane_stride, nums_out, metas_out);
+    for (int i = 0; i < F_PIX; ++i) {
+      const int p = (ry0 + i) * TILE_W + rx0 + lane;
+      zs[p] = z[i];
+      ts[p] = tid[i];
+    }
   }
+  cluster.sync();
+  const int p = rank * F_THREADS + threadIdx.x;
+  float zw = 0.0f;
+  int tw = -1;
+  for (int q = 0; q < segs; ++q) {
+    const float zq = cluster.map_shared_rank(zs, q)[p];
+    const int tq = cluster.map_shared_rank(ts, q)[p];
+    if (tq >= 0 && zq >= zw) {
+      zw = zq;
+      tw = tq;
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its shared memory
+
+  const int row = ty * TILE_H + p / TILE_W;
+  const int col = tx * TILE_W + p % TILE_W;
+  const size_t plane_stride = static_cast<size_t>(hp) * wp;
+  const size_t gp = static_cast<size_t>(row) * wp + col;
+  z_out[gp] = zw;
+  tid_out[gp] = tw;
+  store_winner(rows, tw, static_cast<float>(col) + 0.5f, static_cast<float>(row) + 0.5f, gp,
+               plane_stride, nums_out, metas_out);
 }
 
 }  // namespace
@@ -107,7 +170,7 @@ extern "C" int raster_fused_launch(const float* rows, const int* bins,
                                    float* z, int* tid, float* nums, float* metas,
                                    void* stream) {
   const int n_tiles = tiles_x * tiles_y;
-  raster_fused_kernel<<<n_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_fused_kernel<<<n_tiles * SPLIT, F_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       rows, bins, counts, bin_width, n_chunks, tiles_x, z, tid, nums, metas,
       tiles_y * TILE_H, tiles_x * TILE_W);
   return static_cast<int>(cudaGetLastError());

@@ -74,7 +74,7 @@ ID_INF = 0x7FFFFFF  # the peels' "no fragment" marker (> any triangle id)
 # The plain versions also take other values (the JAX tests bin at CHUNK=8).
 CHUNK = 32
 GROUP = 8
-TILE_H, TILE_W = 32, 128  # the kernels' tile: 256 threads x 16 pixels
+TILE_H, TILE_W = 32, 128  # the kernels' tile
 ROW_COLS = 48        # fat-row width (shade.py layout)
 SETUP_COLS = 16      # packed setup-row width (vertex.triangle_setup_c)
 _EMPTY_AABB = (-1.0, -1.0, -2.0, -2.0)
@@ -83,6 +83,19 @@ _EMPTY_AABB = (-1.0, -1.0, -2.0, -2.0)
 # [C_TEX x6 (31-36), C_GRAD x6 (37-42), den_c (43), nu_c (29), nv_c (30)]
 META_COLS = tuple(range(31, 44)) + (29, 30)
 N_NUMS = 4   # interpolated numerator planes: light_num, r, g, b
+# How kernels 2.1 and 2.2 spread a tile's work (csrc/raster_fused.cu,
+# raster_accum.cu and raster_common.cuh fix these at compile time). A warp
+# owns a REGION_W x REGION_H pixel region and skips the triangles whose
+# edge planes miss it, and the region rows they miss (region_rows). 2.1
+# cuts a tile's entries into contiguous segments, one for every
+# FUSED_SEG_MIN entries and at most FUSED_SPLIT, one a block of the tile's
+# thread-block cluster, and folds the segments' winners in order
+# (fused_segments); 2.2 keeps the walk whole and gives each of ACCUM_SPLIT
+# blocks a 32-column strip of the tile.
+REGION_W, REGION_H = 32, 8
+FUSED_SPLIT = 8
+FUSED_SEG_MIN = 4
+ACCUM_SPLIT = TILE_W // REGION_W
 # The JAX package's gathered kernels carry the triangle id as a float in
 # column 47, exact below 2^24; the port's take the bin entry itself and
 # refuse larger tables, so the two cannot diverge silently.
@@ -363,6 +376,48 @@ def _frame_planes(hp: int, wp: int, device):
     return X[None, :].expand(hp, wp), Y[:, None].expand(hp, wp)
 
 
+def fused_segments(counts, bin_width: int, split: int = FUSED_SPLIT,
+                   seg_min: int = FUSED_SEG_MIN):
+    """Per tile, the segments kernel 2.1 cuts its n = clamp(count, 0,
+    bin_width) entries into: ceil(n / seg_min), at least 1 and at most
+    split. Segment q of s covers entries [n q // s, n (q + 1) // s)
+    (segment_bounds); the kernel computes the same from counts itself."""
+    n = counts.clamp(0, bin_width)
+    return ((n + seg_min - 1) // seg_min).clamp(1, split)
+
+
+def segment_bounds(n, segs, q):
+    """Entries [start, end) of segment q of segs over n entries."""
+    return n * q // segs, n * (q + 1) // segs
+
+
+def region_rows(rows, x0, y0, w: int = REGION_W, h: int = REGION_H):
+    """The per-region reject of kernels 2.1 and 2.2 (edge_rows in
+    csrc/raster_common.cuh), in float64: for each row r of the w x h region
+    at pixel (x0, y0), False only where some edge plane of the triangle row
+    is negative, as the kernels evaluate it in float32, at every pixel
+    center of that region row — then the triangle covers none of them. The
+    exact maximum over the row's centers plus a margin of 2^-21 of
+    |a| max|x| + |b| max|y| + |c| over the region (three float roundings
+    stay below 2^-22 of it) and 2^-140 (subnormals) must stay below 0;
+    coefficients of 2^100 and more, inf and NaN reject no row.
+
+    rows: (..., >= 9) edge planes; x0, y0: ints or tensors broadcasting
+    against rows[..., 0]. Returns a bool tensor of that shape + (h,)."""
+    c = rows[..., :9].double()
+    xc, hw, xa = x0 + 0.5 * w, 0.5 * (w - 1), x0 + w - 0.5
+    ya = y0 + h - 0.5
+    ys = torch.as_tensor(y0, dtype=torch.float64)[..., None] + 0.5 + torch.arange(
+        h, dtype=torch.float64)
+    ok = True
+    for e in range(3):
+        a, b, k = c[..., 3 * e], c[..., 3 * e + 1], c[..., 3 * e + 2]
+        mag = a.abs() * xa + b.abs() * ya + k.abs()
+        top = a * xc + a.abs() * hw + k + (mag * 2.0 ** -21 + 2.0 ** -140)
+        ok = ok & (~(mag < 2.0 ** 100)[..., None] | ~(top[..., None] + b[..., None] * ys < 0.0))
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # Kernel A: opaque fused raster
 # ---------------------------------------------------------------------------
@@ -433,6 +488,12 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
         _check("last", last, torch.int32, frame, dev)
 
 
+def _check_aligned(rows):
+    """Kernels 2.1 and 2.2 copy fat rows 16 bytes at a time (cp.async)."""
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary")
+
+
 def _launch(fn_name, *args):
     """Call one C entry point of the kernel library; raise on a CUDA error."""
     lib = _build.load_library()
@@ -471,12 +532,14 @@ def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
                         tile_w: int, tile_h: int):
     """Launch the raster_fused CUDA kernel (csrc/raster_fused.cu) on CUDA
     tensors: the same (z, tid, nums, metas) as rasterize_fused_plain at
-    CHUNK/GROUP."""
+    CHUNK/GROUP. One launch of n_tiles clusters of FUSED_SPLIT blocks; the
+    kernel reads counts itself, so nothing here waits on the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_fused_kernel takes CUDA tensors, got {dev}")
     _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
                   GROUP)
+    _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     z = torch.empty((hp, wp), dtype=torch.float32, device=dev)
     tid = torch.empty((hp, wp), dtype=torch.int32, device=dev)
@@ -564,12 +627,15 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
 def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
                         tiles_y: int, tile_w: int, tile_h: int):
     """Launch the raster_accum CUDA kernel (csrc/raster_accum.cu) on CUDA
-    tensors: the same (acc, cnt) as rasterize_accum_plain at CHUNK/GROUP."""
+    tensors: the same (acc, cnt) as rasterize_accum_plain at CHUNK/GROUP.
+    One launch of n_tiles x ACCUM_SPLIT blocks, with no wait on the
+    device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_accum_kernel takes CUDA tensors, got {dev}")
     _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
                   GROUP, z_base=z_base, light=light)
+    _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     acc = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
     cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)

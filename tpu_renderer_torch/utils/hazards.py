@@ -1,0 +1,138 @@
+"""Adversarial fat rows for the raster kernels 2.1 and 2.2: inputs built to
+hit each hazard of their decomposition (csrc/raster_fused.cu,
+raster_accum.cu), at any number of chunks, from a seed.
+
+Row t of chunk c (CHUNK = 32 rows a chunk) is, by t:
+
+* 7: the tie row, one big triangle with the constant depth 0.6 repeated in
+  every chunk: equal z, so the copy latest in the walk must win, across
+  every segment boundary kernel 2.1 cuts;
+* 15: a full-screen row (edges (0, 0, 1), the setup's box for a vertex with
+  w <= 1e-6), its depth plane -0.0 (coefficients -0.0) in chunks c % 3 == 0
+  and +0.0 elsewhere: ties at zero whose winner shows in the sign of z;
+* 22: the same over the left half of the frame, with the other sign, so
+  the left half's zero-depth winners carry one sign and the right half's
+  the other;
+* 23, and 24-31 in chunks c % 5 == 4: dead rows (edges (0, 0, -1), the
+  empty box), inside a live group and as a whole dead group;
+* 0: a two-column strip at a region boundary x = 32 k - 0.5 whose left edge
+  (1, -1e-8, -x) is negative in exact arithmetic at column 32 k - 1 but
+  rounds to 0 there and is covered by the top-left rule: a reject without
+  its rounding margin drops that column;
+* 1: a two-row strip starting exactly on a region row boundary (edge
+  value exactly 0 on the boundary row's centers);
+* the rest: random triangles of 2 to 24 pixels, random depth in (0.05,
+  0.95), reaching past the frame's edges but not above y = 4, so that
+  however many chunks there are the top rows keep zero-depth winners.
+
+Columns 12-43 hold seeded random attribute planes (2.2 shades with them;
+the texture constants 31-36 small integers, as the JAX kernel packs them),
+44-47 each row's screen box, as the setup writes it: clamped to the frame,
+the whole frame for a full-screen row, (-1, -1, -2, -2) for a dead one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+CHUNK = 32
+ROW_COLS = 48
+TIE_Z = 0.6
+_EMPTY_BOX = (-1.0, -1.0, -2.0, -2.0)
+
+
+def _planes(v):
+    """Barycentric edge planes (3, 3) of triangle v (3, 2), float64:
+    lambda_k = a x + b y + c is 1 at vertex k and 0 on the opposite edge,
+    positive inside whatever the winding; None if degenerate."""
+    area2 = (v[1, 0] - v[0, 0]) * (v[2, 1] - v[0, 1]) - (v[2, 0] - v[0, 0]) * (v[1, 1] - v[0, 1])
+    if abs(area2) < 1.0:
+        return None
+    out = np.empty((3, 3))
+    for k in range(3):
+        p, q = v[(k + 1) % 3], v[(k + 2) % 3]
+        a = (p[1] - q[1]) / area2
+        b = (q[0] - p[0]) / area2
+        out[k] = (a, b, -(a * q[0] + b * q[1]))
+    return out
+
+
+def _box(v, width, height, margin=2.0):
+    lo = np.clip(v.min(0) - margin, 0.0, [width, height])
+    hi = np.clip(v.max(0) + margin, 0.0, [width, height])
+    return (lo[0], lo[1], hi[0], hi[1])
+
+
+def hazard_rows(n_chunks: int, width: int, height: int, seed: int = 0) -> np.ndarray:
+    """(n_chunks * 32, 48) float32 fat rows over a width x height frame,
+    laid out as the module docstring says."""
+    rng = np.random.default_rng(seed)
+    T = n_chunks * CHUNK
+    rows = np.zeros((T, ROW_COLS), np.float64)
+    rows[:, 12:44] = rng.uniform(-1.0, 1.0, size=(T, 32))
+    rows[:, 41:44] = rng.uniform(0.5, 2.0, size=(T, 3))   # denominators away from 0
+    rows[:, 31:37] = rng.integers(0, 1024, size=(T, 6))  # C_TEX: small integers
+    tie = np.asarray([[-10.0, -5.0], [width * 0.8, 2.0], [width * 0.3, height + 5.0]])
+    tie_planes = _planes(tie)
+    for i in range(T):
+        c, t = divmod(i, CHUNK)
+        r = rows[i]
+        if t == 23 or (t >= 24 and c % 5 == 4):
+            r[:12] = 0.0
+            r[2] = r[5] = r[8] = -1.0
+            r[44:48] = _EMPTY_BOX
+            continue
+        if t == 15:
+            r[:9] = (0.0, 0.0, 1.0) * 3
+            r[9:12] = -0.0 if c % 3 == 0 else 0.0
+            r[44:48] = (0.0, 0.0, width, height)
+            continue
+        if t == 22:
+            r[:9] = (-1.0, 0.0, width / 2, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0)
+            r[9:12] = 0.0 if c % 3 == 0 else -0.0
+            r[44:48] = (0.0, 0.0, width / 2, height)
+            continue
+        if t == 7:
+            r[:9] = tie_planes.ravel()
+            r[9:12] = (0.0, 0.0, TIE_Z)
+            r[44:48] = _box(tie, width, height)
+            continue
+        if t == 0:
+            bx = 32.0 * (1 + c % max(1, width // 32 - 1)) - 0.5
+            r[:9] = (1.0, -1e-8, -bx, -1.0, 0.0, bx + 1.5, 0.0, 0.0, 1.0)
+            r[9:12] = (0.0, 0.0, 0.7 + 0.001 * (c % 100))
+            r[44:48] = (bx - 1.0, 0.0, bx + 2.0, height)
+            continue
+        if t == 1:
+            by = 8.0 * (1 + c % max(1, height // 8 - 1)) + 0.5
+            r[:9] = (0.0, 1.0, -by, 0.0, -1.0, by + 1.5, 0.0, 0.0, 1.0)
+            r[9:12] = (0.0, 0.0, 0.65 + 0.001 * (c % 100))
+            r[44:48] = (0.0, by - 1.0, width, by + 2.0)
+            continue
+        while True:
+            center = rng.uniform([-8.0, 16.0], [width + 8.0, height + 8.0])
+            v = center + rng.uniform(-12.0, 12.0, size=(3, 2)) * rng.uniform(0.15, 1.0)
+            planes = _planes(v)
+            if planes is not None:
+                break
+        zs = rng.uniform(0.05, 0.95, size=3)
+        r[:9] = planes.ravel()
+        r[9:12] = zs @ planes
+        r[44:48] = _box(v, width, height)
+    return rows.astype(np.float32)
+
+
+def hazard_boxes(rows: np.ndarray):
+    """(T, 4) screen boxes (columns 44-47) and their validity, for
+    binning."""
+    box = np.ascontiguousarray(rows[:, 44:48])
+    return box, (box[:, 2] >= box[:, 0]) & (box[:, 3] >= box[:, 1])
+
+
+def hazard_z_base(width: int, height: int) -> np.ndarray:
+    """An opaque depth plane for kernel 2.2: the tie rows' exact depth over
+    the left half of the frame (a fragment with z equal to it is taken),
+    0 over the right half."""
+    z = np.zeros((height, width), np.float32)
+    z[:, : width // 2] = TIE_Z
+    return z
