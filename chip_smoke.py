@@ -16,15 +16,15 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    resets the launch counters, renders 1 + 20 frames through
    Engine(device="cuda") and fails unless both kernels were launched; the
    same frame rendered through the plain versions must be identical;
-   It prints how 2.1 and 2.2 spread that call's work: the wrapper's
-   launches and the device's kernels for one call, the blocks, the
-   busiest tile's entries and live groups (and 2.1's segments of it);
 3b. the stress frame (grid 128, the bench's stress variant): 2.1 and 2.2
    on its captured inputs against their plain versions, timed;
 3c. the adversarial rows of tpu_renderer_torch/utils/hazards.py (equal-z
    copies across every segment boundary of 2.1, -0.0 / +0.0 depth ties,
-   edges on region borders, full-screen and dead rows) on one tile of 64
-   entries and on 2x2 tiles: 2.1 and 2.2 exact against their plain versions;
+   edges on region borders, full-screen and dead rows; for the peels an
+   opaque depth equal to the fragments' depths) on one tile of 64
+   entries and on 2x2 tiles: 2.1 and 2.2 exact against their plain
+   versions; 2.3 and 2.5 over three peels with `last` fed back, on the
+   ascending bins and on each tile's reversed, exact against theirs;
 4. the textured-glass bench frame (the same scene, its glass sampling the
    checker texture, so its transparency takes the depth peel): kernel 2.3
    against its plain version on the first peel's inputs and a later one's,
@@ -33,7 +33,13 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    identical;
 5. the deferred bench frame (fused=False): the caps the escalation reached,
    kernels 2.4 and 2.5 against their plain versions (2.5 on two peels),
-   timed; 1 + 5 frames counted; the plain-version frame must be identical;
+   timed; 1 + 5 frames counted; the plain-version frame must be
+   identical;
+5b. how 2.1, 2.2 (the bench frame's call), 2.3 and 2.5 (the first peel's)
+   spread their work, one [split] line each: the wrapper's launches and
+   the device's kernels for one call (one torch.profiler session), the
+   blocks and clusters, the busiest tile's entries and live groups (2.5:
+   live entries) and the segments it is cut into;
 6. a scene past the dense-bin guard (build_demo_glb(grid=320), default
    config): the engine takes the deferred path by itself; one counted
    frame;
@@ -72,10 +78,11 @@ Drives tpu_renderer_torch's paths on the card and checks them:
 13. the bench (tpu_renderer_torch.bench.main --frames 20) in-process: its
    JSON line; 2.1 and 2.2 must launch in every frame of every variant, and
    trilinear_auto_scale must lie in [auto_scale_min, 1];
-14. prints a JSON line of per-kernel results (launches on its path,
-   max_abs_err against the plain version, ms and plain ms, the bound from
-   this run's inputs, the library call's ms where there is one), the
-   nvidia-smi line, and, last, {"ok": true, "device": {...}}.
+14. prints each phase's seconds as it ends ([time] lines), then a JSON
+   line of per-kernel results (launches on its path, max_abs_err against
+   the plain version, ms and plain ms, the bound from this run's inputs,
+   the library call's ms where there is one), the nvidia-smi line, and,
+   last, {"ok": true, "device": {...}}.
 
 Scene files go to chiprun_out/smoke/ inside the checkout. Any failure raises.
 """
@@ -152,6 +159,8 @@ KERNELS = {
                                "tpu_renderer_torch/kernels/csrc/background.cu",
                                "tpu_renderer/kernels/background.py:171"),
 }
+# the CUDA kernel's own name where it is not its wrapper's
+DEVICE_NAMES = {"raster_peel_kernel": "raster_peel_deferred_kernel"}
 BACKGROUND_KERNELS = tuple(n for n in KERNELS if n.startswith("background_"))
 # kernels over dense chunk bins (entries cid << shift | gmask); the other
 # raster kernels walk per-triangle bins
@@ -376,42 +385,64 @@ def device_kernels(calls) -> dict:
             launches[name] = counter.launches - before
         torch.cuda.synchronize()
     events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {n: (launches[n], sum(1 for e in events if n in e)) for n in calls}
+    out = {n: (launches[n], sum(1 for e in events if DEVICE_NAMES.get(n, n) in e))
+           for n in calls}
     out["all"] = len(events)
     return out
 
 
+def peel_segments(name, bins, counts):
+    """The segments peel kernel `name` (2.3 or 2.5) cuts each tile's
+    entries into."""
+    from tpu_renderer_torch.kernels import raster
+
+    seg_min = raster.PEEL_SEG_MIN if name == "raster_peel_fused_kernel" else raster.DEFERRED_SEG_MIN
+    return raster.peel_segments(counts, bins.shape[1], seg_min)
+
+
 def decomposition(name, args, kwargs, launched) -> str:
-    """How kernel 2.1 or 2.2 spread this call's work: launched is its
-    (wrapper launches, device kernels) for one call (device_kernels); the
-    blocks, and the busiest tile's entries and live groups."""
+    """How kernel 2.1, 2.2, 2.3 or 2.5 spread this call's work: launched is
+    its (wrapper launches, device kernels) for one call (device_kernels);
+    the blocks, and the busiest tile's entries and live groups (2.5: live
+    entries), and the segments it is cut into."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
 
     launches, kernels = launched
     assert launches == 1 and kernels == 1, (name, launches, kernels)
-    bins, counts = args[1], args[2]
-    live = _live_entries(bins, counts) & (bins >= 0) & (
-        (bins >> raster.entry_shift(raster.CHUNK // raster.GROUP))
-        < args[0].shape[0] // raster.CHUNK)
-    groups = sum(((bins >> g) & 1) for g in range(raster.CHUNK // raster.GROUP)) * live
-    busiest = int(groups.sum(1).argmax())
+    table, bins, counts = args[0], args[1], args[2]
+    live = _live_entries(bins, counts) & (bins >= 0)
+    if name in CHUNK_BIN_KERNELS:
+        live &= (bins >> raster.entry_shift(raster.CHUNK // raster.GROUP)) \
+            < table.shape[0] // raster.CHUNK
+        work = sum(((bins >> g) & 1) for g in range(raster.CHUNK // raster.GROUP)) * live
+        unit = "live groups"
+    else:
+        live &= bins < table.shape[0]
+        work = live.to(torch.int64)
+        unit = "live entries"
+    busiest = int(work.sum(1).argmax())
     n_tiles = bins.shape[0]
     line = (f"[split] {name}: {launches} launch a call ({kernels} device kernel); busiest "
-            f"tile {int(counts[busiest])} entries, {int(groups[busiest].sum())} live groups")
+            f"tile {int(counts[busiest])} entries, {int(work[busiest].sum())} {unit}")
+    if name == "raster_accum_kernel":
+        return (f"{line}; {n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} "
+                f"32-column strips a tile), each walking its tile's whole list; "
+                f"{int(torch.count_nonzero(live))} live entries")
     if name == "raster_fused_kernel":
+        split = raster.FUSED_SPLIT
         segs = raster.fused_segments(counts, bins.shape[1])
-        n = int(counts[busiest].clamp(0, bins.shape[1]))
-        s = int(segs[busiest])
-        seg_groups = [int(groups[busiest, b:e].sum())
-                      for b, e in (raster.segment_bounds(n, s, q) for q in range(s))]
-        return (f"{line}; {n_tiles * raster.FUSED_SPLIT} blocks in {n_tiles} clusters of "
-                f"{raster.FUSED_SPLIT}, {int(segs.sum())} segments walked, the busiest "
-                f"tile's {s} segments holding {seg_groups} live groups")
-    return (f"{line}; {n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} "
-            f"32-column strips a tile), each walking its tile's whole list; "
-            f"{int(torch.count_nonzero(live))} live entries")
+    else:
+        split = raster.PEEL_SPLIT
+        segs = peel_segments(name, bins, counts)
+    n = int(counts[busiest].clamp(0, bins.shape[1]))
+    s = int(segs[busiest])
+    seg_work = [int(work[busiest, b:e].sum())
+                for b, e in (raster.segment_bounds(n, s, q) for q in range(s))]
+    return (f"{line}; {n_tiles * split} blocks in {n_tiles} clusters of {split}, "
+            f"{int(segs.sum())} segments walked, the busiest tile's {s} segments holding "
+            f"{seg_work} {unit}")
 
 
 def reset_counters():
@@ -506,11 +537,6 @@ def bench_path(eng, results, inputs):
     for n in names:
         results[n] = check_kernel(n, [(0, seen[n][-1])], "bench frame")
         inputs[n] = seen[n][-1]
-    launched = device_kernels({n: seen[n][-1] for n in names})
-    # one launch a wrapper call, and nothing else on the device
-    assert launched["all"] == len(names), launched
-    for n in names:
-        print(decomposition(n, *seen[n][-1], launched[n]), flush=True)
     frame_ms, image, _, _, launches = counted_frames(eng, 20, "bench frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), "kernel frame differs from plain frame"
     print(f"[frame] bench frame == plain-version frame; frame ms {frame_ms:.3f}", flush=True)
@@ -547,12 +573,14 @@ def stress_path(scene_path):
 
 
 def hazard_path():
-    """Phase 3c: kernels 2.1 and 2.2 on the adversarial rows of
+    """Phase 3c: kernels 2.1, 2.2, 2.3 and 2.5 on the adversarial rows of
     utils/hazards.py (equal-z copies across every segment boundary, -0.0
     and +0.0 depth ties, edges on region borders that only the reject's
-    rounding margin keeps, full-screen and dead rows): one tile of 64
-    entries, cut 8 ways by 2.1, and 2x2 tiles; exact against the plain
-    versions."""
+    rounding margin keeps, full-screen and dead rows; for the peels an
+    opaque depth equal to the fragments' depths, and per-triangle bins over
+    the packed rows for 2.5): one tile of 64 entries, cut 8 ways by 2.1,
+    2.3 and 2.5, and 2x2 tiles; exact against the plain versions, the
+    peels over three peels on the ascending and on the reversed bins."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
@@ -584,6 +612,44 @@ def hazard_path():
               f"plain (max_abs_err {err}); zero-depth winners -0.0 / +0.0: {signs}; "
               f"fragments summed {int(acc[1].sum())}", flush=True)
 
+        # the peels 2.3 and 2.5 on the same triangles, three peels with
+        # `last` fed back, the bins ascending and each tile's reversed
+        z_peel = torch.from_numpy(hazards.hazard_peel_z_base(w, h)).to(dev)
+        tbins, tcounts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
+        packed = torch.from_numpy(hazards.hazard_packed(rows_np)).to(dev)
+        peels = (("raster_peel_fused_kernel", rows, bins, counts),
+                 ("raster_peel_kernel", packed, tbins, tcounts))
+        for name, table, pbins, pcounts in peels:
+            kernel, plain = getattr(raster, name), getattr(raster, KERNELS[name][1])
+            seg = peel_segments(name, pbins, pcounts)
+            rev = reversed_bins(pbins, pcounts)
+            last = torch.full((h, w), -1, dtype=torch.int32, device=dev)
+            found = []
+            for _ in range(3):
+                # the plain version's layer is a min, the same in any bin
+                # order: the kernel must give it on both orders
+                want = plain(table, pbins, pcounts, z_peel, last, **tiles)
+                for b in (pbins, rev):
+                    err = max(err, max_abs_err(kernel(table, b, pcounts, z_peel, last, **tiles),
+                                               want))
+                layer = _tuple(want)[0]
+                found.append(int((layer < raster.ID_INF).sum()))
+                last = torch.where(layer < raster.ID_INF, layer, raster.ID_INF)
+            assert min(found) > 0, found
+            print(f"[hazards] {tx}x{ty} tiles: {name}, entries a tile {pcounts.tolist()}, "
+                  f"segments {seg.tolist()}: 3 peels on the ascending and the reversed bins "
+                  f"exact vs plain (max_abs_err {err}); pixels with a layer {found}",
+                  flush=True)
+
+
+def reversed_bins(bins, counts):
+    """Each tile's entries inside its count in reverse order."""
+    import torch
+
+    n = counts.clamp(0, bins.shape[1])
+    k = torch.arange(bins.shape[1], device=bins.device)[None, :]
+    return bins.gather(1, torch.where(k < n[:, None], n[:, None] - 1 - k, k)).contiguous()
+
 
 def textured_glass_path(scene_path, results, inputs):
     """Phase 4: the textured-glass bench frame (kernel 2.3's peel loop).
@@ -614,7 +680,8 @@ def textured_glass_path(scene_path, results, inputs):
 
 def deferred_path(scene_path, results, inputs):
     """Phase 5: the deferred bench frame (kernels 2.4 and 2.5). inputs
-    keeps the frame's fat rows and refined bins for kernel 2.6."""
+    keeps the frame's fat rows and refined bins for kernel 2.6, and 2.5's
+    first call for phase 5b."""
     from tpu_renderer_torch.tools.profile_raster import deferred_inputs
     from tpu_renderer_torch.utils.bench_frame import bench_engine
 
@@ -632,6 +699,7 @@ def deferred_path(scene_path, results, inputs):
     later = len(peels) // 2
     results[names[1]] = check_kernel(names[1], [(0, peels[0]), (later, peels[later])],
                                      "deferred frame")
+    inputs[names[1]] = peels[0]
     frame_ms, image, layers, sync_ms, launches = counted_frames(
         eng, 5, "deferred frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), \
@@ -640,6 +708,20 @@ def deferred_path(scene_path, results, inputs):
           f"caps {eng._caps}", flush=True)
     for n in names:
         results[n]["launches"] = launches[n]
+
+
+def split_phase(inputs):
+    """Phase 5b: how kernels 2.1, 2.2, 2.3 and 2.5 spread their frames'
+    work: one torch.profiler session runs each once on its frame's inputs
+    (2.1, 2.2 the bench frame's; 2.3, 2.5 the first peel of the
+    textured-glass and the deferred frames); each is one launch and one
+    device kernel, and nothing else runs on the device."""
+    names = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel",
+             "raster_peel_kernel")
+    launched = device_kernels({n: inputs[n] for n in names})
+    assert launched["all"] == len(names), launched
+    for n in names:
+        print(decomposition(n, *inputs[n], launched[n]), flush=True)
 
 
 def past_the_guard():
@@ -1194,21 +1276,28 @@ def main() -> int:
     results = {}
     t0 = time.perf_counter()
     inputs = {}    # frames' own kernel calls, kept for the gathered oracles
-    bench_path(eng, results, inputs)
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        fn(*args)
+        print(f"[time] {fn.__name__}: {time.perf_counter() - t:.1f} s", flush=True)
+
+    phase(bench_path, eng, results, inputs)
     del eng
-    stress_path(os.path.join(OUT_DIR, f"bench_scene_{2 * BENCH['grid']}.glb"))
-    hazard_path()
-    textured_glass_path(scene_path, results, inputs)
-    deferred_path(scene_path, results, inputs)
-    past_the_guard()
-    structure_goldens()
-    background_phase(results)
-    cli_phase(results)
-    scale_and_pipeline_phase(scene_path)
-    gathered_phase(results, inputs)
+    phase(stress_path, os.path.join(OUT_DIR, f"bench_scene_{2 * BENCH['grid']}.glb"))
+    phase(hazard_path)
+    phase(textured_glass_path, scene_path, results, inputs)
+    phase(deferred_path, scene_path, results, inputs)
+    phase(split_phase, inputs)
+    phase(past_the_guard)
+    phase(structure_goldens)
+    phase(background_phase, results)
+    phase(cli_phase, results)
+    phase(scale_and_pipeline_phase, scene_path)
+    phase(gathered_phase, results, inputs)
     del inputs
-    profile_tool_phase(results)
-    bench_phase()
+    phase(profile_tool_phase, results)
+    phase(bench_phase)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [results[n] for n in KERNELS]}))

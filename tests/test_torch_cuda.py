@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel (the raster passes 2.1-2.5,
-2.1 and 2.2 also on adversarial dense tiles that force their split,
+2.1, 2.2, 2.3 and 2.5 also on adversarial dense tiles that force their
+split, the peels also on reversed bins,
 the gathered oracles 2.6-2.8, the background passes 2.9-2.11) against its
 plain PyTorch version, bit for bit, each stream kernel against its gathered
 oracle, and Engine frames on the card (the fused path, textured transparency,
@@ -445,6 +446,67 @@ def test_split_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty):
     torch.cuda.synchronize()
     assert all(_same(g, w) for g, w in zip(got, want))
     assert int(got[1].max()) >= 3
+
+
+def _peel_hazards(device, kind, n_chunks, tiles, seed):
+    """The hazard rows as kernel 2.3 (kind "fused": fat rows, dense chunk
+    bins) or 2.5 ("deferred": packed rows, per-triangle bins) takes them,
+    and the peels' opaque depth (hazards.hazard_peel_z_base)."""
+    from tpu_renderer_torch.utils import hazards
+
+    w, h = tiles["tiles_x"] * tiles["tile_w"], tiles["tiles_y"] * tiles["tile_h"]
+    rows = hazards.hazard_rows(n_chunks, w, h, seed=seed)
+    box, valid = (torch.from_numpy(a).to(device) for a in hazards.hazard_boxes(rows))
+    if kind == "fused":
+        caabb, cvalid = raster.chunk_aabbs(box, valid)
+        gaabb, gvalid = raster.group_aabbs(box, valid)
+        bins, counts = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **tiles)
+    else:
+        bins, counts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
+        rows = hazards.hazard_packed(rows)
+    z_base = torch.from_numpy(hazards.hazard_peel_z_base(w, h)).to(device)
+    return torch.from_numpy(rows).to(device), bins, counts, z_base
+
+
+def _reverse_bins(bins, counts):
+    """Each tile's entries inside its count in reverse order."""
+    n = counts.clamp(0, bins.shape[1])
+    k = torch.arange(bins.shape[1], device=bins.device)[None, :]
+    src = torch.where(k < n[:, None], n[:, None] - 1 - k, k)
+    return bins.gather(1, src).contiguous()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n_chunks,tx,ty", [(64, 1, 1), (24, 2, 2)])
+def test_peel_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty, reverse):
+    """Kernels 2.3 and 2.5 on one tile of 64 chunk entries (cut PEEL_SPLIT
+    ways; 2.5's bin holds its ~1,900 triangles) and on 2x2 tiles, over three
+    peels with `last` fed back, the bins ascending or each tile's reversed
+    (the kernels' early stops must then stand down): bit-exact against
+    their plain versions, each peel one launch."""
+    tiles = dict(tiles_x=tx, tiles_y=ty, tile_w=128, tile_h=32)
+    for kind, seg_min in (("fused", raster.PEEL_SEG_MIN), ("deferred", raster.DEFERRED_SEG_MIN)):
+        table, bins, counts, z_base = _peel_hazards(cuda, kind, n_chunks, tiles, seed=n_chunks)
+        if tx * ty == 1:
+            assert int(raster.peel_segments(counts, bins.shape[1], seg_min)[0]) == raster.PEEL_SPLIT
+        if reverse:
+            bins = _reverse_bins(bins, counts)
+        kernel, plain, counter = (
+            (raster.raster_peel_fused_kernel, raster.rasterize_peel_fused_plain,
+             raster.peel_fused_counter) if kind == "fused" else
+            (raster.raster_peel_kernel, raster.rasterize_peel_plain, raster.peel_counter))
+        last = torch.full(z_base.shape, -1, dtype=torch.int32, device=cuda)
+        before = counter.launches
+        for peel in range(3):
+            got = kernel(table, bins, counts, z_base, last, **tiles)
+            want = plain(table, bins, counts, z_base, last, **tiles)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(_same(g, w) for g, w in zip(got, want)), (kind, peel)
+            assert int((got[0] < raster.ID_INF).sum()) > 0, (kind, peel)
+            last = torch.where(got[0] < raster.ID_INF, got[0], raster.ID_INF)
+        assert counter.launches == before + 3
 
 
 def test_split_wrappers_refuse_misaligned_rows(cuda):

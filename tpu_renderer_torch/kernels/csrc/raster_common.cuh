@@ -1,5 +1,5 @@
 // Shared pieces of the raster kernels (raster_fused.cu, raster_accum.cu,
-// raster_peel.cu, raster_deferred.cu).
+// raster_peel.cu, raster_deferred.cu, raster_gathered.cu).
 //
 // Rounding is spelled out: every plane evaluation a*X + b*Y + c is
 // fma(a, X, b*Y) + c with __fmaf_rn/__fmul_rn/__fadd_rn — the contraction
@@ -10,6 +10,7 @@
 // form, which stays exact with fp32 subnormals (no -ftz).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace tr {
@@ -68,14 +69,6 @@ struct Tri {
   }
 };
 
-// Cooperatively stage one chunk's fat rows in shared memory. The caller
-// synchronises before (the previous chunk is consumed) and after.
-__device__ __forceinline__ void stage_chunk(float* srow, const float* rows,
-                                            int cid) {
-  const float* src = rows + static_cast<size_t>(cid) * CHUNK * ROW_COLS;
-  for (int k = threadIdx.x; k < CHUNK * ROW_COLS; k += THREADS) srow[k] = src[k];
-}
-
 // META_COLS of kernels/raster.py: C_TEX x6 (31-36), C_GRAD x6 (37-42),
 // den_c (43), nu_c (29), nv_c (30).
 __device__ __forceinline__ int meta_col(int m) { return m < 13 ? 31 + m : 16 + m; }
@@ -132,7 +125,7 @@ __device__ __forceinline__ void add_fragment(const float* num, int stride,
 }
 
 // ---------------------------------------------------------------------------
-// The walk of kernels 2.1 and 2.2: a ring of staged chunks, and the exact
+// The walk of kernels 2.1-2.3: a ring of staged chunks, and the exact
 // per-region reject.
 // ---------------------------------------------------------------------------
 
@@ -176,15 +169,32 @@ __device__ __forceinline__ bool bin_entry(const int* tbins, int e, int n_chunks,
   return *cid >= 0 && *cid < n_chunks && *gmask != 0;
 }
 
+// The walk's barrier before each entry. With a stop predicate (the peels)
+// it is __syncthreads_and of every thread's stop(): the walk ends there
+// when all of them may stop.
+struct NoStop {};
+__device__ __forceinline__ bool entry_barrier(NoStop) {
+  __syncthreads();
+  return false;
+}
+template <typename Stop>
+__device__ __forceinline__ bool entry_barrier(Stop& stop) {
+  return __syncthreads_and(stop()) != 0;
+}
+
 // Walk the entries [e0, e1) of a tile's bin in order, calling
 // body(slot, cid, gmask) on each chunk once all NTHREADS threads of the
 // block see its rows in shared memory. The copies (cp.async) run AHEAD
 // chunks ahead of the raster; with AHEAD + 2 slots one barrier an entry
 // keeps a slot from being refilled before every thread is done with it.
+// With a stop predicate the walk ends at the first entry's barrier where
+// stop() holds in every thread; the copies in flight are waited for
+// either way before the ring is handed back.
 // Every thread of the block must call this with the same arguments.
-template <int NTHREADS, typename Body>
+template <int NTHREADS, typename Body, typename Stop = NoStop>
 __device__ __forceinline__ void walk_entries(const float* rows, const int* tbins, int e0,
-                                             int e1, int n_chunks, float* ring, Body&& body) {
+                                             int e1, int n_chunks, float* ring, Body&& body,
+                                             Stop stop = Stop{}) {
   int cid, gmask;
 #pragma unroll
   for (int d = 0; d < AHEAD; ++d) {
@@ -200,7 +210,7 @@ __device__ __forceinline__ void walk_entries(const float* rows, const int* tbins
       stage_chunk_async<NTHREADS>(ring + ((k + AHEAD) % RING_SLOTS) * CHUNK_FLOATS, rows, cid);
     cp_async_commit();
     cp_async_wait<AHEAD>();   // this thread's copies of chunk e have landed
-    __syncthreads();          // and every other thread's
+    if (entry_barrier(stop)) break;   // and every other thread's
     if (bin_entry(tbins, e, n_chunks, &cid, &gmask))
       body(ring + (k % RING_SLOTS) * CHUNK_FLOATS, cid, gmask);
   }
@@ -259,6 +269,124 @@ __device__ __forceinline__ unsigned cover_rows(const float* r, const Region& g) 
 __device__ __forceinline__ unsigned lane_rows(const float* slot, int gmask, const Region& g) {
   const int lane = static_cast<int>(threadIdx.x) % 32;
   return ((gmask >> (lane / GROUP)) & 1) ? cover_rows(slot + lane * ROW_COLS, g) : 0u;
+}
+
+// ---------------------------------------------------------------------------
+// The peels 2.3 and 2.5: a tile's entries split over a thread-block cluster,
+// merged by a min.
+// ---------------------------------------------------------------------------
+
+constexpr int PEEL_SPLIT = 8;   // blocks a tile: the cluster (portable maximum)
+constexpr int PEEL_THREADS = (TILE_W / REGION_W) * (TILE_H / REGION_H) * 32;   // 512
+constexpr int TILE_PIX = TILE_H * TILE_W;
+static_assert(TILE_PIX == PEEL_SPLIT * PEEL_THREADS, "the merge gives each thread one pixel");
+
+// Entries [*e0, *e1) of segment `rank` of a tile's n entries: one segment
+// for every seg_min entries, at least 1 and at most PEEL_SPLIT (segment q
+// of s covers [n q / s, n (q + 1) / s), raster.segment_bounds); an empty
+// range for a block past the segments.
+__device__ __forceinline__ int peel_segment(int n, int seg_min, int rank, int* e0, int* e1) {
+  const int segs = min(PEEL_SPLIT, max(1, (n + seg_min - 1) / seg_min));
+  *e0 = rank < segs ? static_cast<int>(static_cast<long long>(n) * rank / segs) : 0;
+  *e1 = rank < segs ? static_cast<int>(static_cast<long long>(n) * (rank + 1) / segs) : 0;
+  return segs;
+}
+
+// Do the keys of bin entries [e0, e1) strictly ascend (key = entry >>
+// shift: the chunk id of a dense entry, the id itself of a triangle
+// entry)? Then a pixel that holds a layer in this segment keeps it: every
+// later triangle's id is larger. Block-wide; every thread must call it.
+__device__ __forceinline__ bool keys_ascend(const int* tbins, int e0, int e1, int shift) {
+  int asc = 1;
+  for (int e = e0 + static_cast<int>(threadIdx.x); e + 1 < e1; e += PEEL_THREADS)
+    asc &= (tbins[e] >> shift) < (tbins[e + 1] >> shift);
+  return __syncthreads_and(asc) != 0;
+}
+
+// A thread's 8 pixels of a peel: one column (its lane) of its warp's 32x8
+// region, with the opaque depth, the previous layer and the best id so
+// far. NONNEG_Z adds zv >= 0 to the take (kernel 2.5's rule; for 2.3 it is
+// subsumed by zv >= z_base, the opaque depth, itself >= 0).
+template <bool NONNEG_Z>
+struct PeelPixels {
+  float x;                 // the column's pixel center
+  int py0;                 // the region's first row in the frame
+  float zb[REGION_H];
+  int lt[REGION_H], best[REGION_H];
+  int lt_min;              // the smallest `last` of the warp's 256 pixels
+  int max_id;              // the largest id a bin may hold
+  bool ascending;          // the segment's ids ascend (keys_ascend)
+
+  __device__ __forceinline__ void load(const float* __restrict__ z_base,
+                                       const int* __restrict__ last, int px, int py,
+                                       int wp, int largest_id) {
+    x = static_cast<float>(px) + 0.5f;
+    py0 = py;
+    max_id = largest_id;
+    lt_min = 0x7FFFFFFF;
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) {
+      const size_t p = static_cast<size_t>(py + i) * wp + px;
+      zb[i] = z_base[p];
+      lt[i] = last[p];
+      best[i] = ID_INF;
+      lt_min = min(lt_min, lt[i]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lt_min = min(lt_min, __shfl_xor_sync(FULL_WARP, lt_min, off));
+  }
+
+  // Can no later entry of the segment change any of this thread's pixels?
+  // A pixel is settled when it holds a layer and the ids ascend, or when
+  // no id of the table is larger than its `last`.
+  __device__ __forceinline__ bool settled() const {
+    bool done = true;
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i)
+      done &= (ascending && best[i] < ID_INF) || lt[i] >= max_id;
+    return done;
+  }
+
+  // The take of triangle `id` on the region rows set in rows_t (a uniform
+  // bit per row across the warp): the smallest id > last that covers the
+  // pixel and passes the depth test.
+  __device__ __forceinline__ void take(const Tri& tri, int id, unsigned rows_t) {
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) {
+      if (!((rows_t >> i) & 1)) continue;
+      float zv;
+      if (id > lt[i] && id < best[i] &&
+          tri.covers(x, static_cast<float>(py0 + i) + 0.5f, &zv) &&
+          (!NONNEG_Z || zv >= 0.0f) && zv >= zb[i])
+        best[i] = id;
+    }
+  }
+};
+
+// The merge: each block of the cluster that walked a segment puts its best
+// ids (the tile's 4,096 pixels, pixel (r, c) at r * TILE_W + c) in buf,
+// in its own shared memory; then every block takes, for its 1/PEEL_SPLIT
+// of the tile's pixels (one a thread), the min over the segs segments
+// through distributed shared memory. A min has no order, and each
+// segment's best is the min of its own entries, so the result is the
+// whole walk's. Returns the merged id of pixel rank * PEEL_THREADS +
+// threadIdx.x; no block leaves while another may read its buf.
+template <bool NONNEG_Z>
+__device__ __forceinline__ int merge_min(cooperative_groups::cluster_group& cluster, int* buf,
+                                         const PeelPixels<NONNEG_Z>& s, int rx0, int ry0,
+                                         int rank, int segs) {
+  if (rank < segs) {
+    const int lane = static_cast<int>(threadIdx.x) % 32;
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) buf[(ry0 + i) * TILE_W + rx0 + lane] = s.best[i];
+  }
+  cluster.sync();
+  const int p = rank * PEEL_THREADS + static_cast<int>(threadIdx.x);
+  int best = ID_INF;
+  for (int q = 0; q < segs; ++q) best = min(best, cluster.map_shared_rank(buf, q)[p]);
+  cluster.sync();
+  return best;
 }
 
 }  // namespace tr

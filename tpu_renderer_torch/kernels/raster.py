@@ -96,6 +96,14 @@ REGION_W, REGION_H = 32, 8
 FUSED_SPLIT = 8
 FUSED_SEG_MIN = 4
 ACCUM_SPLIT = TILE_W // REGION_W
+# The peels 2.3 and 2.5 (csrc/raster_peel.cu, raster_deferred.cu,
+# raster_common.cuh) cut a tile's entries the same way, into at most
+# PEEL_SPLIT segments of a cluster, one for every PEEL_SEG_MIN chunk
+# entries (2.3) or DEFERRED_SEG_MIN triangle entries (2.5), and merge the
+# segments' layers by a min (peel_segments).
+PEEL_SPLIT = 8
+PEEL_SEG_MIN = 4
+DEFERRED_SEG_MIN = 32
 # The JAX package's gathered kernels carry the triangle id as a float in
 # column 47, exact below 2^24; the port's take the bin entry itself and
 # refuse larger tables, so the two cannot diverge silently.
@@ -386,13 +394,20 @@ def fused_segments(counts, bin_width: int, split: int = FUSED_SPLIT,
     return ((n + seg_min - 1) // seg_min).clamp(1, split)
 
 
+def peel_segments(counts, bin_width: int, seg_min: int = PEEL_SEG_MIN):
+    """Per tile, the segments kernel 2.3 (seg_min=PEEL_SEG_MIN) or 2.5
+    (seg_min=DEFERRED_SEG_MIN) cuts its entries into: fused_segments' cut
+    at PEEL_SPLIT."""
+    return fused_segments(counts, bin_width, PEEL_SPLIT, seg_min)
+
+
 def segment_bounds(n, segs, q):
     """Entries [start, end) of segment q of segs over n entries."""
     return n * q // segs, n * (q + 1) // segs
 
 
 def region_rows(rows, x0, y0, w: int = REGION_W, h: int = REGION_H):
-    """The per-region reject of kernels 2.1 and 2.2 (edge_rows in
+    """The per-region reject of kernels 2.1, 2.2, 2.3 and 2.5 (edge_rows in
     csrc/raster_common.cuh), in float64: for each row r of the w x h region
     at pixel (x0, y0), False only where some edge plane of the triangle row
     is negative, as the kernels evaluate it in float32, at every pixel
@@ -489,7 +504,7 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
 
 
 def _check_aligned(rows):
-    """Kernels 2.1 and 2.2 copy fat rows 16 bytes at a time (cp.async)."""
+    """Kernels 2.1-2.3 copy fat rows 16 bytes at a time (cp.async)."""
     if rows.data_ptr() % 16:
         raise ValueError("rows must start on a 16-byte boundary")
 
@@ -726,8 +741,8 @@ def rasterize_peel_fused_plain(rows, bins, counts, z_base, last, *,
         for t in range(chunk):
             cov, zv = _coverage(r[:, t, :, None, None], X, Y)
             idx = (base + t).to(torch.int32)[:, None, None]
-            # zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0); ids
-            # ascend along the walk, so the first eligible id stays
+            # zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0); the
+            # smallest eligible id stays, whatever the bin order
             take = (cov & (zv >= zb) & (idx > lt) & (idx < best)
                     & on[:, t, None, None])
             best = torch.where(take, idx, best)
@@ -742,12 +757,14 @@ def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
                              tile_h: int):
     """Launch the raster_peel CUDA kernel (csrc/raster_peel.cu) on CUDA
     tensors: the same (best, nums, metas) as rasterize_peel_fused_plain at
-    CHUNK/GROUP."""
+    CHUNK/GROUP, for bins in any order. One launch of n_tiles clusters of
+    PEEL_SPLIT blocks, with no wait on the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_peel_fused_kernel takes CUDA tensors, got {dev}")
     _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
                   GROUP, z_base=z_base, last=last)
+    _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     best = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
@@ -773,6 +790,11 @@ def rasterize_peel_fused(rows, bins, counts, z_base, last, *, tiles_x: int,
     Returns (best (Hp, Wp) i32, ID_INF where no layer, attrs (6, Hp, Wp),
     metas (13, Hp, Wp), inv (Hp, Wp)). CPU tensors take the plain version,
     CUDA tensors the kernel.
+
+    Bin order: the result is a min over the entries, the same for bins in
+    any order. The kernel stops a walk early only where a segment's chunk
+    ids strictly ascend, as bin_triangles_full writes them; other orders
+    cost the early stop, never the result.
     """
     dev = rows.device
     tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
@@ -980,7 +1002,9 @@ def rasterize_peel_plain(packed, bins, counts, z_base, last, *, tiles_x: int,
 def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
                        tiles_y: int, tile_w: int, tile_h: int):
     """Launch the raster_peel_deferred CUDA kernel (csrc/raster_deferred.cu)
-    on CUDA tensors: the same layer plane as rasterize_peel_plain."""
+    on CUDA tensors: the same layer plane as rasterize_peel_plain, for bins
+    in any order. One launch of n_tiles clusters of PEEL_SPLIT blocks, with
+    no wait on the device."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"raster_peel_kernel takes CUDA tensors, got {dev}")
@@ -1004,6 +1028,11 @@ def rasterize_peel(packed, bins, counts, z_base, last, *, tiles_x: int,
     covers it with 0 <= z <= 1 and z >= z_base. bins: per-triangle ids
     (refine_bins / expand_bins). Returns (Hp, Wp) i32, ID_INF where no
     fragment. CPU tensors take the plain version, CUDA tensors the kernel.
+
+    Bin order: the result is a min over the entries, the same for bins in
+    any order. The kernel stops a walk early only where a segment's ids
+    strictly ascend, as refine_bins and expand_bins write them; other
+    orders cost the early stop, never the result.
     """
     tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
     _check_inputs(packed, bins, counts, chunk=CHUNK, group=GROUP, z_base=z_base,

@@ -1,21 +1,26 @@
-"""Time kernels 2.1 and 2.2 on the bench frame's and the stress frame's own
-inputs.
+"""Time kernels 2.1, 2.2, 2.3 and 2.5 on the inputs their frames give them.
 
     python3 -m tpu_renderer_torch.tools.time_stream_kernels [--runs 20]
-        [--label NAME]
+        [--label NAME] [--frames bench,stress,textured-glass,deferred]
 
-Renders one bench frame (demo grid 64, 1920x1080, the bench camera) and one
-stress frame (grid 128, camera (0, 6, 256)), records the arguments the frame
-gave raster.raster_fused_kernel (2.1) and raster.raster_accum_kernel (2.2),
-and times each kernel on them: CUDA events around one call, the median of
---runs calls after two warm-up calls; then again with every tile's count
-cut to 0 entries (what the launch, the merge and the epilogue cost alone)
-and to the mean count (the dense tiles' tails cut off). Prints one JSON
-line per frame, kernel and cut (ms, entries, max a tile), then the card's
-name and power limit.
+Renders each frame once and records the arguments the frame gave its
+kernels: the bench frame (demo grid 64, 1920x1080, the bench camera) and
+the stress frame (grid 128, camera (0, 6, 256)) give
+raster.raster_fused_kernel (2.1) and raster.raster_accum_kernel (2.2); the
+textured-glass frame (the bench scene, its glass sampling the checker
+texture) gives raster.raster_peel_fused_kernel (2.3) a call a peel layer;
+the deferred frame (the bench scene, fused=False, caps escalated first)
+gives raster.raster_peel_kernel (2.5) a call a layer. The peels are timed on
+their first call and on a later one (the middle layer). Each kernel is
+timed on those inputs (CUDA events around one call, the median of --runs
+calls after two warm-up calls), then again with every tile's count cut to 0
+entries (what the launch, the merge and the epilogue cost alone) and to
+the mean count (the dense tiles' tails cut off). Prints one JSON line per
+frame, kernel, call and cut (ms, entries, max a tile), then the card's name
+and power limit.
 
-It calls only those two wrappers and utils.bench_frame.bench_engine, so the
-same file times another checkout of the package placed first on PYTHONPATH:
+It calls only those wrappers and utils.bench_frame's engines, so the same
+file times another checkout of the package placed first on PYTHONPATH:
 
     PYTHONPATH=path/to/other/checkout python3 tpu_renderer_torch/tools/time_stream_kernels.py
 
@@ -35,30 +40,36 @@ import tempfile
 import torch
 
 from tpu_renderer_torch.kernels import raster
-from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine, nvidia_smi
+from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine, nvidia_smi, path_engine
 
-NAMES = ("raster_fused_kernel", "raster_accum_kernel")
+# frame -> the kernels timed on it
+FRAMES = {
+    "bench": ("raster_fused_kernel", "raster_accum_kernel"),
+    "stress": ("raster_fused_kernel", "raster_accum_kernel"),
+    "textured-glass": ("raster_peel_fused_kernel",),
+    "deferred": ("raster_peel_kernel",),
+}
 
 
-def captured_calls(eng) -> dict:
-    """name -> (args, kwargs) of the last launch of each kernel in one
-    draw_device() of eng."""
-    seen, originals = {}, {n: getattr(raster, n) for n in NAMES}
+def captured_calls(eng, names) -> dict:
+    """name -> [(args, kwargs), ...] of every launch of each named kernel in
+    one draw_device() of eng."""
+    seen, originals = {n: [] for n in names}, {n: getattr(raster, n) for n in names}
 
     def recorder(name):
         def call(*args, **kwargs):
-            seen[name] = (args, kwargs)
+            seen[name].append((args, kwargs))
             return originals[name](*args, **kwargs)
         return call
 
-    for n in NAMES:
+    for n in names:
         setattr(raster, n, recorder(n))
     try:
         eng.draw_device()
     finally:
         for n, f in originals.items():
             setattr(raster, n, f)
-    missing = [n for n in NAMES if n not in seen]
+    missing = [n for n in names if not seen[n]]
     if missing:
         raise RuntimeError(f"the frame did not reach {missing}")
     return seen
@@ -81,35 +92,59 @@ def kernel_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def frame_engine(frame: str, tmp: str):
+    if frame in ("bench", "stress"):
+        grid = BENCH["grid"] if frame == "bench" else 2 * BENCH["grid"]
+        return bench_engine(os.path.join(tmp, f"scene_{grid}.glb"), grid=grid,
+                            camera_position=(0.0, 6.0, 2.0 * grid))
+    eng = path_engine(frame, os.path.join(tmp, f"scene_{frame}.glb"))
+    if frame == "deferred":
+        eng.draw()     # escalates the caps on overflow
+    return eng
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--label", default="", help="a name for this run's lines")
+    ap.add_argument("--frames", default=",".join(FRAMES),
+                    help=f"comma-separated, of {', '.join(FRAMES)}")
     args = ap.parse_args(argv)
+    frames = args.frames.split(",")
+    unknown = [f for f in frames if f not in FRAMES]
+    if unknown:
+        ap.error(f"unknown frames {unknown}")
     if not torch.cuda.is_available():
         print("time_stream_kernels: no CUDA device", file=sys.stderr)
         return 1
     card = nvidia_smi()
     with tempfile.TemporaryDirectory() as tmp:
-        for frame, grid in (("bench", BENCH["grid"]), ("stress", 2 * BENCH["grid"])):
-            eng = bench_engine(os.path.join(tmp, f"scene_{grid}.glb"), grid=grid,
-                               camera_position=(0.0, 6.0, 2.0 * grid))
-            for name, (a, kw) in captured_calls(eng).items():
+        for frame in frames:
+            eng = frame_engine(frame, tmp)
+            for name, calls in captured_calls(eng, FRAMES[frame]).items():
+                # 2.1 and 2.2 run once a frame; a peel once a layer: its
+                # first call and the middle one
+                picks = {"first": 0} if len(calls) == 1 else {"first": 0,
+                                                             "later": len(calls) // 2}
                 kernel = getattr(raster, name)
-                bins, counts = a[1], a[2]
-                # the frame's own bins, then the same with every tile's
-                # count cut to `cap` entries: 0 leaves the launch, the merge
-                # and the epilogue; the mean cuts the dense tiles' tails
-                mean = -(-int(counts.sum()) // counts.numel())
-                for cap in (None, 0, mean):
-                    cut = counts if cap is None else counts.clamp(max=cap)
-                    b = (a[0], bins, cut) + tuple(a[3:])
-                    print(json.dumps({
-                        "label": args.label, "frame": frame, "kernel": name,
-                        "counts_cut_to": cap,
-                        "ms": kernel_ms(lambda: kernel(*b, **kw), args.runs), "runs": args.runs,
-                        "entries": int(cut.clamp(max=bins.shape[1]).sum()),
-                        "max_a_tile": int(cut.max()), "bins": list(bins.shape)}), flush=True)
+                for which, i in picks.items():
+                    a, kw = calls[i]
+                    bins, counts = a[1], a[2]
+                    # the frame's own bins, then the same with every tile's
+                    # count cut to `cap` entries: 0 leaves the launch, the
+                    # merge and the epilogue; the mean cuts the dense tails
+                    mean = -(-int(counts.sum()) // counts.numel())
+                    for cap in (None, 0, mean):
+                        cut = counts if cap is None else counts.clamp(max=cap)
+                        b = (a[0], bins, cut) + tuple(a[3:])
+                        print(json.dumps({
+                            "label": args.label, "frame": frame, "kernel": name,
+                            "call": f"{which} ({i} of {len(calls)})", "counts_cut_to": cap,
+                            "ms": kernel_ms(lambda: kernel(*b, **kw), args.runs),
+                            "runs": args.runs,
+                            "entries": int(cut.clamp(max=bins.shape[1]).sum()),
+                            "max_a_tile": int(cut.max()), "bins": list(bins.shape)}),
+                              flush=True)
             del eng
     print(card)
     return 0

@@ -1,6 +1,7 @@
-"""Adversarial fat rows for the raster kernels 2.1 and 2.2: inputs built to
-hit each hazard of their decomposition (csrc/raster_fused.cu,
-raster_accum.cu), at any number of chunks, from a seed.
+"""Adversarial fat rows for the raster kernels 2.1, 2.2, 2.3 and 2.5: inputs
+built to hit each hazard of their decomposition (csrc/raster_fused.cu,
+raster_accum.cu, raster_peel.cu, raster_deferred.cu), at any number of
+chunks, from a seed.
 
 Row t of chunk c (CHUNK = 32 rows a chunk) is, by t:
 
@@ -29,6 +30,13 @@ Columns 12-43 hold seeded random attribute planes (2.2 shades with them;
 the texture constants 31-36 small integers, as the JAX kernel packs them),
 44-47 each row's screen box, as the setup writes it: clamped to the frame,
 the whole frame for a full-screen row, (-1, -1, -2, -2) for a dead one.
+
+For the peels: hazard_peel_z_base puts the opaque depth exactly at the
+fragments' depths (the tie rows' 0.6, and -0.0 and +0.0 under the
+zero-depth rows of either sign), so every segment of a tile has a
+candidate at the pixels the full-screen rows cover; hazard_last makes a
+`last` plane of ids at the segments' boundaries; hazard_packed gives the
+same triangles as (T, 16) packed rows for kernel 2.5.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 CHUNK = 32
 ROW_COLS = 48
 TIE_Z = 0.6
+ID_INF = 0x7FFFFFF   # the peels' "no fragment" marker
 _EMPTY_BOX = (-1.0, -1.0, -2.0, -2.0)
 
 
@@ -136,3 +145,37 @@ def hazard_z_base(width: int, height: int) -> np.ndarray:
     z = np.zeros((height, width), np.float32)
     z[:, : width // 2] = TIE_Z
     return z
+
+
+def hazard_peel_z_base(width: int, height: int) -> np.ndarray:
+    """An opaque depth plane for the peels, equal to fragment depths: the
+    tie rows' TIE_Z over the left quarter, -0.0 over the second, +0.0 over
+    the right half (zero-depth fragments of both signs pass z >= z_base
+    there, as >= ties -0.0 and +0.0)."""
+    z = np.zeros((height, width), np.float32)
+    z[:, : width // 4] = TIE_Z
+    z[:, width // 4: width // 2] = -0.0
+    return z
+
+
+def hazard_last(boundary_ids, largest_id: int, width: int, height: int,
+                seed: int = 0) -> np.ndarray:
+    """A `last` plane for a peel, int32 (height, width): per pixel, drawn
+    from a seed, -1, an id on either side of a segment boundary (b - 1 or
+    b for each first id b of a segment), the table's largest id or ID_INF
+    (nothing can follow either)."""
+    cand = [-1, largest_id, ID_INF]
+    for b in boundary_ids:
+        cand += [int(b) - 1, int(b)]
+    rng = np.random.default_rng(seed)
+    return np.asarray(cand, np.int32)[rng.integers(0, len(cand), size=(height, width))]
+
+
+def hazard_packed(rows: np.ndarray) -> np.ndarray:
+    """The hazard rows as (T, 16) packed setup rows in
+    vertex.triangle_setup_c's layout: the 12 plane coefficients, validity
+    (1 where the screen box is not empty), material 0, two zero columns."""
+    packed = np.zeros((rows.shape[0], 16), np.float32)
+    packed[:, :12] = rows[:, :12]
+    packed[:, 12] = hazard_boxes(rows)[1]
+    return packed
