@@ -24,7 +24,11 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    opaque depth equal to the fragments' depths) on one tile of 64
    entries and on 2x2 tiles: 2.1 and 2.2 exact against their plain
    versions; 2.3 and 2.5 over three peels with `last` fed back, on the
-   ascending bins and on each tile's reversed, exact against theirs;
+   ascending bins and on each tile's reversed, exact against theirs; 2.4
+   and 2.6 on the visibility hazard rows (depths past 1, NaN and infinite
+   coefficients besides) on the same tiles, ascending and reversed, and
+   on a bin whose segments hold no winner beside zero-depth winners of
+   either sign, exact against theirs;
 4. the textured-glass bench frame (the same scene, its glass sampling the
    checker texture, so its transparency takes the depth peel): kernel 2.3
    against its plain version on the first peel's inputs and a later one's,
@@ -35,14 +39,17 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    kernels 2.4 and 2.5 against their plain versions (2.5 on two peels),
    timed; 1 + 5 frames counted; the plain-version frame must be
    identical;
-5b. how 2.1, 2.2 (the bench frame's call), 2.3 and 2.5 (the first peel's)
-   spread their work, one [split] line each: the wrapper's launches and
-   the device's kernels for one call (one torch.profiler session), the
-   blocks and clusters, the busiest tile's entries and live groups (2.5:
-   live entries) and the segments it is cut into;
+5b. how 2.1, 2.2 (the bench frame's call), 2.3, 2.5 (the first peel's),
+   2.4 and 2.6 (the deferred frame's bins), and 2.4 on phase 6's grid=320
+   frame (phase 6 runs before this one) spread their work, one [split]
+   line each: the wrapper's launches and the device's kernels for one call
+   (one torch.profiler session), the blocks and clusters, the busiest
+   tile's entries and live groups (per-triangle bins: live entries) and
+   the segments it is cut into;
 6. a scene past the dense-bin guard (build_demo_glb(grid=320), default
    config): the engine takes the deferred path by itself; one counted
-   frame;
+   frame; then 2.4 on that frame's inputs (tri_cap 16384), timed (no
+   plain-version comparison at that size);
 7. renders the structure scene at 480x270 and 1920x1080 and holds it to
    tests/goldens/structure_*.png (at most 0.1% of pixels may differ);
 8. the background passes (kernels 2.9, 2.10, 2.11): each against its plain
@@ -168,6 +175,9 @@ CHUNK_BIN_KERNELS = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_
 # peels that may stop at the entry holding the layer (their bins ascend);
 # 2.8's rule takes the slots in any order, so it needs every live entry
 EARLY_EXIT_PEELS = ("raster_peel_fused_kernel", "raster_peel_kernel")
+# the visibility walks over per-triangle bins, split over a cluster and
+# folded in order (vis_tile in raster_common.cuh)
+VIS_KERNELS = ("raster_deferred_kernel", "raster_fused_gathered_kernel")
 ACCUM_KERNELS = ("raster_accum_kernel", "raster_accum_gathered_kernel")
 
 
@@ -366,27 +376,29 @@ def check_kernel(name, calls, label):
 
 
 def device_kernels(calls) -> dict:
-    """Kernels the device ran in one call of each wrapper: calls maps a
-    kernel's name to (args, kwargs); one torch.profiler session runs each
-    once. Returns name -> (the wrapper's launches by its counter, the device
-    kernels of that name), and "all" -> every device kernel of the session."""
+    """Kernels the device ran in the wrapper calls `calls`, a list of
+    (kernel name, (args, kwargs)), made in one torch.profiler session (a
+    later session in the same process recorded no device event on the
+    card). Returns name -> (the wrapper's launches by its counter over its
+    calls, the device kernels of that name), and "all" -> every device
+    kernel of the session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_renderer_torch.kernels import raster
 
-    launches = {}
+    launches = {name: 0 for name, _ in calls}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for name, (args, kwargs) in calls.items():
+        for name, (args, kwargs) in calls:
             counter = getattr(raster, KERNELS[name][2])
             before = counter.launches
             getattr(raster, name)(*args, **kwargs)
-            launches[name] = counter.launches - before
+            launches[name] += counter.launches - before
         torch.cuda.synchronize()
     events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {n: (launches[n], sum(1 for e in events if DEVICE_NAMES.get(n, n) in e))
-           for n in calls}
+    out = {n: (k, sum(1 for e in events if DEVICE_NAMES.get(n, n) in e))
+           for n, k in launches.items()}
     out["all"] = len(events)
     return out
 
@@ -400,11 +412,23 @@ def peel_segments(name, bins, counts):
     return raster.peel_segments(counts, bins.shape[1], seg_min)
 
 
-def decomposition(name, args, kwargs, launched) -> str:
-    """How kernel 2.1, 2.2, 2.3 or 2.5 spread this call's work: launched is
-    its (wrapper launches, device kernels) for one call (device_kernels);
-    the blocks, and the busiest tile's entries and live groups (2.5: live
-    entries), and the segments it is cut into."""
+def tile_split(name, bins, counts):
+    """(blocks a tile, the segments each tile's entries are cut into) of a
+    kernel that spreads a tile over a cluster: 2.1, 2.3-2.6."""
+    from tpu_renderer_torch.kernels import raster
+
+    if name == "raster_fused_kernel":
+        return raster.FUSED_SPLIT, raster.fused_segments(counts, bins.shape[1])
+    if name in VIS_KERNELS:
+        return raster.VIS_SPLIT, raster.vis_segments(counts, bins.shape[1])
+    return raster.PEEL_SPLIT, peel_segments(name, bins, counts)
+
+
+def decomposition(name, args, kwargs, launched, label="") -> str:
+    """How kernel 2.1-2.6 spread this call's work: launched is its (wrapper
+    launches, device kernels) for one call (device_kernels); the blocks,
+    and the busiest tile's entries and live groups (per-triangle bins: live
+    entries), and the segments it is cut into. label follows the name."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
@@ -424,18 +448,13 @@ def decomposition(name, args, kwargs, launched) -> str:
         unit = "live entries"
     busiest = int(work.sum(1).argmax())
     n_tiles = bins.shape[0]
-    line = (f"[split] {name}: {launches} launch a call ({kernels} device kernel); busiest "
+    line = (f"[split] {name}{label}: {launches} launch a call ({kernels} device kernel); busiest "
             f"tile {int(counts[busiest])} entries, {int(work[busiest].sum())} {unit}")
     if name == "raster_accum_kernel":
         return (f"{line}; {n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} "
                 f"32-column strips a tile), each walking its tile's whole list; "
                 f"{int(torch.count_nonzero(live))} live entries")
-    if name == "raster_fused_kernel":
-        split = raster.FUSED_SPLIT
-        segs = raster.fused_segments(counts, bins.shape[1])
-    else:
-        split = raster.PEEL_SPLIT
-        segs = peel_segments(name, bins, counts)
+    split, segs = tile_split(name, bins, counts)
     n = int(counts[busiest].clamp(0, bins.shape[1]))
     s = int(segs[busiest])
     seg_work = [int(work[busiest, b:e].sum())
@@ -573,14 +592,17 @@ def stress_path(scene_path):
 
 
 def hazard_path():
-    """Phase 3c: kernels 2.1, 2.2, 2.3 and 2.5 on the adversarial rows of
+    """Phase 3c: kernels 2.1-2.6 on the adversarial rows of
     utils/hazards.py (equal-z copies across every segment boundary, -0.0
     and +0.0 depth ties, edges on region borders that only the reject's
     rounding margin keeps, full-screen and dead rows; for the peels an
     opaque depth equal to the fragments' depths, and per-triangle bins over
     the packed rows for 2.5): one tile of 64 entries, cut 8 ways by 2.1,
     2.3 and 2.5, and 2x2 tiles; exact against the plain versions, the
-    peels over three peels on the ascending and on the reversed bins."""
+    peels over three peels on the ascending and on the reversed bins. 2.4
+    and 2.6 on the visibility hazard rows (hazard_vis_rows: depths past 1,
+    NaN and infinite coefficients besides) over the same tiles, ascending
+    and reversed, and on hazard_fold_bin's segments."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
@@ -641,6 +663,50 @@ def hazard_path():
                   f"exact vs plain (max_abs_err {err}); pixels with a layer {found}",
                   flush=True)
 
+        # the visibility walks 2.4 and 2.6 on the visibility hazard rows,
+        # the bins ascending and each tile's reversed
+        vrows = hazards.hazard_vis_rows(n_chunks, w, h, seed=n_chunks)
+        vbox, vvalid = (torch.from_numpy(a).to(dev) for a in hazards.hazard_boxes(vrows))
+        vbins, vcounts, _ = raster.bin_triangles(vbox, vvalid, bin_cap=vrows.shape[0], **tiles)
+        for name in VIS_KERNELS:
+            table = torch.from_numpy(vis_table(name, vrows)).to(dev)
+            kernel, plain = getattr(raster, name), getattr(raster, KERNELS[name][1])
+            won = []
+            for b in (vbins, reversed_bins(vbins, vcounts)):
+                want = plain(table, b, vcounts, **tiles)
+                err = max(err, max_abs_err(kernel(table, b, vcounts, **tiles), want))
+                won.append(int((want[1] >= 0).sum()))
+            print(f"[hazards] {tx}x{ty} tiles: {name}, entries a tile {vcounts.tolist()}, "
+                  f"segments {raster.vis_segments(vcounts, vbins.shape[1]).tolist()}: the "
+                  f"ascending and the reversed bins exact vs plain (max_abs_err {err}); pixels "
+                  f"won {won}", flush=True)
+
+    # segments with no winner beside zero-depth winners of either sign
+    tiles = dict(tiles_x=1, tiles_y=1, tile_w=128, tile_h=32)
+    vrows = hazards.hazard_vis_rows(3, 128, 32)
+    fold = torch.from_numpy(hazards.hazard_fold_bin(3, raster.VIS_SEG_MIN)).to(dev)
+    fcounts = torch.tensor([fold.shape[1]], dtype=torch.int32, device=dev)
+    for name in VIS_KERNELS:
+        table = torch.from_numpy(vis_table(name, vrows)).to(dev)
+        kernel, plain = getattr(raster, name), getattr(raster, KERNELS[name][1])
+        for b in (fold, fold.flip(1).contiguous()):
+            err = max(err, max_abs_err(kernel(table, b, fcounts, **tiles),
+                                       plain(table, b, fcounts, **tiles)))
+        z, tid = kernel(table, fold, fcounts, **tiles)[:2]
+        assert (tid[:, :64] == 22).all() and (tid[:, 64:] == 15).all()
+        assert not torch.signbit(z[:, :64]).any() and torch.signbit(z[:, 64:]).all()
+        print(f"[hazards] {name} on the fold bin (4 segments: none, a -0.0 winner, none, a "
+              f"+0.0 winner), in order and reversed: exact vs plain (max_abs_err {err}); in "
+              f"order +0.0 on the left half, -0.0 on the right", flush=True)
+
+
+def vis_table(name, rows):
+    """Hazard fat rows as kernel 2.4 (packed setup rows) or 2.6 (fat rows)
+    takes them."""
+    from tpu_renderer_torch.utils import hazards
+
+    return hazards.hazard_packed(rows) if name == "raster_deferred_kernel" else rows
+
 
 def reversed_bins(bins, counts):
     """Each tile's entries inside its count in reverse order."""
@@ -680,8 +746,8 @@ def textured_glass_path(scene_path, results, inputs):
 
 def deferred_path(scene_path, results, inputs):
     """Phase 5: the deferred bench frame (kernels 2.4 and 2.5). inputs
-    keeps the frame's fat rows and refined bins for kernel 2.6, and 2.5's
-    first call for phase 5b."""
+    keeps the frame's fat rows and refined bins for kernel 2.6, and 2.4's
+    call and 2.5's first for phase 5b."""
     from tpu_renderer_torch.tools.profile_raster import deferred_inputs
     from tpu_renderer_torch.utils.bench_frame import bench_engine
 
@@ -695,6 +761,7 @@ def deferred_path(scene_path, results, inputs):
     names = ("raster_deferred_kernel", "raster_peel_kernel")
     seen = capture_kernel_inputs(eng.draw_device, names)
     results[names[0]] = check_kernel(names[0], [(0, seen[names[0]][0])], "deferred frame")
+    inputs[names[0]] = seen[names[0]][0]
     peels = seen[names[1]]
     later = len(peels) // 2
     results[names[1]] = check_kernel(names[1], [(0, peels[0]), (later, peels[later])],
@@ -711,22 +778,31 @@ def deferred_path(scene_path, results, inputs):
 
 
 def split_phase(inputs):
-    """Phase 5b: how kernels 2.1, 2.2, 2.3 and 2.5 spread their frames'
-    work: one torch.profiler session runs each once on its frame's inputs
-    (2.1, 2.2 the bench frame's; 2.3, 2.5 the first peel of the
-    textured-glass and the deferred frames); each is one launch and one
-    device kernel, and nothing else runs on the device."""
+    """Phase 5b: how kernels 2.1-2.6 spread their frames' work: one
+    torch.profiler session runs each once on its frame's inputs (2.1, 2.2
+    the bench frame's; 2.3, 2.5 the first peel of the textured-glass and
+    the deferred frames; 2.4 the deferred frame's, 2.6 its fat rows and
+    bins), and 2.4 again on the grid=320 frame's (phase 6, which runs
+    first); each call is one launch and one device kernel, and nothing
+    else runs on the device."""
     names = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel",
-             "raster_peel_kernel")
-    launched = device_kernels({n: inputs[n] for n in names})
-    assert launched["all"] == len(names), launched
+             "raster_peel_kernel", *VIS_KERNELS)
+    guard = ("raster_deferred_kernel", inputs["past the guard"])
+    calls = [(n, inputs[n]) for n in names] + [guard]
+    launched = device_kernels(calls)
+    assert launched["all"] == len(calls), launched
     for n in names:
-        print(decomposition(n, *inputs[n], launched[n]), flush=True)
+        k = sum(1 for name, _ in calls if name == n)
+        assert launched[n] == (k, k), (n, launched[n])
+        print(decomposition(n, *inputs[n], (1, 1)), flush=True)
+    name, (args, kwargs) = guard
+    print(decomposition(name, args, kwargs, (1, 1), " (past the guard)"), flush=True)
 
 
-def past_the_guard():
+def past_the_guard(inputs):
     """Phase 6: a scene past dense_bin_max_chunks takes the deferred path
-    by itself."""
+    by itself; kernel 2.4 on its inputs, timed; inputs keeps that call
+    for the [split] line of phase 5b."""
     import torch
 
     from tpu_renderer_torch.utils.bench_frame import bench_engine
@@ -754,6 +830,20 @@ def past_the_guard():
     t0 = time.perf_counter()
     eng.draw()
     print(f"[frame] past the guard: second draw {(time.perf_counter() - t0) * 1000.0:.1f} ms",
+          flush=True)
+
+    # 2.4 on this frame's inputs, timed
+    name = "raster_deferred_kernel"
+    args, kwargs = inputs["past the guard"] = \
+        capture_kernel_inputs(eng.draw_device, (name,))[name][0]
+    kernel = getattr(kernel_module(name), name)
+    bound_ms, bound_by = bound(name, args, kwargs, kernel(*args, **kwargs))
+    ms = cuda_ms(lambda: kernel(*args, **kwargs), runs=20)
+    bins, counts = args[1], args[2]
+    print(f"[kernel] {name} (past the guard): bins {tuple(bins.shape)}, entries "
+          f"{int(counts.clamp(max=bins.shape[1]).sum())}, max/tile {int(counts.max())}; "
+          f"{ms:.4f} ms (median of 20), bound {bound_ms:.4f} ms by {bound_by}; not held to "
+          f"the plain version at this size (it walks {bins.shape[1]} slots a tile)",
           flush=True)
 
 
@@ -1288,8 +1378,8 @@ def main() -> int:
     phase(hazard_path)
     phase(textured_glass_path, scene_path, results, inputs)
     phase(deferred_path, scene_path, results, inputs)
+    phase(past_the_guard, inputs)
     phase(split_phase, inputs)
-    phase(past_the_guard)
     phase(structure_goldens)
     phase(background_phase, results)
     phase(cli_phase, results)

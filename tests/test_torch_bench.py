@@ -73,7 +73,11 @@ def test_bench_line_has_every_key_of_the_jax_bench(cpu_line):
 def test_bench_cpu_run_is_named_a_smoke(cpu_line):
     assert cpu_line["metric"] == "fps_cpu_smoke" and cpu_line["backend"] == "cpu"
     assert cpu_line["unit"] == "frames/sec" and cpu_line["value"] > 0
-    assert cpu_line["vs_baseline"] == round(cpu_line["value"] / 60.0, 3)
+    # value is round(fps, 2), so fps lies within 0.005 of it, and
+    # vs_baseline, round(fps / 60, 3), between the roundings of the ends
+    value = cpu_line["value"]
+    assert round((value - 0.005) / 60.0, 3) <= cpu_line["vs_baseline"] \
+        <= round((value + 0.005) / 60.0, 3)
     d = cpu_line["detail"]
     assert d["resolution"] == "256x64" and d["render_scale"] == 1.0
     assert d["triangles"] > 0 and d["stress_triangles"] > 0 and d["drawcalls"] > 0
@@ -84,6 +88,19 @@ def test_bench_cpu_run_is_named_a_smoke(cpu_line):
     assert d["statics"] == dict(fused=True, trilinear=False, pot=True,
                                 transp_textured=False, raster_chunk=32, raster_group=8,
                                 raster_sort="hilbert")
+
+
+@pytest.mark.parametrize("fps", [2.9675, 2.9651, 24.58, 60.0, 59.9971])
+def test_bench_headline_fields_round_as_bench_py(fps):
+    """The line's two fields as bench.py:187-189 writes them, from the
+    unrounded fps: in the window [2.965, 2.97) vs_baseline (0.049) is not
+    value / 60 rounded (0.05), and the range the line test allows holds
+    it."""
+    value, vs_baseline = bench.headline_fields(fps)
+    assert value == round(fps, 2) and vs_baseline == round(fps / 60.0, 3)
+    assert round((value - 0.005) / 60.0, 3) <= vs_baseline <= round((value + 0.005) / 60.0, 3)
+    if 2.965 <= fps < 2.97:
+        assert (value, vs_baseline) == (2.97, 0.049) and round(value / 60.0, 3) == 0.05
 
 
 def test_bench_cpu_defaults_are_the_jax_bench_fallback_sizes():

@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel (the raster passes 2.1-2.5,
-2.1, 2.2, 2.3 and 2.5 also on adversarial dense tiles that force their
-split, the peels also on reversed bins,
+2.1-2.6 also on adversarial dense tiles that force their split, the peels
+and 2.4 / 2.6 also on reversed bins,
 the gathered oracles 2.6-2.8, the background passes 2.9-2.11) against its
 plain PyTorch version, bit for bit, each stream kernel against its gathered
 oracle, and Engine frames on the card (the fused path, textured transparency,
@@ -507,6 +507,81 @@ def test_peel_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty, revers
             assert int((got[0] < raster.ID_INF).sum()) > 0, (kind, peel)
             last = torch.where(got[0] < raster.ID_INF, got[0], raster.ID_INF)
         assert counter.launches == before + 3
+
+
+# -- kernels 2.4 and 2.6: the visibility walk split over a cluster -----------
+
+VIS_KINDS = ("deferred", "gathered")   # kernel 2.4, kernel 2.6
+
+
+def _vis(kind):
+    """(kernel wrapper, plain version, launch counter) of 2.4 or 2.6."""
+    if kind == "deferred":
+        return raster.raster_deferred_kernel, raster.rasterize_plain, raster.deferred_counter
+    return (raster.raster_fused_gathered_kernel, raster.rasterize_fused_gathered_plain,
+            raster.fused_gathered_counter)
+
+
+def _vis_table(device, kind, rows):
+    from tpu_renderer_torch.utils import hazards
+
+    return torch.from_numpy(hazards.hazard_packed(rows) if kind == "deferred" else rows).to(device)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n_chunks,tx,ty", [(64, 1, 1), (24, 2, 2)])
+def test_vis_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty, reverse):
+    """Kernels 2.4 and 2.6 on utils/hazards.py's visibility rows (equal-z
+    copies across every segment boundary, -0.0 / +0.0 winners, depths
+    past 1, NaN and infinite coefficients): one tile of ~1,900 entries cut
+    VIS_SPLIT ways, and 2x2 tiles, the bins ascending or each tile's
+    reversed (the ties go the other way): bit-exact against their plain
+    versions, one launch a call."""
+    from tpu_renderer_torch.utils import hazards
+
+    tiles = dict(tiles_x=tx, tiles_y=ty, tile_w=128, tile_h=32)
+    rows = hazards.hazard_vis_rows(n_chunks, 128 * tx, 32 * ty, seed=n_chunks)
+    box, valid = (torch.from_numpy(a).to(cuda) for a in hazards.hazard_boxes(rows))
+    bins, counts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
+    if tx * ty == 1:
+        assert int(raster.vis_segments(counts, bins.shape[1])[0]) == raster.VIS_SPLIT
+    if reverse:
+        bins = _reverse_bins(bins, counts)
+    for kind in VIS_KINDS:
+        kernel, plain, counter = _vis(kind)
+        table = _vis_table(cuda, kind, rows)
+        before = counter.launches
+        got = kernel(table, bins, counts, **tiles)
+        want = plain(table, bins, counts, **tiles)
+        torch.cuda.synchronize()
+        assert all(_same(g, w) for g, w in zip(got, want)), kind
+        assert counter.launches == before + 1
+        assert int((got[1] >= 0).sum()) > 0
+
+
+def test_vis_kernels_fold_empty_segments_and_signed_zeros(cuda):
+    """hazards.hazard_fold_bin: segments with no winner beside zero-depth
+    winners of either sign, in order and reversed: 2.4 and 2.6 equal
+    their plain versions, and in order the left half holds row 22 at +0.0,
+    the right half row 15 at -0.0."""
+    from tpu_renderer_torch.utils import hazards
+
+    tiles = dict(tiles_x=1, tiles_y=1, tile_w=128, tile_h=32)
+    rows = hazards.hazard_vis_rows(3, 128, 32, seed=0)
+    bins = torch.from_numpy(hazards.hazard_fold_bin(3, raster.VIS_SEG_MIN)).to(cuda)
+    counts = torch.tensor([bins.shape[1]], dtype=torch.int32, device=cuda)
+    assert int(raster.vis_segments(counts, bins.shape[1])[0]) == 4
+    for kind in VIS_KINDS:
+        kernel, plain, _ = _vis(kind)
+        table = _vis_table(cuda, kind, rows)
+        for b in (bins, bins.flip(1).contiguous()):
+            got = kernel(table, b, counts, **tiles)
+            want = plain(table, b, counts, **tiles)
+            torch.cuda.synchronize()
+            assert all(_same(g, w) for g, w in zip(got, want)), kind
+        z, tid = kernel(table, bins, counts, **tiles)[:2]
+        assert (tid[:, :64] == 22).all() and (tid[:, 64:] == 15).all()
+        assert not torch.signbit(z[:, :64]).any() and torch.signbit(z[:, 64:]).all()
 
 
 def test_split_wrappers_refuse_misaligned_rows(cuda):

@@ -4,6 +4,7 @@ timer's wrapping, and the two profile tools (tools/profile_raster.py,
 tools/profile_stages.py) in-process at a small extent. Nothing here imports JAX or needs nvcc."""
 
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -294,6 +295,34 @@ def test_smoke_bound_of_the_gathered_peel_counts_every_live_entry():
     assert smoke.work_tests("raster_peel_gathered_kernel", args, tiles, (plane,)) == every
     assert smoke.work_tests("raster_fused_gathered_kernel", args, tiles, (plane,)) == every
     assert smoke.work_tests("raster_peel_kernel", args, tiles, plane) < every
+
+
+@pytest.mark.parametrize("name", ["raster_deferred_kernel", "raster_fused_gathered_kernel"])
+def test_smoke_split_line_of_the_visibility_walks(name):
+    """chip_smoke's [split] line for kernels 2.4 and 2.6: clusters of
+    VIS_SPLIT blocks, the tiles cut as vis_segments cuts them, and the
+    busiest tile's live entries (ids that are rows of the table) a
+    segment."""
+    smoke = _chip_smoke()
+    cols = raster.SETUP_COLS if name == "raster_deferred_kernel" else raster.ROW_COLS
+    table = torch.zeros((400, cols))
+    bins = torch.full((2, 320), -1, dtype=torch.int32)
+    bins[0, :5] = torch.arange(5, dtype=torch.int32)
+    bins[1, :300] = torch.arange(300, dtype=torch.int32)
+    bins[1, 10] = 5000                                    # no row: not live
+    counts = torch.tensor([5, 300], dtype=torch.int32)
+    tiles = dict(tiles_x=2, tiles_y=1, tile_w=128, tile_h=32)
+    line = smoke.decomposition(name, (table, bins, counts), tiles, (1, 1))
+    segs = raster.vis_segments(counts, bins.shape[1]).tolist()
+    assert segs == [1, raster.VIS_SPLIT], segs
+    assert f"{2 * raster.VIS_SPLIT} blocks in 2 clusters of {raster.VIS_SPLIT}" in line, line
+    assert f"{1 + raster.VIS_SPLIT} segments walked" in line, line
+    assert "busiest tile 300 entries, 299 live entries" in line, line
+    held = json.loads(line.split("segments holding ")[1].split(" live")[0])
+    want = [e - b for b, e in (raster.segment_bounds(300, raster.VIS_SPLIT, q)
+                               for q in range(raster.VIS_SPLIT))]
+    want[0] -= 1
+    assert held == want, (held, want)
 
 
 def test_smoke_kernel_table_names_what_exists():

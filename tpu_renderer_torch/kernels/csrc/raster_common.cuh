@@ -282,11 +282,12 @@ constexpr int TILE_PIX = TILE_H * TILE_W;
 static_assert(TILE_PIX == PEEL_SPLIT * PEEL_THREADS, "the merge gives each thread one pixel");
 
 // Entries [*e0, *e1) of segment `rank` of a tile's n entries: one segment
-// for every seg_min entries, at least 1 and at most PEEL_SPLIT (segment q
-// of s covers [n q / s, n (q + 1) / s), raster.segment_bounds); an empty
-// range for a block past the segments.
-__device__ __forceinline__ int peel_segment(int n, int seg_min, int rank, int* e0, int* e1) {
-  const int segs = min(PEEL_SPLIT, max(1, (n + seg_min - 1) / seg_min));
+// for every seg_min entries, at least 1 and at most split (segment q of s
+// covers [n q / s, n (q + 1) / s), raster.segment_bounds); an empty range
+// for a block past the segments. Returns the number of segments.
+__device__ __forceinline__ int tile_segment(int n, int split, int seg_min, int rank, int* e0,
+                                            int* e1) {
+  const int segs = min(split, max(1, (n + seg_min - 1) / seg_min));
   *e0 = rank < segs ? static_cast<int>(static_cast<long long>(n) * rank / segs) : 0;
   *e1 = rank < segs ? static_cast<int>(static_cast<long long>(n) * (rank + 1) / segs) : 0;
   return segs;
@@ -387,6 +388,212 @@ __device__ __forceinline__ int merge_min(cooperative_groups::cluster_group& clus
   for (int q = 0; q < segs; ++q) best = min(best, cluster.map_shared_rank(buf, q)[p]);
   cluster.sync();
   return best;
+}
+
+// ---------------------------------------------------------------------------
+// The visibility walk of kernels 2.4 and 2.6 over per-triangle bins: a
+// tile's entries split over a thread-block cluster, the segments' winners
+// folded in walk order.
+// ---------------------------------------------------------------------------
+
+constexpr int VIS_SPLIT = 8;      // blocks a tile: the cluster (portable maximum)
+constexpr int VIS_SEG_MIN = 32;   // a segment for every VIS_SEG_MIN entries
+constexpr int VIS_THREADS = PEEL_THREADS;   // 16 warps, one 32x8 region each
+constexpr int VIS_BATCH = VIS_THREADS;      // entries staged a pass, one a thread
+constexpr int VIS_PIX = TILE_PIX / VIS_SPLIT;   // the fold's pixels a block
+constexpr int PLANE_COLS = 12;               // edge and depth coefficients of a row
+constexpr int COEF_STRIDE = PLANE_COLS + 1;  // lane t's row t: 32 distinct banks
+constexpr int PORTABLE_CLUSTER = 8;
+static_assert(TILE_PIX % VIS_SPLIT == 0 && VIS_PIX <= VIS_THREADS,
+              "the fold gives each thread at most one pixel");
+static_assert(VIS_BATCH * COEF_STRIDE <= 2 * TILE_PIX, "the batch fits the fold buffer");
+
+// Stage entries [base, base + blockDim.x) of a tile's bin, one a thread:
+// sid the id (-1 at or past e1, or for an entry that is no row of the
+// table) and scoef its 12 plane coefficients, COEF_STRIDE floats apart,
+// from a table ROW_STRIDE floats a row (16: packed setup rows; 48: fat
+// rows, whose first 12 columns are the same planes). The caller
+// synchronises before and after.
+template <int ROW_STRIDE>
+__device__ __forceinline__ void stage_planes(float* scoef, int* sid,
+                                             const float* __restrict__ table, int n_tris,
+                                             const int* tbins, int base, int e1) {
+  const int k = base + static_cast<int>(threadIdx.x);
+  int id = k < e1 ? tbins[k] : -1;
+  if (id >= n_tris) id = -1;
+  id = max(id, -1);
+  sid[threadIdx.x] = id;
+  if (id >= 0) {
+    const float* r = table + static_cast<size_t>(id) * ROW_STRIDE;
+#pragma unroll
+    for (int c = 0; c < PLANE_COLS; ++c) scoef[threadIdx.x * COEF_STRIDE + c] = r[c];
+  }
+}
+
+// The (z, tid) of a thread's REGION_H pixels: one column (its lane) of its
+// warp's region.
+struct VisPixels {
+  float z[REGION_H];
+  int tid[REGION_H];
+};
+
+// Walk entries [e0, e1) of a tile's bin in order, from (DEPTH_CLEAR, -1):
+// per pixel the reversed-Z (>=) winner with 0 <= z <= 1, a later entry
+// winning an equal z. Lane t of each warp tests entry t of a 32-entry
+// slice against the warp's region (cover_rows); the warp walks the entries
+// its ballot keeps, in entry order, on the rows they may cover. Nothing
+// ends a walk early. Every thread of the block must call it.
+template <int ROW_STRIDE>
+__device__ __forceinline__ void vis_walk(const float* __restrict__ table, int n_tris,
+                                         const int* tbins, int e0, int e1, const Region& g,
+                                         float x, int py0, float* scoef, int* sid,
+                                         VisPixels& s) {
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+  for (int base = e0; base < e1; base += VIS_BATCH) {
+    __syncthreads();   // the previous batch is consumed
+    stage_planes<ROW_STRIDE>(scoef, sid, table, n_tris, tbins, base, e1);
+    __syncthreads();
+    const int m = min(VIS_BATCH, e1 - base);
+    for (int j0 = 0; j0 < m; j0 += 32) {
+      const int j = j0 + lane;
+      const unsigned rows_of =
+          j < m && sid[j] >= 0 ? cover_rows(scoef + j * COEF_STRIDE, g) : 0u;
+      unsigned b = __ballot_sync(FULL_WARP, rows_of != 0);
+      while (b) {
+        const int t = __ffs(b) - 1;
+        b &= b - 1;
+        const unsigned rows_t = __shfl_sync(FULL_WARP, rows_of, t);
+        Tri tri;
+        tri.load(scoef + (j0 + t) * COEF_STRIDE);
+        const int id = sid[j0 + t];
+#pragma unroll
+        for (int i = 0; i < REGION_H; ++i) {
+          if (!((rows_t >> i) & 1)) continue;   // uniform across the warp
+          float zv;
+          // zv >= 0 is subsumed by zv >= z (z starts at +0.0)
+          if (tri.covers(x, static_cast<float>(py0 + i) + 0.5f, &zv) && zv >= s.z[i]) {
+            s.z[i] = zv;
+            s.tid[i] = id;
+          }
+        }
+      }
+    }
+  }
+}
+
+// A tile of kernel 2.4 or 2.6, one block of its cluster of VIS_SPLIT: the
+// tile's n = clamp(count, 0, bin_width) entries cut into segments
+// (tile_segment), this block's walked (vis_walk), and the segments'
+// winners folded in segment order through distributed shared memory with
+// the walk's own rule: take (zq, tq) if tq >= 0 and zq >= the running z.
+// The winner is the last entry in walk order with the largest z, so the
+// fold is exact for bins in any order; the z carried is the winner's own,
+// so -0.0 and +0.0 tie as >= ties them and the output keeps its bits, and
+// a segment with no winner (tid -1) never beats one at z = 0. Then
+// store(row, col, z, tid) for each of the block's 1/VIS_SPLIT of the
+// tile's pixels. A tile of one segment is the first block's alone: no
+// fold, no cluster barrier, store for all its pixels.
+template <int ROW_STRIDE, typename Store>
+__device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_tris,
+                                         const int* __restrict__ bins,
+                                         const int* __restrict__ counts, int bin_width,
+                                         int tiles_x, Store&& store) {
+  // the batch's planes, then the segment's (z, tid) for the fold
+  __shared__ float smem[2 * TILE_PIX];
+  __shared__ int sid[VIS_BATCH];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / VIS_SPLIT;
+  const int tx = tile % tiles_x;
+  const int ty = tile / tiles_x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
+  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
+  const int px = tx * TILE_W + rx0 + lane;
+  const int py0 = ty * TILE_H + ry0;
+  // bins and counts come from the caller: never walk past the bin row
+  const int n = max(0, min(counts[tile], bin_width));
+  int e0, e1;
+  const int segs = tile_segment(n, VIS_SPLIT, VIS_SEG_MIN, rank, &e0, &e1);
+  if (segs == 1 && rank > 0) return;
+
+  VisPixels s;
+#pragma unroll
+  for (int i = 0; i < REGION_H; ++i) {
+    s.z[i] = 0.0f;   // DEPTH_CLEAR
+    s.tid[i] = -1;
+  }
+  if (rank < segs)   // uniform across the block
+    vis_walk<ROW_STRIDE>(table, n_tris, bins + static_cast<size_t>(tile) * bin_width, e0, e1,
+                         Region(tx * TILE_W + rx0, py0), static_cast<float>(px) + 0.5f, py0,
+                         smem, sid, s);
+  if (segs == 1) {
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) store(py0 + i, px, s.z[i], s.tid[i]);
+    return;
+  }
+
+  __syncthreads();   // the batch buffer is free for the fold
+  float* zs = smem;
+  int* ts = reinterpret_cast<int*>(smem + TILE_PIX);
+  if (rank < segs) {
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) {
+      const int p = (ry0 + i) * TILE_W + rx0 + lane;
+      zs[p] = s.z[i];
+      ts[p] = s.tid[i];
+    }
+  }
+  cluster.sync();
+  const int p = rank * VIS_PIX + static_cast<int>(threadIdx.x);
+  float zw = 0.0f;
+  int tw = -1;
+  if (threadIdx.x < VIS_PIX) {
+    for (int q = 0; q < segs; ++q) {
+      const float zq = cluster.map_shared_rank(zs, q)[p];
+      const int tq = cluster.map_shared_rank(ts, q)[p];
+      if (tq >= 0 && zq >= zw) {
+        zw = zq;
+        tw = tq;
+      }
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its shared memory
+  if (threadIdx.x < VIS_PIX) store(ty * TILE_H + p / TILE_W, tx * TILE_W + p % TILE_W, zw, tw);
+}
+
+// Launch a kernel of vis_tile's shape: n_tiles clusters of VIS_SPLIT
+// blocks of VIS_THREADS. The cluster is a launch attribute, so a split
+// above the portable 8 needs only its constant: the kernel is then allowed
+// a non-portable cluster, and the launch is refused (cudaErrorInvalidConfiguration)
+// where no such cluster fits on the card. Returns the CUDA error.
+template <typename Kernel, typename... Args>
+int launch_vis(Kernel kernel, int n_tiles, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * VIS_SPLIT);
+  cfg.blockDim = dim3(VIS_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = VIS_SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (VIS_SPLIT > PORTABLE_CLUSTER) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tr

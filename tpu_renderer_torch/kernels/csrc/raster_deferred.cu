@@ -13,24 +13,35 @@
 // (vertex.triangle_setup_c): 3 edge planes, the depth plane, validity and
 // material. The JAX wrappers gather each tile's rows into a
 // (n_tiles, cap, 16) block first; at an escalated cap of 16384 that block
-// is 535 MB. Here each block reads the rows by id straight from the table:
-// per batch of 256 entries (2.5: 512) every thread loads one entry's 12 plane
-// coefficients into shared memory, then all threads walk the batch.
+// is 535 MB. Here each block reads the rows by id straight from the table,
+// a batch of 512 entries at a time, one entry's 12 plane coefficients a
+// thread, into shared memory.
 //
-// What bounds it on the H100: per-pixel ALU work, the 4 planes (~16 float
-// operations) of every binned triangle at every pixel of its tile; the
-// table reads are 48 B per entry against 4096 pixel tests. The densest
-// tile's serial walk sets the time: on the deferred frame one tile holds
-// 4,453 entries (2.4) and 561 (2.5's bins), against means of 102 and 11.
-// What the design of 2.4 does about it: one block per 32x128 tile, 256
-// threads x 16 pixels with the per-pixel state in registers; the batch's
-// coefficients in shared memory, read as broadcasts; entries that are
-// padding or past the table are dropped at the load, uniformly.
-// 2.5 is kernel 2.3's design (raster_peel.cu): a cluster of PEEL_SPLIT
-// blocks a tile, each walking a segment of the entries with the per-region
-// and per-row reject and the exact stops, merged by a min (see below); on
-// the deferred frame's first peel (H100 80GB HBM3, 700 W) 0.08-0.09 ms, of
-// which 0.05-0.07 is the launch of the 4,080 blocks with no entries.
+// What bounds them on the H100: per-pixel ALU work, the 4 planes (~16
+// float operations) of a binned triangle at a pixel, against 48 B of table
+// read an entry; and, unless the work is spread, the densest tile: on the
+// deferred frame one tile holds 4,453 entries (2.4; 561 in 2.5's first
+// peel) against a mean of 102 (11), and most of a dense tile's triangles
+// cover a few pixels of one 32x8 region. One block a tile testing every
+// entry at every pixel (2.4 before this design) took 4.8-4.9 ms on an H100
+// 80GB HBM3 at 700 W, 1% of its bound.
+// What the design does about it (2.4 shares it with 2.6, vis_tile in
+// raster_common.cuh; 2.5 is 2.3's, raster_peel.cu):
+// * a cluster of blocks a tile, each walking a contiguous segment of the
+//   entries, one segment for every SEG_MIN entries; a tile of one segment
+//   is its first block's alone, with no merge and no cluster barrier;
+// * each warp owns a 32x8 region, one column a lane: lane t tests entry t
+//   of a 32-entry slice against the region's rows (cover_rows, exact with
+//   its rounding margin), and the warp walks only what its ballot keeps,
+//   on the rows each entry may cover;
+// * 2.4 folds the segments' (z, tid) in segment order with the walk's own
+//   rule (exact for bins in any order), 2.5 merges its segments' layers by
+//   a min; both through distributed shared memory, in one launch.
+// On the deferred frame (H100 80GB HBM3, 700 W) 2.4 takes 0.21-0.23 ms:
+// 0.04-0.05 with no entries (the launch of 4,080 clusters), ~0.12 the
+// densest tiles' segments of ~557 entries. A cluster of 16 (non-portable;
+// launch_vis allows it from the constant alone) halved those segments and
+// was slower: its 65,280 blocks cost more than the tail it cut.
 
 #include "raster_common.cuh"
 
@@ -40,82 +51,21 @@ namespace {
 
 using namespace tr;
 
-constexpr int BATCH = THREADS;  // bin entries staged per pass
-constexpr int PLANE_COLS = 12;  // edge + depth coefficients of a packed row
 constexpr int SETUP_COLS = 16;  // packed setup-row width
 
-// Stage entries [base, base + blockDim.x) of a tile's bin, one a thread:
-// ids (-1 where the entry is at or past n or not a triangle of the table)
-// and their plane coefficients, STRIDE floats apart. The caller
-// synchronises before and after.
-template <int STRIDE>
-__device__ __forceinline__ void stage_batch(float* scoef, int* sid,
-                                            const float* __restrict__ packed,
-                                            int n_tris, const int* tbins, int base,
-                                            int n) {
-  const int k = base + static_cast<int>(threadIdx.x);
-  int id = k < n ? tbins[k] : -1;
-  if (id >= n_tris) id = -1;
-  sid[threadIdx.x] = id < 0 ? -1 : id;
-  if (id >= 0) {
-    const float* r = packed + static_cast<size_t>(id) * SETUP_COLS;
-#pragma unroll
-    for (int c = 0; c < PLANE_COLS; ++c) scoef[threadIdx.x * STRIDE + c] = r[c];
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+// Kernel 2.4 (vis_tile in raster_common.cuh): z and tid for the block's
+// pixels.
+__global__ void __launch_bounds__(VIS_THREADS, 2)
 raster_deferred_kernel(const float* __restrict__ packed, int n_tris,
                        const int* __restrict__ bins, const int* __restrict__ counts,
                        int bin_width, int tiles_x, float* __restrict__ z_out,
                        int* __restrict__ tid_out, int wp) {
-  __shared__ float scoef[BATCH * PLANE_COLS];
-  __shared__ int sid[BATCH];
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const float x = static_cast<float>(tx * TILE_W + col) + 0.5f;
-
-  float y[PIX], z[PIX];
-  int tid[PIX];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    y[i] = static_cast<float>(pixel_row(ty, i)) + 0.5f;
-    z[i] = 0.0f;  // DEPTH_CLEAR
-    tid[i] = -1;
-  }
-
-  const int n = min(counts[tile], bin_width);
-  const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  for (int base = 0; base < n; base += BATCH) {
-    __syncthreads();
-    stage_batch<PLANE_COLS>(scoef, sid, packed, n_tris, tbins, base, n);
-    __syncthreads();
-    const int m = min(BATCH, n - base);
-#pragma unroll 1
-    for (int j = 0; j < m; ++j) {
-      const int id = sid[j];
-      if (id < 0) continue;  // uniform across the block
-      Tri tri;
-      tri.load(scoef + j * PLANE_COLS);
-#pragma unroll
-      for (int i = 0; i < PIX; ++i) {
-        float zv;
-        if (tri.covers(x, y[i], &zv) && zv >= 0.0f && zv >= z[i]) {
-          z[i] = zv;
-          tid[i] = id;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-    z_out[p] = z[i];
-    tid_out[p] = tid[i];
-  }
+  vis_tile<SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x,
+                       [&](int row, int col, float z, int tid) {
+                         const size_t gp = static_cast<size_t>(row) * wp + col;
+                         z_out[gp] = z;
+                         tid_out[gp] = tid;
+                       });
 }
 
 // Kernel 2.5: kernel 2.3's design (raster_peel.cu) over per-triangle bins.
@@ -129,7 +79,6 @@ raster_deferred_kernel(const float* __restrict__ packed, int n_tris,
 // tile of one segment is again block 0's alone.
 constexpr int DEFERRED_SEG_MIN = 32;            // a segment for every 32 entries
 constexpr int DEFERRED_BATCH = PEEL_THREADS;    // entries staged per pass, one a thread
-constexpr int COEF_STRIDE = PLANE_COLS + 1;     // lane t's row t: 32 distinct banks
 static_assert(TILE_PIX <= DEFERRED_BATCH * COEF_STRIDE, "the merge buffer fits the batch");
 
 __global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(PEEL_THREADS, 2)
@@ -153,7 +102,7 @@ raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
   const Region region(tx * TILE_W + rx0, ty * TILE_H + ry0);
   const int n = max(0, min(counts[tile], bin_width));
   int e0, e1;
-  const int segs = peel_segment(n, DEFERRED_SEG_MIN, rank, &e0, &e1);
+  const int segs = tile_segment(n, PEEL_SPLIT, DEFERRED_SEG_MIN, rank, &e0, &e1);
   // a tile of one segment is block 0's alone: no merge, no cluster barrier
   if (segs == 1 && rank > 0) return;
 
@@ -165,7 +114,7 @@ raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
     for (int base = e0; base < e1; base += DEFERRED_BATCH) {
       // the barrier before restaging: the previous batch is consumed
       if (__syncthreads_and(s.settled())) break;   // every pixel of the block is settled
-      stage_batch<COEF_STRIDE>(scoef, sid, packed, n_tris, tbins, base, e1);
+      stage_planes<SETUP_COLS>(scoef, sid, packed, n_tris, tbins, base, e1);
       __syncthreads();
       const int m = min(DEFERRED_BATCH, e1 - base);
       for (int j0 = 0; j0 < m; j0 += 32) {
@@ -204,10 +153,8 @@ raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
 extern "C" int raster_deferred_launch(const float* packed, int n_tris, const int* bins,
                                       const int* counts, int bin_width, int tiles_x,
                                       int tiles_y, float* z, int* tid, void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_deferred_kernel<<<n_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      packed, n_tris, bins, counts, bin_width, tiles_x, z, tid, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+  return launch_vis(raster_deferred_kernel, tiles_x * tiles_y, stream, packed, n_tris, bins,
+                    counts, bin_width, tiles_x, z, tid, tiles_x * TILE_W);
 }
 
 extern "C" int raster_peel_deferred_launch(const float* packed, int n_tris,

@@ -91,9 +91,8 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
   const int n = max(0, min(counts[tile], bin_width));
-  const int segs = min(SPLIT, max(1, (n + SEG_MIN - 1) / SEG_MIN));
-  const int e0 = rank < segs ? static_cast<int>(static_cast<long long>(n) * rank / segs) : 0;
-  const int e1 = rank < segs ? static_cast<int>(static_cast<long long>(n) * (rank + 1) / segs) : 0;
+  int e0, e1;
+  const int segs = tile_segment(n, SPLIT, SEG_MIN, rank, &e0, &e1);
 
   float z[F_PIX];
   int tid[F_PIX];

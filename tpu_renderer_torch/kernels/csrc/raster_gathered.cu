@@ -23,14 +23,15 @@
 //
 // The JAX wrappers gather fat_rows[bins] into an (n_tiles, cap, 48) block
 // first (802 MB at the deferred bench caps). Here a block reads rows by id
-// from the table. Shared memory: a batch of 256 entries stages only the
-// columns the walk reads at every pixel: the 12 edge and depth coefficients
-// for 2.6 and 2.8 (12 KB), and for 2.7 also the numerator and denominator
-// planes every taken fragment reads (columns 13-16, 19-22, 25-28, 41-43: 27
-// floats an entry, 27 KB). Both fit the static 48 KB; no dynamic shared
-// memory. The winner's other columns are read once a pixel after the walk
-// (store_winner), which equals the JAX kernel's select-at-take because the
-// planes are a pure function of (row, pixel).
+// from the table, staging only the columns the walk reads at every pixel:
+// the 12 edge and depth coefficients (2.6, 2.8; 2.6 a batch of 512 entries
+// in 26 KB, 2.8 of 256 in 12 KB), and for 2.7 also the numerator and
+// denominator planes every taken fragment reads (columns 13-16, 19-22,
+// 25-28, 41-43: 27 floats an entry, 27 KB for 256). All fit the static
+// 48 KB; no dynamic shared memory. The winner's other columns are read
+// once a pixel after the walk (store_winner), which equals the JAX
+// kernel's select-at-take because the planes are a pure function of (row,
+// pixel).
 //
 // The JAX kernels carry the id as a float in column 47 (exact below 2^24);
 // the wrappers refuse a table of 2^24 rows or more. Entries past the
@@ -40,14 +41,26 @@
 // live entries in [0, T).
 //
 // What bounds them on the H100: per-pixel ALU work, the 4 planes (~16 float
-// operations) of every binned triangle at every pixel of its tile, plus for
-// 2.7 five planes and a divide a fragment taken; the table reads are 48 B
-// (108 B for 2.7) an entry against 4096 pixel tests. The densest tile's
-// serial walk sets the time.
-// What the design does about it: one block per 32x128 tile, 256 threads x
-// 16 pixels with the per-pixel state in registers; a batch's coefficients
-// in shared memory, read as broadcasts; the arithmetic is the stream
-// kernels' own (raster_common.cuh), which is what makes the oracles exact.
+// operations) of a binned triangle at a pixel, plus for 2.7 five planes and
+// a divide a fragment taken, against 48 B (108 B for 2.7) of table an
+// entry; and, unless the work is spread, the densest tile: on the deferred
+// frame's bins one tile holds 4,453 entries against a mean of 102.
+// What the designs do about it:
+// * 2.6 is kernel 2.4's design (vis_tile in raster_common.cuh, shared so
+//   the two cannot drift apart): a cluster of VIS_SPLIT blocks a tile over
+//   contiguous segments of the entries, each warp walking only the entries
+//   and rows its 32x8 region may be covered by, the segments' (z, tid)
+//   folded in segment order through distributed shared memory; then each
+//   block runs store_winner for its 1/VIS_SPLIT of the tile's pixels. One
+//   block a tile testing every entry at every pixel (2.6 before this
+//   design) took 4.9 ms on the deferred frame's bins (H100 80GB HBM3, 700
+//   W), 1% of its bound; this design 0.26-0.30 ms, 0.11-0.14 of it with no
+//   entries (the launch and the 21 output planes).
+// * 2.7 and 2.8: one block per 32x128 tile, 256 threads x 16 pixels with
+//   the per-pixel state in registers; a batch's coefficients in shared
+//   memory, read as broadcasts.
+// The arithmetic is the stream kernels' own (raster_common.cuh), which is
+// what makes the oracles exact.
 
 #include "raster_common.cuh"
 
@@ -56,7 +69,6 @@ namespace {
 using namespace tr;
 
 constexpr int BATCH = THREADS;   // bin entries staged per pass
-constexpr int PLANE_COLS = 12;   // edge + depth coefficients
 constexpr int ACCUM_COLS = 27;   // + numerators (4 x 3) and the denominator
 // Offsets into a staged ACCUM_COLS entry: numerator a's (A, B, C)
 // coefficients at NUM + a, NUM + 4 + a, NUM + 8 + a; then den (A, B, C).
@@ -92,61 +104,25 @@ __device__ __forceinline__ void stage_entries(float* scoef, int* sid,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Kernel 2.6: kernel 2.4's walk and fold (vis_tile in raster_common.cuh)
+// over the fat rows' first 12 columns, then the winner's planes for the
+// block's pixels (store_winner, as 2.1's epilogue).
+__global__ void __launch_bounds__(VIS_THREADS, 2)
 raster_fused_gathered_kernel(const float* __restrict__ rows, int n_tris,
                              const int* __restrict__ bins, const int* __restrict__ counts,
                              int bin_width, int tiles_x, float* __restrict__ z_out,
                              int* __restrict__ tid_out, float* __restrict__ nums_out,
                              float* __restrict__ metas_out, int hp, int wp) {
-  __shared__ float scoef[BATCH * PLANE_COLS];
-  __shared__ int sid[BATCH];
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const float x = static_cast<float>(tx * TILE_W + col) + 0.5f;
-
-  float y[PIX], z[PIX];
-  int tid[PIX];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    y[i] = static_cast<float>(pixel_row(ty, i)) + 0.5f;
-    z[i] = 0.0f;  // DEPTH_CLEAR
-    tid[i] = -1;
-  }
-
-  const int n = min(counts[tile], bin_width);
-  const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  for (int base = 0; base < n; base += BATCH) {
-    __syncthreads();
-    stage_entries<PLANE_COLS>(scoef, sid, rows, n_tris, tbins, base, n);
-    __syncthreads();
-    const int m = min(BATCH, n - base);
-#pragma unroll 1
-    for (int j = 0; j < m; ++j) {   // slot order: a later slot wins an equal z
-      const int id = sid[j];
-      if (id < 0) continue;  // uniform across the block
-      Tri tri;
-      tri.load(scoef + j * PLANE_COLS);
-#pragma unroll
-      for (int i = 0; i < PIX; ++i) {
-        float zv;
-        if (tri.covers(x, y[i], &zv) && zv >= 0.0f && zv >= z[i]) {
-          z[i] = zv;
-          tid[i] = id;
-        }
-      }
-    }
-  }
-
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-    z_out[p] = z[i];
-    tid_out[p] = tid[i];
-    store_winner(rows, tid[i], x, y[i], p, plane_stride, nums_out, metas_out);
-  }
+  vis_tile<ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x,
+                     [&](int row, int col, float z, int tid) {
+                       const size_t gp = static_cast<size_t>(row) * wp + col;
+                       z_out[gp] = z;
+                       tid_out[gp] = tid;
+                       store_winner(rows, tid, static_cast<float>(col) + 0.5f,
+                                    static_cast<float>(row) + 0.5f, gp, plane_stride,
+                                    nums_out, metas_out);
+                     });
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -278,11 +254,9 @@ extern "C" int raster_fused_gathered_launch(const float* rows, int n_tris, const
                                             const int* counts, int bin_width, int tiles_x,
                                             int tiles_y, float* z, int* tid, float* nums,
                                             float* metas, void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_fused_gathered_kernel<<<n_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, n_tris, bins, counts, bin_width, tiles_x, z, tid, nums, metas,
-      tiles_y * TILE_H, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+  return launch_vis(raster_fused_gathered_kernel, tiles_x * tiles_y, stream, rows, n_tris, bins,
+                    counts, bin_width, tiles_x, z, tid, nums, metas, tiles_y * TILE_H,
+                    tiles_x * TILE_W);
 }
 
 extern "C" int raster_accum_gathered_launch(const float* rows, int n_tris, const int* bins,

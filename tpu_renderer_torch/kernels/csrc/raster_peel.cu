@@ -85,7 +85,7 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
   // or read a chunk that is not there
   const int n = max(0, min(counts[tile], bin_width));
   int e0, e1;
-  const int segs = peel_segment(n, PEEL_SEG_MIN, rank, &e0, &e1);
+  const int segs = tile_segment(n, PEEL_SPLIT, PEEL_SEG_MIN, rank, &e0, &e1);
   // a tile of one segment is block 0's alone: no merge, no cluster barrier
   if (segs == 1 && rank > 0) return;
   const size_t plane_stride = static_cast<size_t>(hp) * wp;

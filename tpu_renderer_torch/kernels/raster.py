@@ -104,6 +104,12 @@ ACCUM_SPLIT = TILE_W // REGION_W
 PEEL_SPLIT = 8
 PEEL_SEG_MIN = 4
 DEFERRED_SEG_MIN = 32
+# The visibility walks 2.4 and 2.6 (vis_tile in csrc/raster_common.cuh)
+# cut a tile's per-triangle entries into at most VIS_SPLIT segments of a
+# cluster, one for every VIS_SEG_MIN entries, and fold the segments'
+# winners in order, as 2.1 does (vis_segments).
+VIS_SPLIT = 8
+VIS_SEG_MIN = 32
 # The JAX package's gathered kernels carry the triangle id as a float in
 # column 47, exact below 2^24; the port's take the bin entry itself and
 # refuse larger tables, so the two cannot diverge silently.
@@ -401,13 +407,19 @@ def peel_segments(counts, bin_width: int, seg_min: int = PEEL_SEG_MIN):
     return fused_segments(counts, bin_width, PEEL_SPLIT, seg_min)
 
 
+def vis_segments(counts, bin_width: int):
+    """Per tile, the segments kernels 2.4 and 2.6 cut their entries into:
+    fused_segments' cut at VIS_SPLIT and VIS_SEG_MIN."""
+    return fused_segments(counts, bin_width, VIS_SPLIT, VIS_SEG_MIN)
+
+
 def segment_bounds(n, segs, q):
     """Entries [start, end) of segment q of segs over n entries."""
     return n * q // segs, n * (q + 1) // segs
 
 
 def region_rows(rows, x0, y0, w: int = REGION_W, h: int = REGION_H):
-    """The per-region reject of kernels 2.1, 2.2, 2.3 and 2.5 (edge_rows in
+    """The per-region reject of kernels 2.1-2.6 (edge_rows in
     csrc/raster_common.cuh), in float64: for each row r of the w x h region
     at pixel (x0, y0), False only where some edge plane of the triangle row
     is negative, as the kernels evaluate it in float32, at every pixel
@@ -947,7 +959,9 @@ def rasterize_plain(packed, bins, counts, *, tiles_x: int, tiles_y: int,
 def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
                            tile_w: int, tile_h: int):
     """Launch the raster_deferred CUDA kernel (csrc/raster_deferred.cu) on
-    CUDA tensors: the same (z, tid) as rasterize_plain."""
+    CUDA tensors: the same (z, tid) as rasterize_plain, for bins in any
+    order. One launch of n_tiles clusters of VIS_SPLIT blocks, with no wait
+    on the device."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"raster_deferred_kernel takes CUDA tensors, got {dev}")
@@ -1087,7 +1101,8 @@ def raster_fused_gathered_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: i
                                  tile_w: int, tile_h: int):
     """Launch the raster_fused_gathered CUDA kernel (csrc/raster_gathered.cu)
     on CUDA tensors: the same (z, tid, nums, metas) as
-    rasterize_fused_gathered_plain."""
+    rasterize_fused_gathered_plain. One launch of n_tiles clusters of
+    VIS_SPLIT blocks (kernel 2.4's walk), with no wait on the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_fused_gathered_kernel takes CUDA tensors, got {dev}")

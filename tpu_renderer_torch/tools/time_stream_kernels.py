@@ -1,4 +1,4 @@
-"""Time kernels 2.1, 2.2, 2.3 and 2.5 on the inputs their frames give them.
+"""Time kernels 2.1-2.6 on the inputs their frames give them.
 
     python3 -m tpu_renderer_torch.tools.time_stream_kernels [--runs 20]
         [--label NAME] [--frames bench,stress,textured-glass,deferred]
@@ -10,8 +10,12 @@ raster.raster_fused_kernel (2.1) and raster.raster_accum_kernel (2.2); the
 textured-glass frame (the bench scene, its glass sampling the checker
 texture) gives raster.raster_peel_fused_kernel (2.3) a call a peel layer;
 the deferred frame (the bench scene, fused=False, caps escalated first)
-gives raster.raster_peel_kernel (2.5) a call a layer. The peels are timed on
-their first call and on a later one (the middle layer). Each kernel is
+gives raster.raster_deferred_kernel (2.4) a call and
+raster.raster_peel_kernel (2.5) a call a layer; kernel 2.6,
+raster.raster_fused_gathered_kernel, which no frame runs, is timed on the
+same frame's fat rows and bins as the raster profile tool builds them
+(tools.profile_raster.deferred_inputs). The peels are timed on their first
+call and on a later one (the middle layer). Each kernel is
 timed on those inputs (CUDA events around one call, the median of --runs
 calls after two warm-up calls), then again with every tile's count cut to 0
 entries (what the launch, the merge and the epilogue cost alone) and to
@@ -19,8 +23,9 @@ the mean count (the dense tiles' tails cut off). Prints one JSON line per
 frame, kernel, call and cut (ms, entries, max a tile), then the card's name
 and power limit.
 
-It calls only those wrappers and utils.bench_frame's engines, so the same
-file times another checkout of the package placed first on PYTHONPATH:
+It calls only those wrappers, utils.bench_frame's engines and
+deferred_inputs, so the same file times another checkout of the package
+placed first on PYTHONPATH:
 
     PYTHONPATH=path/to/other/checkout python3 tpu_renderer_torch/tools/time_stream_kernels.py
 
@@ -40,6 +45,7 @@ import tempfile
 import torch
 
 from tpu_renderer_torch.kernels import raster
+from tpu_renderer_torch.tools.profile_raster import deferred_inputs
 from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine, nvidia_smi, path_engine
 
 # frame -> the kernels timed on it
@@ -47,8 +53,9 @@ FRAMES = {
     "bench": ("raster_fused_kernel", "raster_accum_kernel"),
     "stress": ("raster_fused_kernel", "raster_accum_kernel"),
     "textured-glass": ("raster_peel_fused_kernel",),
-    "deferred": ("raster_peel_kernel",),
+    "deferred": ("raster_deferred_kernel", "raster_peel_kernel", "raster_fused_gathered_kernel"),
 }
+GATHERED = "raster_fused_gathered_kernel"   # no frame runs it: deferred_inputs
 
 
 def captured_calls(eng, names) -> dict:
@@ -121,9 +128,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for frame in frames:
             eng = frame_engine(frame, tmp)
-            for name, calls in captured_calls(eng, FRAMES[frame]).items():
-                # 2.1 and 2.2 run once a frame; a peel once a layer: its
-                # first call and the middle one
+            names = FRAMES[frame]
+            seen = captured_calls(eng, [n for n in names if n != GATHERED])
+            if GATHERED in names:
+                _, rows48, bins48, counts48, tiles, _ = deferred_inputs(eng)
+                seen[GATHERED] = [((rows48, bins48, counts48), tiles)]
+            for name, calls in seen.items():
+                # 2.1, 2.2 and 2.4 run once a frame; a peel once a layer:
+                # its first call and the middle one
                 picks = {"first": 0} if len(calls) == 1 else {"first": 0,
                                                              "later": len(calls) // 2}
                 kernel = getattr(raster, name)

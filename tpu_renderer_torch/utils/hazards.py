@@ -1,6 +1,6 @@
-"""Adversarial fat rows for the raster kernels 2.1, 2.2, 2.3 and 2.5: inputs
-built to hit each hazard of their decomposition (csrc/raster_fused.cu,
-raster_accum.cu, raster_peel.cu, raster_deferred.cu), at any number of
+"""Adversarial fat rows for the raster kernels 2.1-2.6: inputs built to hit
+each hazard of their decomposition (csrc/raster_fused.cu, raster_accum.cu,
+raster_peel.cu, raster_deferred.cu, raster_gathered.cu), at any number of
 chunks, from a seed.
 
 Row t of chunk c (CHUNK = 32 rows a chunk) is, by t:
@@ -36,7 +36,14 @@ fragments' depths (the tie rows' 0.6, and -0.0 and +0.0 under the
 zero-depth rows of either sign), so every segment of a tile has a
 candidate at the pixels the full-screen rows cover; hazard_last makes a
 `last` plane of ids at the segments' boundaries; hazard_packed gives the
-same triangles as (T, 16) packed rows for kernel 2.5.
+same triangles as (T, 16) packed rows for kernels 2.4 and 2.5.
+
+For the visibility walks 2.4 and 2.6: hazard_vis_rows adds, in every
+chunk, rows whose depth crosses 1 (z > 1 is clipped, z == 1 is kept), rows
+of NaN coefficients and rows with an infinite edge constant, which the
+reject must keep and the per-pixel test decide; hazard_fold_bin is one
+tile's bin whose segments hold no winner beside a zero-depth winner of
+either sign.
 """
 
 from __future__ import annotations
@@ -179,3 +186,51 @@ def hazard_packed(rows: np.ndarray) -> np.ndarray:
     packed[:, :12] = rows[:, :12]
     packed[:, 12] = hazard_boxes(rows)[1]
     return packed
+
+
+def hazard_vis_rows(n_chunks: int, width: int, height: int, seed: int = 0) -> np.ndarray:
+    """hazard_rows with three more rows in every chunk c, over rows 2-4
+    (random triangles there):
+
+    * 2: a two-row strip across the frame at y = 8 k + 3.5 (k >= 1) whose
+      depth rises from 0.999 at x = 0 past 1 about x = width / 2: it wins
+      left of that and is clipped (z > 1) right of it;
+    * 3: every coefficient NaN, box the whole frame: it covers no pixel;
+    * 4: a three-column strip at x = 32 k + 8 whose first edge is the
+      constant +inf (covered wherever the other two edges are), depth
+      0.97: it wins its strip, the reject keeps it (no finite bound).
+    """
+    rows = hazard_rows(n_chunks, width, height, seed=seed).astype(np.float64)
+    for c in range(n_chunks):
+        r = rows[c * CHUNK + 2]
+        by = 8.0 * (1 + c % max(1, height // 8 - 1)) + 3.0
+        r[:9] = (0.0, 1.0, -by, 0.0, -1.0, by + 2.0, 0.0, 0.0, 1.0)
+        r[9:12] = (2e-3 / width, 0.0, 0.999)
+        r[44:48] = (0.0, by - 1.0, width, by + 3.0)
+        r = rows[c * CHUNK + 3]
+        r[:12] = np.nan
+        r[44:48] = (0.0, 0.0, width, height)
+        r = rows[c * CHUNK + 4]
+        bx = 32.0 * (c % max(1, width // 32)) + 8.0
+        r[:9] = (0.0, 0.0, np.inf, 1.0, 0.0, -bx, -1.0, 0.0, bx + 3.0)
+        r[9:12] = (0.0, 0.0, 0.97)
+        r[44:48] = (bx - 1.0, 0.0, bx + 4.0, height)
+    return rows.astype(np.float32)
+
+
+def hazard_fold_bin(n_chunks: int, seg_min: int) -> np.ndarray:
+    """One tile's bin of 4 * seg_min ids into rows laid out as hazard_rows
+    (n_chunks >= 3), cut by the visibility walks into four segments of
+    seg_min entries: the first holds dead rows only (no winner anywhere),
+    the second dead rows and last a full-screen row of depth -0.0 (row 15
+    of chunk 0), the third dead rows only, the fourth first a left-half
+    row of depth +0.0 (row 22 of chunk 0) then dead rows. In walk order
+    the left half ends
+    at +0.0 (an equal z, later), the right half at the -0.0 winner, whose
+    bits a fold that let an empty segment win would lose."""
+    assert n_chunks >= 3
+    dead = [c * CHUNK + 23 for c in range(n_chunks)]
+    fill = [dead[k % len(dead)] for k in range(seg_min)]
+    # row 15 of chunk 0 is full-screen at -0.0, row 22 the left half at +0.0
+    bins = fill + fill[:-1] + [15] + fill + [22] + fill[:-1]
+    return np.asarray(bins, np.int32)[None, :]
