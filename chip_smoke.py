@@ -23,12 +23,17 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    edges on region borders, full-screen and dead rows; for the peels an
    opaque depth equal to the fragments' depths) on one tile of 64
    entries and on 2x2 tiles: 2.1 and 2.2 exact against their plain
-   versions; 2.3 and 2.5 over three peels with `last` fed back, on the
-   ascending bins and on each tile's reversed, exact against theirs; 2.4
-   and 2.6 on the visibility hazard rows (depths past 1, NaN and infinite
-   coefficients besides) on the same tiles, ascending and reversed, and
-   on a bin whose segments hold no winner beside zero-depth winners of
-   either sign, exact against theirs;
+   versions; 2.7 over per-triangle bins of every member of each binned
+   chunk with -1 holes (hazards.hazard_holes, expand_bins), in slot order
+   and each tile's reversed, on rows with negative depths under an opaque
+   depth negative over half the frame, where only 2.7's 0 <= z decides,
+   exact against its plain version; 2.3, 2.5 and 2.8 (on those holed
+   bins) over three peels with `last` fed back, on the ascending bins and
+   on each tile's reversed, exact against theirs; 2.4 and 2.6 on the
+   visibility hazard rows (depths past 1, NaN and infinite coefficients
+   besides) on the same tiles, ascending and reversed, and on a bin whose
+   segments hold no winner beside zero-depth winners of either sign,
+   exact against theirs;
 4. the textured-glass bench frame (the same scene, its glass sampling the
    checker texture, so its transparency takes the depth peel): kernel 2.3
    against its plain version on the first peel's inputs and a later one's,
@@ -40,12 +45,14 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    timed; 1 + 5 frames counted; the plain-version frame must be
    identical;
 5b. how 2.1, 2.2 (the bench frame's call), 2.3, 2.5 (the first peel's),
-   2.4 and 2.6 (the deferred frame's bins), and 2.4 on phase 6's grid=320
-   frame (phase 6 runs before this one) spread their work, one [split]
-   line each: the wrapper's launches and the device's kernels for one call
-   (one torch.profiler session), the blocks and clusters, the busiest
-   tile's entries and live groups (per-triangle bins: live entries) and
-   the segments it is cut into;
+   2.4 and 2.6 (the deferred frame's bins), 2.7 and 2.8 (phase 11's
+   inputs: 2.2's and 2.3's first calls, the chunk bins expanded), and 2.4
+   on phase 6's grid=320 frame (phase 6 runs before this one) spread their
+   work, one [split] line each: the wrapper's launches and the device's
+   kernels for one call (one torch.profiler session), the blocks and
+   clusters, the busiest tile's entries and live groups (per-triangle
+   bins: live entries) and the segments it is cut into (2.5, 2.8: how
+   many ascend, so may stop early);
 6. a scene past the dense-bin guard (build_demo_glb(grid=320), default
    config): the engine takes the deferred path by itself; one counted
    frame; then 2.4 on that frame's inputs (tri_cap 16384), timed (no
@@ -54,7 +61,8 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    tests/goldens/structure_*.png (at most 0.1% of pixels may differ);
 8. the background passes (kernels 2.9, 2.10, 2.11): each against its plain
    version at 480x270, 1700x900 and 1920x1080, exact on every element of
-   the padded buffer, timed at 1920x1080 (2.9 also against one torch.lerp);
+   the padded buffer, timed at 1920x1080 (2.9 also against one torch.lerp,
+   the two in turns, four rounds each);
    how many of the sky's lattice cosines the card's own cos would get
    wrong; 2.11, which no engine loads, through its public function into a
    frame;
@@ -179,6 +187,8 @@ EARLY_EXIT_PEELS = ("raster_peel_fused_kernel", "raster_peel_kernel")
 # folded in order (vis_tile in raster_common.cuh)
 VIS_KERNELS = ("raster_deferred_kernel", "raster_fused_gathered_kernel")
 ACCUM_KERNELS = ("raster_accum_kernel", "raster_accum_gathered_kernel")
+# the peels over per-triangle bins (peel_tile in raster_common.cuh)
+TRIANGLE_PEELS = ("raster_peel_kernel", "raster_peel_gathered_kernel")
 
 
 def kernel_module(name):
@@ -404,7 +414,7 @@ def device_kernels(calls) -> dict:
 
 
 def peel_segments(name, bins, counts):
-    """The segments peel kernel `name` (2.3 or 2.5) cuts each tile's
+    """The segments peel kernel `name` (2.3, 2.5 or 2.8) cuts each tile's
     entries into."""
     from tpu_renderer_torch.kernels import raster
 
@@ -414,7 +424,7 @@ def peel_segments(name, bins, counts):
 
 def tile_split(name, bins, counts):
     """(blocks a tile, the segments each tile's entries are cut into) of a
-    kernel that spreads a tile over a cluster: 2.1, 2.3-2.6."""
+    kernel that spreads a tile over a cluster: 2.1, 2.3-2.6, 2.8."""
     from tpu_renderer_torch.kernels import raster
 
     if name == "raster_fused_kernel":
@@ -425,10 +435,11 @@ def tile_split(name, bins, counts):
 
 
 def decomposition(name, args, kwargs, launched, label="") -> str:
-    """How kernel 2.1-2.6 spread this call's work: launched is its (wrapper
+    """How kernel 2.1-2.8 spread this call's work: launched is its (wrapper
     launches, device kernels) for one call (device_kernels); the blocks,
     and the busiest tile's entries and live groups (per-triangle bins: live
-    entries), and the segments it is cut into. label follows the name."""
+    entries), and the segments it is cut into (the peels over per-triangle
+    bins: how many ascend). label follows the name."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
@@ -450,18 +461,40 @@ def decomposition(name, args, kwargs, launched, label="") -> str:
     n_tiles = bins.shape[0]
     line = (f"[split] {name}{label}: {launches} launch a call ({kernels} device kernel); busiest "
             f"tile {int(counts[busiest])} entries, {int(work[busiest].sum())} {unit}")
-    if name == "raster_accum_kernel":
-        return (f"{line}; {n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} "
-                f"32-column strips a tile), each walking its tile's whole list; "
+    if name in ACCUM_KERNELS:
+        blocks = (f"{n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} 32-column "
+                  f"strips a tile)" if name == "raster_accum_kernel" else
+                  f"{n_tiles * raster.GATHERED_ACCUM_BLOCKS} blocks (one a 32x8 region)")
+        return (f"{line}; {blocks}, each walking its tile's whole list; "
                 f"{int(torch.count_nonzero(live))} live entries")
     split, segs = tile_split(name, bins, counts)
     n = int(counts[busiest].clamp(0, bins.shape[1]))
     s = int(segs[busiest])
     seg_work = [int(work[busiest, b:e].sum())
                 for b, e in (raster.segment_bounds(n, s, q) for q in range(s))]
-    return (f"{line}; {n_tiles * split} blocks in {n_tiles} clusters of {split}, "
+    line = (f"{line}; {n_tiles * split} blocks in {n_tiles} clusters of {split}, "
             f"{int(segs.sum())} segments walked, the busiest tile's {s} segments holding "
             f"{seg_work} {unit}")
+    if name in TRIANGLE_PEELS:
+        line += f"; {ascending_segments(bins, counts, segs)} of them ascend (keys_ascend)"
+    return line
+
+
+def ascending_segments(bins, counts, segs) -> int:
+    """How many of the segments of per-triangle bins a peel cuts (segs a
+    tile) hold strictly ascending ids, as keys_ascend checks them: the
+    segments whose walk may stop early."""
+    from tpu_renderer_torch.kernels import raster
+
+    n = counts.clamp(0, bins.shape[1]).tolist()
+    rows = bins.cpu()
+    out = 0
+    for tile, s in enumerate(segs.tolist()):
+        for q in range(s):
+            b, e = raster.segment_bounds(n[tile], s, q)
+            ids = rows[tile, b:e]
+            out += bool((ids[1:] > ids[:-1]).all())
+    return out
 
 
 def reset_counters():
@@ -550,12 +583,15 @@ def plain_frame(eng, names):
 
 def bench_path(eng, results, inputs):
     """Phase 3: the bench frame (kernels 2.1, 2.2). inputs keeps the two
-    kernels' calls for the cross-checks of phase 11."""
+    kernels' calls, and 2.2's as 2.7 takes it, for phases 5b and 11."""
+    from tpu_renderer_torch.tools.time_stream_kernels import oracle_call
+
     names = ("raster_fused_kernel", "raster_accum_kernel")
     seen = capture_kernel_inputs(eng.draw_device, names)
     for n in names:
         results[n] = check_kernel(n, [(0, seen[n][-1])], "bench frame")
         inputs[n] = seen[n][-1]
+    inputs["raster_accum_gathered_kernel"] = oracle_call(inputs["raster_accum_kernel"])
     frame_ms, image, _, _, launches = counted_frames(eng, 20, "bench frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), "kernel frame differs from plain frame"
     print(f"[frame] bench frame == plain-version frame; frame ms {frame_ms:.3f}", flush=True)
@@ -592,17 +628,20 @@ def stress_path(scene_path):
 
 
 def hazard_path():
-    """Phase 3c: kernels 2.1-2.6 on the adversarial rows of
+    """Phase 3c: kernels 2.1-2.8 on the adversarial rows of
     utils/hazards.py (equal-z copies across every segment boundary, -0.0
     and +0.0 depth ties, edges on region borders that only the reject's
     rounding margin keeps, full-screen and dead rows; for the peels an
     opaque depth equal to the fragments' depths, and per-triangle bins over
     the packed rows for 2.5): one tile of 64 entries, cut 8 ways by 2.1,
-    2.3 and 2.5, and 2x2 tiles; exact against the plain versions, the
-    peels over three peels on the ascending and on the reversed bins. 2.4
-    and 2.6 on the visibility hazard rows (hazard_vis_rows: depths past 1,
-    NaN and infinite coefficients besides) over the same tiles, ascending
-    and reversed, and on hazard_fold_bin's segments."""
+    2.3, 2.5 and 2.8, and 2x2 tiles; exact against the plain versions, the
+    peels over three peels on the ascending and on the reversed bins. 2.7
+    and 2.8 over every member of each binned chunk with -1 holes; 2.7 on
+    rows at negative depths over a negative opaque depth (hazard_accum_rows,
+    hazard_accum_z_base), in slot order and reversed. 2.4 and 2.6 on the
+    visibility hazard rows (hazard_vis_rows: depths past 1, NaN and
+    infinite coefficients besides) over the same tiles, ascending and
+    reversed, and on hazard_fold_bin's segments."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
@@ -634,13 +673,39 @@ def hazard_path():
               f"plain (max_abs_err {err}); zero-depth winners -0.0 / +0.0: {signs}; "
               f"fragments summed {int(acc[1].sum())}", flush=True)
 
+        # 2.7 over per-triangle bins of every member of each binned chunk,
+        # with -1 holes, in slot order and each tile's reversed, on
+        # hazard_accum_rows (the same triangles, rows 5 and 6 of each chunk
+        # at negative depths) under hazard_accum_z_base (2.2's opaque depth
+        # with a negative right half, where only 0 <= z drops them)
+        name = "raster_accum_gathered_kernel"
+        kernel, plain = getattr(raster, name), getattr(raster, KERNELS[name][1])
+        hbins, hcounts = holed_bins(bins, counts)
+        arows = torch.from_numpy(hazards.hazard_accum_rows(n_chunks, w, h, seed=n_chunks)).to(dev)
+        z_neg = torch.from_numpy(hazards.hazard_accum_z_base(w, h)).to(dev)
+        summed = []
+        for b in (hbins, reversed_bins(hbins, hcounts)):
+            want = plain(arows, b, hcounts, z_neg, light, **tiles)
+            err = max(err, max_abs_err(kernel(arows, b, hcounts, z_neg, light, **tiles), want))
+            summed.append(int(want[1].sum()))
+        X, Y = raster._frame_planes(h, w, dev)
+        cov, zv = raster._coverage(torch.cat([arows[5::32], arows[6::32]])[:, :, None, None], X, Y)
+        negative = int((cov & (zv < 0.0) & (zv >= z_neg)).sum())
+        assert negative > 0
+        print(f"[hazards] {tx}x{ty} tiles: {name}, entries a tile {hcounts.tolist()} with "
+              f"{int((hbins < 0).sum())} -1 holes: the slot-order and the reversed bins exact vs "
+              f"plain (max_abs_err {err}); fragments summed {summed}; fragments at a negative "
+              f"depth over the negative opaque depth, which only 0 <= z drops: {negative}",
+              flush=True)
+
         # the peels 2.3 and 2.5 on the same triangles, three peels with
         # `last` fed back, the bins ascending and each tile's reversed
         z_peel = torch.from_numpy(hazards.hazard_peel_z_base(w, h)).to(dev)
         tbins, tcounts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
         packed = torch.from_numpy(hazards.hazard_packed(rows_np)).to(dev)
         peels = (("raster_peel_fused_kernel", rows, bins, counts),
-                 ("raster_peel_kernel", packed, tbins, tcounts))
+                 ("raster_peel_kernel", packed, tbins, tcounts),
+                 ("raster_peel_gathered_kernel", rows, hbins, hcounts))
         for name, table, pbins, pcounts in peels:
             kernel, plain = getattr(raster, name), getattr(raster, KERNELS[name][1])
             seg = peel_segments(name, pbins, pcounts)
@@ -658,8 +723,11 @@ def hazard_path():
                 found.append(int((layer < raster.ID_INF).sum()))
                 last = torch.where(layer < raster.ID_INF, layer, raster.ID_INF)
             assert min(found) > 0, found
-            print(f"[hazards] {tx}x{ty} tiles: {name}, entries a tile {pcounts.tolist()}, "
-                  f"segments {seg.tolist()}: 3 peels on the ascending and the reversed bins "
+            holes = f" with {int((pbins < 0).sum())} -1 holes" if pbins is hbins else ""
+            asc = (f" ({ascending_segments(pbins, pcounts, seg)} ascending)"
+                   if name in TRIANGLE_PEELS else "")
+            print(f"[hazards] {tx}x{ty} tiles: {name}, entries a tile {pcounts.tolist()}{holes}, "
+                  f"segments {seg.tolist()}{asc}: 3 peels on the ascending and the reversed bins "
                   f"exact vs plain (max_abs_err {err}); pixels with a layer {found}",
                   flush=True)
 
@@ -700,6 +768,23 @@ def hazard_path():
               f"order +0.0 on the left half, -0.0 on the right", flush=True)
 
 
+def holed_bins(dense_bins, counts):
+    """Per-triangle bins of every member of each binned chunk, with -1
+    holes: hazards.hazard_holes over the chunk ids, then raster.expand_bins
+    (each hole a chunk's CHUNK entries inside the count)."""
+    import torch
+
+    from tpu_renderer_torch.kernels import raster
+    from tpu_renderer_torch.utils import hazards
+
+    n = counts.clamp(0, dense_bins.shape[1])
+    live = _live_entries(dense_bins, n)
+    shift = raster.entry_shift(raster.CHUNK // raster.GROUP)
+    cbins = torch.where(live, dense_bins >> shift, raster.NO_TRI).cpu().numpy()
+    holed = torch.from_numpy(hazards.hazard_holes(cbins, n.cpu().numpy()))
+    return raster.expand_bins(holed.to(dense_bins.device), n)
+
+
 def vis_table(name, rows):
     """Hazard fat rows as kernel 2.4 (packed setup rows) or 2.6 (fat rows)
     takes them."""
@@ -719,8 +804,10 @@ def reversed_bins(bins, counts):
 
 def textured_glass_path(scene_path, results, inputs):
     """Phase 4: the textured-glass bench frame (kernel 2.3's peel loop).
-    inputs keeps the first peel's call for the cross-check of phase 11."""
+    inputs keeps the first peel's call, and the same as 2.8 takes it, for
+    phases 5b and 11."""
     from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.tools.time_stream_kernels import oracle_call
     from tpu_renderer_torch.utils.bench_frame import bench_engine, texture_the_glass
 
     t0 = time.perf_counter()
@@ -732,6 +819,7 @@ def textured_glass_path(scene_path, results, inputs):
     seen = capture_kernel_inputs(eng.draw_device, (name,))
     calls = seen[name]
     inputs[name] = calls[0]
+    inputs["raster_peel_gathered_kernel"] = oracle_call(calls[0])
     later = len(calls) // 2
     results[name] = check_kernel(name, [(0, calls[0]), (later, calls[later])],
                                  "textured-glass frame")
@@ -778,15 +866,17 @@ def deferred_path(scene_path, results, inputs):
 
 
 def split_phase(inputs):
-    """Phase 5b: how kernels 2.1-2.6 spread their frames' work: one
+    """Phase 5b: how kernels 2.1-2.8 spread their frames' work: one
     torch.profiler session runs each once on its frame's inputs (2.1, 2.2
     the bench frame's; 2.3, 2.5 the first peel of the textured-glass and
     the deferred frames; 2.4 the deferred frame's, 2.6 its fat rows and
-    bins), and 2.4 again on the grid=320 frame's (phase 6, which runs
+    bins; 2.7 and 2.8 2.2's and 2.3's, the chunk bins expanded, as phase 11
+    runs them), and 2.4 again on the grid=320 frame's (phase 6, which runs
     first); each call is one launch and one device kernel, and nothing
     else runs on the device."""
     names = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel",
-             "raster_peel_kernel", *VIS_KERNELS)
+             "raster_peel_kernel", *VIS_KERNELS, "raster_accum_gathered_kernel",
+             "raster_peel_gathered_kernel")
     guard = ("raster_deferred_kernel", inputs["past the guard"])
     calls = [(n, inputs[n]) for n in names] + [guard]
     launched = device_kernels(calls)
@@ -940,8 +1030,19 @@ def background_phase(results):
                                                      blend[None, :, None]))
             lerp = torch.lerp(a, b, t)
             assert float((lerp - out).abs().max()) < 1e-6
-            library_ms = cuda_ms_batched(lambda: torch.lerp(a, b, t), launches=50)
-        print(f"[kernel] {name}: {ms:.4f} ms a launch (median of 5 batches of 50), plain "
+            # the kernel and torch.lerp in turns, three rounds each: kernel,
+            # lerp, lerp, kernel, ...; each side's median of its rounds
+            turns = {"kernel": [ms], "lerp": []}
+            for side in ("lerp", "lerp", "kernel", "kernel", "lerp", "lerp", "kernel"):
+                fn = (lambda: kernel(*args, **kwargs)) if side == "kernel" else \
+                    (lambda: torch.lerp(a, b, t))
+                turns[side].append(cuda_ms_batched(fn, launches=50))
+            ms, library_ms = (statistics.median(turns[k]) for k in ("kernel", "lerp"))
+            print(f"[kernel] {name} against torch.lerp in turns (ms a launch, 5 batches of 50 "
+                  f"each): kernel {[round(v, 4) for v in turns['kernel']]}, torch.lerp "
+                  f"{[round(v, 4) for v in turns['lerp']]}", flush=True)
+        print(f"[kernel] {name}: {ms:.4f} ms a launch (median of 5 batches of 50"
+              f"{'; of the 4 rounds' if library_ms is not None else ''}), plain "
               f"{plain_ms:.4f} ms (5 batches of 10), bound {bound_ms:.4f} ms by {bound_by}, library "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms (torch.lerp)'}",
               flush=True)
@@ -1192,19 +1293,6 @@ def triangle_bins(rows, tiles):
     return bins, counts
 
 
-def expanded_bins(dense_bins, counts):
-    """Dense chunk entries (cid << shift | gmask) -> per-triangle bins of
-    every member of each binned chunk (expand_bins)."""
-    import torch
-
-    from tpu_renderer_torch.kernels import raster
-
-    shift = raster.entry_shift(raster.CHUNK // raster.GROUP)
-    live = _live_entries(dense_bins, counts)
-    cbins = torch.where(live, dense_bins >> shift, raster.NO_TRI)
-    return raster.expand_bins(cbins, counts.clamp(max=dense_bins.shape[1]))
-
-
 def equal_outputs(what, got, want, names):
     """Raise unless each tensor of got equals its twin of want, bit for bit."""
     import torch
@@ -1231,14 +1319,12 @@ def gathered_phase(results, inputs):
     (rows, dense, dcounts), tiles = inputs["raster_fused_kernel"]
     tbins, tcounts = triangle_bins(rows, tiles)
     (rows_t, dense_t, dcounts_t, z, light), _ = inputs["raster_accum_kernel"]
-    abins, acounts = expanded_bins(dense_t, dcounts_t)
     (rows_p, dense_p, dcounts_p, z_p, last0), _ = inputs["raster_peel_fused_kernel"]
-    pbins, pcounts = expanded_bins(dense_p, dcounts_p)
-    results[name27] = check_kernel(
-        name27, [(0, ((rows_t, abins, acounts, z, light), tiles))], "bench frame's glass")
-    results[name28] = check_kernel(
-        name28, [(0, ((rows_p, pbins, pcounts, z_p, last0), tiles))],
-        "textured-glass frame, first peel")
+    (_, abins, acounts, _, _), _ = inputs[name27]
+    (_, pbins, pcounts, _, _), _ = inputs[name28]
+    results[name27] = check_kernel(name27, [(0, inputs[name27])], "bench frame's glass")
+    results[name28] = check_kernel(name28, [(0, inputs[name28])],
+                                   "textured-glass frame, first peel")
 
     reset_counters()
     five = ("z", "tid", "attrs", "metas", "inv")

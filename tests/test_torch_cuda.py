@@ -448,19 +448,67 @@ def test_split_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty):
     assert int(got[1].max()) >= 3
 
 
+def _holed_bins(dense, counts):
+    """Per-triangle bins of every member of each binned chunk of dense chunk
+    bins (expand_bins), with hazards.hazard_holes' -1 holes inside the
+    counts."""
+    from tpu_renderer_torch.utils import hazards
+
+    live = torch.arange(dense.shape[1], device=dense.device)[None, :] < counts[:, None]
+    cbins = torch.where(live, dense >> 4, raster.NO_TRI).cpu().numpy()
+    holed = hazards.hazard_holes(cbins, counts.cpu().numpy())
+    return raster.expand_bins(torch.from_numpy(holed).to(dense.device), counts)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("n_chunks,tx,ty", [(64, 1, 1), (24, 2, 2)])
+def test_accum_gathered_kernel_exact_on_hazard_tiles(cuda, n_chunks, tx, ty, reverse):
+    """Kernel 2.7 on every member of each binned chunk of the hazard rows
+    (one tile of 2,048 entries, 2x2 tiles), with -1 holes, in slot order or
+    each tile's reversed: bit-exact against its plain version under 2.2's
+    opaque depth, and on hazard_accum_rows (negative depths) under
+    hazard_accum_z_base, whose negative half only 0 <= z decides; one
+    launch a call."""
+    from tpu_renderer_torch.utils import hazards
+
+    tiles = dict(tiles_x=tx, tiles_y=ty, tile_w=128, tile_h=32)
+    w, h = 128 * tx, 32 * ty
+    rows, dense, counts, z_base = _hazards(cuda, n_chunks, tiles, seed=n_chunks)
+    bins, tcounts = _holed_bins(dense, counts)
+    assert bool((bins < 0).any())
+    if reverse:
+        bins = _reverse_bins(bins, tcounts)
+    light = torch.tensor(LIGHT, device=cuda)
+    negative = torch.from_numpy(hazards.hazard_accum_rows(n_chunks, w, h, seed=n_chunks))
+    for table, zb in ((rows, z_base),
+                      (negative.to(cuda), torch.from_numpy(hazards.hazard_accum_z_base(w, h))
+                       .to(cuda))):
+        before = raster.accum_gathered_counter.launches
+        got = raster.raster_accum_gathered_kernel(table, bins, tcounts, zb, light, **tiles)
+        want = raster.rasterize_accum_gathered_plain(table, bins, tcounts, zb, light, **tiles)
+        torch.cuda.synchronize()
+        assert all(_same(g, w_) for g, w_ in zip(got, want))
+        assert raster.accum_gathered_counter.launches == before + 1
+        assert int(got[1].max()) >= 3
+
+
 def _peel_hazards(device, kind, n_chunks, tiles, seed):
     """The hazard rows as kernel 2.3 (kind "fused": fat rows, dense chunk
-    bins) or 2.5 ("deferred": packed rows, per-triangle bins) takes them,
-    and the peels' opaque depth (hazards.hazard_peel_z_base)."""
+    bins), 2.5 ("deferred": packed rows, per-triangle bins) or 2.8
+    ("gathered": fat rows, every member of each binned chunk, with -1
+    holes) takes them, and the peels' opaque depth
+    (hazards.hazard_peel_z_base)."""
     from tpu_renderer_torch.utils import hazards
 
     w, h = tiles["tiles_x"] * tiles["tile_w"], tiles["tiles_y"] * tiles["tile_h"]
     rows = hazards.hazard_rows(n_chunks, w, h, seed=seed)
     box, valid = (torch.from_numpy(a).to(device) for a in hazards.hazard_boxes(rows))
-    if kind == "fused":
+    if kind != "deferred":
         caabb, cvalid = raster.chunk_aabbs(box, valid)
         gaabb, gvalid = raster.group_aabbs(box, valid)
         bins, counts = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **tiles)
+        if kind == "gathered":
+            bins, counts = _holed_bins(bins, counts)
     else:
         bins, counts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
         rows = hazards.hazard_packed(rows)
@@ -479,22 +527,28 @@ def _reverse_bins(bins, counts):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("n_chunks,tx,ty", [(64, 1, 1), (24, 2, 2)])
 def test_peel_kernels_exact_on_dense_hazard_tiles(cuda, n_chunks, tx, ty, reverse):
-    """Kernels 2.3 and 2.5 on one tile of 64 chunk entries (cut PEEL_SPLIT
-    ways; 2.5's bin holds its ~1,900 triangles) and on 2x2 tiles, over three
-    peels with `last` fed back, the bins ascending or each tile's reversed
-    (the kernels' early stops must then stand down): bit-exact against
-    their plain versions, each peel one launch."""
+    """Kernels 2.3, 2.5 and 2.8 on one tile of 64 chunk entries (cut
+    PEEL_SPLIT ways; 2.5's bin holds its ~1,900 triangles, 2.8's every
+    member of each chunk with -1 holes) and on 2x2 tiles, over three peels
+    with `last` fed back, the bins ascending or each tile's reversed (the
+    kernels' early stops must then stand down): bit-exact against their
+    plain versions, each peel one launch."""
     tiles = dict(tiles_x=tx, tiles_y=ty, tile_w=128, tile_h=32)
-    for kind, seg_min in (("fused", raster.PEEL_SEG_MIN), ("deferred", raster.DEFERRED_SEG_MIN)):
+    for kind, seg_min in (("fused", raster.PEEL_SEG_MIN), ("deferred", raster.DEFERRED_SEG_MIN),
+                          ("gathered", raster.DEFERRED_SEG_MIN)):
         table, bins, counts, z_base = _peel_hazards(cuda, kind, n_chunks, tiles, seed=n_chunks)
         if tx * ty == 1:
             assert int(raster.peel_segments(counts, bins.shape[1], seg_min)[0]) == raster.PEEL_SPLIT
         if reverse:
             bins = _reverse_bins(bins, counts)
-        kernel, plain, counter = (
-            (raster.raster_peel_fused_kernel, raster.rasterize_peel_fused_plain,
-             raster.peel_fused_counter) if kind == "fused" else
-            (raster.raster_peel_kernel, raster.rasterize_peel_plain, raster.peel_counter))
+        kernel, plain, counter = {
+            "fused": (raster.raster_peel_fused_kernel, raster.rasterize_peel_fused_plain,
+                      raster.peel_fused_counter),
+            "deferred": (raster.raster_peel_kernel, raster.rasterize_peel_plain,
+                         raster.peel_counter),
+            "gathered": (raster.raster_peel_gathered_kernel,
+                         raster.rasterize_peel_gathered_plain, raster.peel_gathered_counter),
+        }[kind]
         last = torch.full(z_base.shape, -1, dtype=torch.int32, device=cuda)
         before = counter.launches
         for peel in range(3):
@@ -585,8 +639,8 @@ def test_vis_kernels_fold_empty_segments_and_signed_zeros(cuda):
 
 
 def test_split_wrappers_refuse_misaligned_rows(cuda):
-    """2.1 and 2.2 copy rows 16 bytes at a time: a view that starts off a
-    16-byte boundary is refused, never read misaligned."""
+    """2.1, 2.2 and 2.7 copy rows 16 bytes at a time: a view that starts
+    off a 16-byte boundary is refused, never read misaligned."""
     rows, bins, counts = _rows(cuda)
     flat = torch.zeros(rows.numel() + 1, device=cuda)
     flat[1:] = rows.flatten()
@@ -596,6 +650,11 @@ def test_split_wrappers_refuse_misaligned_rows(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         raster.raster_accum_kernel(off, bins, counts, torch.zeros((H, W), device=cuda),
                                    torch.tensor(LIGHT, device=cuda), **TILES)
+    tri = torch.zeros((bins.shape[0], 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        raster.raster_accum_gathered_kernel(off, tri, counts.clamp(max=4),
+                                            torch.zeros((H, W), device=cuda),
+                                            torch.tensor(LIGHT, device=cuda), **TILES)
 
 
 # -- the background passes (kernels 2.9, 2.10, 2.11) --------------------------

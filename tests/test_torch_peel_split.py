@@ -1,15 +1,19 @@
-"""CPU tests of how the peels 2.3 and 2.5 spread a tile's work
-(csrc/raster_peel.cu, raster_deferred.cu, raster_common.cuh): a torch model
-of each kernel's decomposition — the tile's entries cut into segments
-(raster.peel_segments), each walked alone with the per-region and per-row
-reject (raster.region_rows), the warp's smallest `last`, and the exact
-stops (a pixel that holds a layer is settled only where the segment's ids
-strictly ascend), the segments merged by a min — held bit for bit against
-the plain versions and the JAX package's Pallas kernels in interpret mode,
-on the adversarial rows of utils/hazards.py, over three peels with `last`
-fed back, on one dense tile cut PEEL_SPLIT ways and on 2x2 tiles, and on
-a bin walked in reverse, where a stop that trusted the order would be
-wrong.
+"""CPU tests of how the peels 2.3, 2.5 and 2.8 spread a tile's work
+(csrc/raster_peel.cu, raster_deferred.cu, raster_gathered.cu,
+raster_common.cuh): a torch model of each kernel's decomposition — the
+tile's entries cut into segments (raster.peel_segments), each walked alone
+with the per-region and per-row reject (raster.region_rows), the warp's
+smallest `last`, and the exact stops (a pixel that holds a layer is settled
+only where the segment's ids strictly ascend), the segments merged by a
+min — held bit for bit against the plain versions and the JAX package's
+Pallas kernels in interpret mode, on the adversarial rows of
+utils/hazards.py, over three peels with `last` fed back, on one dense tile
+cut PEEL_SPLIT ways and on 2x2 tiles, on the bins in order and walked in
+reverse, where a stop that trusted the order would be wrong. 2.8 walks 2.5's
+segments over fat rows (peel_tile); its 2x2 bins are every member of each
+binned chunk (expand_bins) with -1 holes, held to the plain version (the
+JAX wrapper would clip a hole onto row 0), its dense tile's without holes
+also to the JAX kernel.
 
 Tolerance: none; every output is compared bit for bit.
 """
@@ -27,7 +31,7 @@ from tpu_renderer_torch.utils import hazards  # noqa: E402
 
 ONE_TILE = dict(tiles_x=1, tiles_y=1, tile_w=128, tile_h=32)
 QUAD = dict(tiles_x=2, tiles_y=2, tile_w=128, tile_h=32)
-KINDS = ("fused", "deferred")   # kernel 2.3, kernel 2.5
+KINDS = ("fused", "deferred", "gathered")   # kernel 2.3, kernel 2.5, kernel 2.8
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,18 +48,26 @@ def _frame(tiles):
     return tiles["tiles_x"] * tiles["tile_w"], tiles["tiles_y"] * tiles["tile_h"]
 
 
-def _inputs(kind, n_chunks, tiles, seed):
+def _inputs(kind, n_chunks, tiles, seed, holes=False):
     """Hazard rows over the tiles as the kernel takes them: (table, bins,
     counts, z_base). 2.3: fat rows and dense chunk bins; 2.5: packed rows
-    and per-triangle bins, ids ascending."""
+    and per-triangle bins, ids ascending; 2.8: fat rows and per-triangle
+    bins of every member of each binned chunk, in chunk order, with
+    hazard_holes' -1 holes if holes."""
     w, h = _frame(tiles)
     rows = hazards.hazard_rows(n_chunks, w, h, seed=seed)
     box, valid = (torch.from_numpy(a) for a in hazards.hazard_boxes(rows))
-    if kind == "fused":
+    if kind != "deferred":
         caabb, cvalid = raster.chunk_aabbs(box, valid)
         gaabb, gvalid = raster.group_aabbs(box, valid)
         bins, counts = raster.bin_triangles_full(caabb, cvalid, gaabb, gvalid, **tiles)
         table = torch.from_numpy(rows)
+        if kind == "gathered":
+            live = torch.arange(bins.shape[1])[None, :] < counts[:, None]
+            cbins = torch.where(live, bins >> 4, raster.NO_TRI)
+            if holes:
+                cbins = torch.from_numpy(hazards.hazard_holes(cbins.numpy(), counts.numpy()))
+            bins, counts = raster.expand_bins(cbins, counts)
     else:
         bins, counts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
         table = torch.from_numpy(hazards.hazard_packed(rows))
@@ -69,20 +81,23 @@ def _seg_min(kind):
 def _plain(kind, table, bins, counts, z_base, last, tiles):
     if kind == "fused":
         return raster.rasterize_peel_fused_plain(table, bins, counts, z_base, last, **tiles)[0]
+    if kind == "gathered":
+        return raster.rasterize_peel_gathered_plain(table, bins, counts, z_base, last,
+                                                    **tiles)[0]
     return raster.rasterize_peel_plain(table, bins, counts, z_base, last, **tiles)
 
 
 def _segment_firsts(kind, bins, counts):
     """The first triangle id of every segment of every tile (of its first
-    chunk, for 2.3)."""
+    chunk, for 2.3; none where 2.8's segment starts on a hole)."""
     segs = raster.peel_segments(counts, bins.shape[1], _seg_min(kind))
     firsts = set()
     for tile in range(bins.shape[0]):
         n = int(counts[tile].clamp(0, bins.shape[1]))
         for q in range(int(segs[tile])):
             e0, e1 = raster.segment_bounds(n, int(segs[tile]), q)
-            if e1 > e0:
-                key = int(bins[tile, e0])
+            key = int(bins[tile, e0]) if e1 > e0 else -1
+            if key >= 0:
                 firsts.add((key >> 4) * raster.CHUNK if kind == "fused" else key)
     return sorted(firsts)
 
@@ -116,8 +131,9 @@ def _walk_units(kind, table, bins, tile, e0, e1):
     """The segment's walk as the kernel takes it, in order: a list of
     units, each a list of (id, row) tested between two stop checks. 2.3:
     one unit a chunk entry (its live groups' triangles), the block's stop
-    at each; 2.5: one unit a 32-entry slice, the block's stop every 512
-    entries (returned as the set of unit indices where it is checked)."""
+    at each; 2.5 and 2.8: one unit a 32-entry slice, the block's stop
+    every 512 entries (returned as the set of unit indices where it is
+    checked)."""
     units, block_checks = [], set()
     if kind == "fused":
         n_chunks = table.shape[0] // raster.CHUNK
@@ -139,10 +155,11 @@ def _walk_units(kind, table, bins, tile, e0, e1):
 
 
 def model_peel(kind, table, bins, counts, z_base, last, tiles, check_order=True):
-    """Kernel 2.3's (kind "fused") or 2.5's ("deferred") decomposition in
-    torch. check_order=False trusts the bin to ascend, as the kernels did
-    before their stops checked it. Returns (layer frame, pixels where every
-    one of PEEL_SPLIT segments found a candidate)."""
+    """Kernel 2.3's (kind "fused"), 2.5's ("deferred") or 2.8's
+    ("gathered") decomposition in torch. check_order=False trusts the bin
+    to ascend, as the kernels did before their stops checked it. Returns
+    (layer frame, pixels where every one of PEEL_SPLIT segments found a
+    candidate)."""
     X, Y = raster._tile_planes(**tiles, device=table.device)
     tx_n, ty_n, tw, th = tiles["tiles_x"], tiles["tiles_y"], tiles["tile_w"], tiles["tile_h"]
     zb = raster._frame_to_tiles(z_base, tx_n, ty_n, tw, th)
@@ -178,7 +195,7 @@ def model_peel(kind, table, bins, counts, z_base, last, tiles, check_order=True)
                 cov, zv = raster._coverage(tri[:, :, None, None], Xt, Yt)
                 take = (open_ & _region_ok(tri, tx, ty) & (ids > lt_min) & cov & (zv >= zbt)
                         & (ids > ltt) & (ids < best))
-                if kind == "deferred":
+                if kind != "fused":
                     take &= zv >= 0.0
                 best = torch.minimum(best, torch.where(take, ids, raster.ID_INF).amin(0))
             found += best < raster.ID_INF
@@ -195,8 +212,14 @@ def _feed(layer):
 def _jax_peel(kind, table, bins, counts, z_base, last, tiles):
     """The JAX package's peel on the same triangles, in interpret mode:
     rasterize_peel_slabs over its own dense bins (2.3), or rasterize_peel
-    over the port's per-triangle bins (2.5)."""
+    (2.5) or rasterize_peel_fused (2.8) over the port's per-triangle
+    bins."""
     rows = table.numpy()
+    if kind == "gathered":
+        out = jraster.rasterize_peel_fused(
+            jnp.asarray(rows), jnp.asarray(bins.numpy()), jnp.asarray(counts.numpy()),
+            jnp.asarray(z_base.numpy()), jnp.asarray(last.numpy()), **tiles)[0]
+        return torch.from_numpy(np.array(out))
     if kind == "fused":
         box, valid = hazards.hazard_boxes(rows)
         caabb, cvalid = jraster.chunk_aabbs(jnp.asarray(box), jnp.asarray(valid))
@@ -217,10 +240,12 @@ def _jax_peel(kind, table, bins, counts, z_base, last, tiles):
 @pytest.fixture(scope="module", params=KINDS)
 def quad(request):
     """2x2 tiles of hazard rows for one kernel, and the JAX package's three
-    peels on them with `last` fed back, from -1 everywhere and from a
-    `last` plane of ids at the segments' boundaries."""
+    peels on them (2.8's: the plain version's, its bins holding -1 holes)
+    with `last` fed back, from -1 everywhere and from a `last` plane of ids
+    at the segments' boundaries."""
     kind = request.param
-    table, bins, counts, z_base = _inputs(kind, 8, QUAD, seed=3)
+    table, bins, counts, z_base = _inputs(kind, 8, QUAD, seed=3, holes=True)
+    reference = _plain if kind == "gathered" else _jax_peel
     w, h = _frame(QUAD)
     starts = {"none": torch.full((h, w), -1, dtype=torch.int32),
               "boundaries": _boundary_last(kind, table, bins, counts, QUAD, seed=4)}
@@ -228,22 +253,32 @@ def quad(request):
     for start, last in starts.items():
         peels[start] = []
         for _ in range(3):
-            peels[start].append((last, _jax_peel(kind, table, bins, counts, z_base, last, QUAD)))
+            peels[start].append((last, reference(kind, table, bins, counts, z_base, last, QUAD)))
             last = _feed(peels[start][-1][1])
     return dict(kind=kind, table=table, bins=bins, counts=counts, z_base=z_base, peels=peels)
 
 
 @pytest.mark.parametrize("start", ["none", "boundaries"])
 def test_peel_model_equals_plain_and_jax_over_three_peels(quad, start):
-    """Each peel of the model from the JAX peel's own `last`: equal to the
-    JAX layer bit for bit; the first also to the plain version's."""
+    """Each peel of the model from the reference peel's own `last` (JAX;
+    2.8: the plain version): equal to the reference layer bit for bit; the
+    first also to the plain version's. 2.8's bins hold -1 holes, a segment
+    of each tile whole holes, and its model is held on each tile's reversed
+    bin too (a min, the same in any order; 2.3 and 2.5 are on the dense
+    tile's)."""
     kind, table, bins, counts, z_base = (quad[k] for k in ("kind", "table", "bins", "counts",
                                                            "z_base"))
     assert int(raster.peel_segments(counts, bins.shape[1], _seg_min(kind)).max()) > 1
+    if kind == "gathered":
+        assert bool((bins[:, :int(counts.min())] < 0).any()), "no hole inside a count"
     layers = []
     for peel, (last, want) in enumerate(quad["peels"][start]):
         got, _ = model_peel(kind, table, bins, counts, z_base, last, QUAD)
-        assert torch.equal(got, want), f"peel {peel}: model against the JAX package"
+        assert torch.equal(got, want), f"peel {peel}: model against the reference"
+        if kind == "gathered":
+            got_rev, _ = model_peel(kind, table, _reversed(bins, counts), counts, z_base, last,
+                                    QUAD)
+            assert torch.equal(got_rev, want), f"peel {peel}: model on the reversed bins"
         if peel == 0:
             assert torch.equal(got, _plain(kind, table, bins, counts, z_base, last, QUAD))
         layers.append(int((got < raster.ID_INF).sum()))
@@ -255,9 +290,10 @@ def test_peel_model_equals_plain_and_jax_over_three_peels(quad, start):
 
 @pytest.fixture(scope="module", params=KINDS)
 def dense(request):
-    """One tile cut into PEEL_SPLIT segments: 64 chunk entries (2.3) or
-    about 330 triangle entries (2.5), and the plain version's first peel on
-    it."""
+    """One tile cut into PEEL_SPLIT segments: 64 chunk entries (2.3), about
+    330 triangle entries (2.5) or 384 (2.8, no holes), the plain version's
+    first peel on it and, for 2.8, the JAX package's (2.3 and 2.5 are held
+    to JAX on the 2x2 tiles)."""
     kind = request.param
     table, bins, counts, z_base = _inputs(kind, 64 if kind == "fused" else 12, ONE_TILE,
                                           seed=5)
@@ -265,8 +301,10 @@ def dense(request):
     assert int(raster.peel_segments(counts, bins.shape[1], _seg_min(kind))[0]) == \
         raster.PEEL_SPLIT
     last = torch.full((32, 128), -1, dtype=torch.int32)
+    jax = _jax_peel(kind, table, bins, counts, z_base, last, ONE_TILE) \
+        if kind == "gathered" else None
     return dict(kind=kind, table=table, bins=bins, counts=counts, z_base=z_base, last=last,
-                plain=_plain(kind, table, bins, counts, z_base, last, ONE_TILE))
+                plain=_plain(kind, table, bins, counts, z_base, last, ONE_TILE), jax=jax)
 
 
 def _reversed(bins, counts):
@@ -285,6 +323,8 @@ def test_peel_model_splits_a_dense_tile_eight_ways(dense):
                                                             "z_base"))
     got, all_segs = model_peel(kind, table, bins, counts, z_base, dense["last"], ONE_TILE)
     assert torch.equal(got, dense["plain"]) and all_segs > 0
+    if dense["jax"] is not None:
+        assert torch.equal(got, dense["jax"]), "model against the JAX package"
     last = _boundary_last(kind, table, bins, counts, ONE_TILE, seed=6)
     got, all_segs = model_peel(kind, table, bins, counts, z_base, last, ONE_TILE)
     assert torch.equal(got, _plain(kind, table, bins, counts, z_base, last, ONE_TILE))
@@ -299,7 +339,7 @@ def test_peel_model_is_exact_on_a_reversed_bin(dense):
     rev = _reversed(dense["bins"], counts)
     got, _ = model_peel(kind, table, rev, counts, z_base, dense["last"], ONE_TILE)
     assert torch.equal(got, dense["plain"])
-    if kind == "deferred":   # the plain version on the reversed bin too
+    if kind != "fused":   # the plain version on the reversed bin too
         assert torch.equal(_plain(kind, table, rev, counts, z_base, dense["last"], ONE_TILE),
                            dense["plain"])
     trusting, _ = model_peel(kind, table, rev, counts, z_base, dense["last"], ONE_TILE,

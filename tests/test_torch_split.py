@@ -1,11 +1,13 @@
-"""CPU tests of how kernels 2.1 and 2.2 spread a tile's work
-(csrc/raster_fused.cu, raster_accum.cu): the segment cut of 2.1
-(raster.fused_segments, raster.segment_bounds), the exact per-region
-reject (raster.region_rows), and a torch model of each kernel's
+"""CPU tests of how kernels 2.1, 2.2 and 2.7 spread a tile's work
+(csrc/raster_fused.cu, raster_accum.cu, raster_gathered.cu): the segment
+cut of 2.1 (raster.fused_segments, raster.segment_bounds), the exact
+per-region reject (raster.region_rows), and a torch model of each kernel's
 decomposition — 2.1's segment walks folded by (z, walk order), 2.2's
-pixel regions walking the whole entry list, both with the reject —
-held bit for bit against the plain versions and the JAX package's Pallas
-kernels in interpret mode, on the adversarial rows of utils/hazards.py.
+pixel regions walking the whole entry list, both with the reject, and 2.7's
+the same over gathered 32-entry slices of per-triangle bins with -1 holes
+and 0 <= z — held bit for bit against the plain versions and the JAX
+package's Pallas kernels in interpret mode, on the adversarial rows of
+utils/hazards.py.
 
 Tolerance: none; every output is compared bit for bit.
 """
@@ -114,11 +116,28 @@ def model_fused(rows, bins, counts, tiles, split=raster.FUSED_SPLIT,
     return f(z_out), f(tid_out)
 
 
+def _units(rows, bins, tile, n, gathered):
+    """The rows kernel 2.2 (a unit a live chunk entry, its live groups'
+    rows) or 2.7 (gathered: a unit a 32-entry slice of the per-triangle
+    bin, in slot order) tests, in order, over bins[tile, :n]. An entry of
+    2.7's that is no row of the table (a -1 hole, or outside [0, T)) is a
+    dead lane of its slice and moves no other entry."""
+    if not gathered:
+        for _, gmask, r in _entries(rows, bins, tile, 0, n):
+            yield r[[t for t in range(raster.CHUNK) if (gmask >> (t // raster.GROUP)) & 1]]
+        return
+    for j0 in range(0, n, raster.CHUNK):
+        ids = bins[tile, j0:min(n, j0 + raster.CHUNK)]
+        yield rows[ids[(ids >= 0) & (ids < rows.shape[0])].long()]
+
+
 def model_accum(rows, bins, counts, z_base, light, tiles,
-                rows_of=raster.region_rows):
+                rows_of=raster.region_rows, gathered=False, nonneg=True):
     """Kernel 2.2's decomposition in torch: each tile's whole entry list
     walked in order, every triangle tested only where its warp's region
-    may be covered. Returns (acc, cnt) frames."""
+    may be covered. gathered: kernel 2.7's, the entries per-triangle ids
+    walked in slices (_units) and 0 <= z kept (nonneg=False drops it, as
+    2.2 may). Returns (acc, cnt) frames."""
     X, Y = raster._tile_planes(**tiles, device=rows.device)
     zb = raster._frame_to_tiles(z_base, tiles["tiles_x"], tiles["tiles_y"],
                                 tiles["tile_w"], tiles["tile_h"])
@@ -129,14 +148,16 @@ def model_accum(rows, bins, counts, z_base, light, tiles,
         acc = [torch.zeros(Xt.shape) for _ in range(3)]
         cnt = torch.zeros(Xt.shape, dtype=torch.int32)
         n = int(counts[tile].clamp(0, bins.shape[1]))
-        for cid, gmask, r in _entries(rows, bins, tile, 0, n):
+        for r in _units(rows, bins, tile, n, gathered):
+            if not r.shape[0]:   # a slice of holes
+                continue
             ok = _region_ok(r, tx, ty, rows_of)
-            for t in range(raster.CHUNK):
-                if not (gmask >> (t // raster.GROUP)) & 1:
-                    continue
+            for t in range(r.shape[0]):
                 c = r[t][None, :, None, None]
                 cov, zv = raster._coverage(c, Xt, Yt)
                 take = cov & (zv >= zb[tile:tile + 1]) & ok[t][None]
+                if gathered and nonneg:
+                    take &= zv >= 0.0
                 cnt = raster._add_fragments(acc, cnt, c, take, Xt, Yt, light)
         acc_t.append(torch.cat(acc))
         cnt_t.append(cnt[0])
@@ -242,14 +263,74 @@ def test_fused_model_equals_plain_and_jax(small, split, seg_min):
     _equal(got, small["jfused"], "model against the JAX package")
 
 
-def test_accum_model_equals_plain_and_jax(small):
-    rows, bins, counts, z_base = small["rows"], small["bins"], small["counts"], small["z_base"]
+def _reversed(bins, counts):
+    out = bins.clone()
+    for tile in range(bins.shape[0]):
+        n = int(counts[tile].clamp(0, bins.shape[1]))
+        out[tile, :n] = bins[tile, :n].flip(0)
+    return out
+
+
+def _gathered_inputs(tiles, holes, seed=7):
+    """Kernel 2.7's inputs: hazard_accum_rows (rows 5 and 6 of each of 8
+    chunks at negative depths) and per-triangle bins of every member of
+    each binned chunk (expand_bins), with hazard_holes' -1 holes or none,
+    and hazard_accum_z_base (negative over the right half)."""
+    _, dense, counts = _inputs(8, tiles, seed)
+    w, h = _frame(tiles)
+    rows = torch.from_numpy(hazards.hazard_accum_rows(8, w, h, seed=seed))
+    live = torch.arange(dense.shape[1])[None, :] < counts[:, None]
+    cbins = torch.where(live, dense >> 4, raster.NO_TRI)
+    if holes:
+        cbins = torch.from_numpy(hazards.hazard_holes(cbins.numpy(), counts.numpy()))
+    bins, tcounts = raster.expand_bins(cbins, counts)
+    return rows, bins, tcounts, torch.from_numpy(hazards.hazard_accum_z_base(w, h))
+
+
+@pytest.fixture(scope="module")
+def gathered():
+    """Kernel 2.7's inputs over two tiles with -1 holes, and over one tile
+    without (the JAX wrapper would clip a hole onto row 0) with the JAX
+    package's rasterize_accum_fused on it (interpret mode)."""
+    rows, bins, counts, z_base = _gathered_inputs(ONE_TILE, holes=False)
+    jaccum = jraster.rasterize_accum_fused(
+        jnp.asarray(rows.numpy()), jnp.asarray(bins.numpy()), jnp.asarray(counts.numpy()),
+        jnp.asarray(z_base.numpy()), jnp.asarray(LIGHT), **ONE_TILE)
+    return dict(two=_gathered_inputs(TWO_TILES, holes=True),
+                one=(rows, bins, counts, z_base), jaccum=[np.asarray(a) for a in jaccum])
+
+
+@pytest.mark.parametrize("mode", ["chunks", "gathered"])
+def test_accum_model_equals_plain_and_jax(small, gathered, mode):
+    """2.2's model on dense bins against the plain version and JAX; 2.7's
+    on per-triangle bins with -1 holes, in slot order and each tile's
+    reversed, against rasterize_accum_gathered_plain, and on one tile
+    against JAX; a 2.7 model without 0 <= z differs (hazard_accum_z_base's
+    negative half)."""
     light = torch.from_numpy(LIGHT)
-    got = model_accum(rows, bins, counts, z_base, light, TWO_TILES)
-    plain = raster.rasterize_accum_plain(rows, bins, counts, z_base, light, **TWO_TILES)
-    _equal(got, plain, "model against rasterize_accum_plain")
-    _equal(got, (small["jaccum"][0], small["jaccum"][1]), "model against the JAX package")
-    assert int(got[1].max()) >= 3
+    if mode == "chunks":
+        rows, bins, counts, z_base = (small[k] for k in ("rows", "bins", "counts", "z_base"))
+        got = model_accum(rows, bins, counts, z_base, light, TWO_TILES)
+        plain = raster.rasterize_accum_plain(rows, bins, counts, z_base, light, **TWO_TILES)
+        _equal(got, plain, "model against rasterize_accum_plain")
+        _equal(got, (small["jaccum"][0], small["jaccum"][1]), "model against the JAX package")
+        assert int(got[1].max()) >= 3
+        return
+    rows, bins, counts, z_base = gathered["two"]
+    assert bool((bins[:, :int(counts.min())] < 0).any()), "no hole inside a count"
+    for order in ("slot order", "reversed"):
+        b = bins if order == "slot order" else _reversed(bins, counts)
+        got = model_accum(rows, b, counts, z_base, light, TWO_TILES, gathered=True)
+        plain = raster.rasterize_accum_gathered_plain(rows, b, counts, z_base, light,
+                                                      **TWO_TILES)
+        _equal(got, plain, f"2.7 model against rasterize_accum_gathered_plain, {order}")
+        assert int(got[1].max()) >= 3
+    rows, bins, counts, z_base = gathered["one"]
+    got = model_accum(rows, bins, counts, z_base, light, ONE_TILE, gathered=True)
+    _equal(got, (gathered["jaccum"][0], gathered["jaccum"][1]), "2.7 model against JAX")
+    loose = model_accum(rows, bins, counts, z_base, light, ONE_TILE, gathered=True,
+                        nonneg=False)
+    assert int(loose[1].sum()) > int(got[1].sum()), "0 <= z never decides here"
 
 
 def test_hazards_are_reached(small):

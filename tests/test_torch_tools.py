@@ -325,6 +325,32 @@ def test_smoke_split_line_of_the_visibility_walks(name):
     assert held == want, (held, want)
 
 
+@pytest.mark.parametrize("name", ["raster_peel_kernel", "raster_peel_gathered_kernel"])
+def test_smoke_split_line_of_the_triangle_peels(name):
+    """chip_smoke's [split] line for kernels 2.5 and 2.8: clusters of
+    PEEL_SPLIT blocks, the tiles cut as peel_segments cuts them at
+    DEFERRED_SEG_MIN, and how many segments hold strictly ascending ids
+    (keys_ascend: a -1 hole after a live id, or a descent, makes one not
+    ascend)."""
+    smoke = _chip_smoke()
+    cols = raster.SETUP_COLS if name == "raster_peel_kernel" else raster.ROW_COLS
+    table = torch.zeros((400, cols))
+    bins = torch.full((2, 320), -1, dtype=torch.int32)
+    bins[0, :5] = torch.arange(5, dtype=torch.int32)
+    bins[1, :300] = torch.arange(300, dtype=torch.int32)
+    bins[1, 40] = -1                                      # a hole in segment 1
+    bins[1, 290:300] = bins[1, 290:300].flip(0)           # a descent in segment 7
+    counts = torch.tensor([5, 300], dtype=torch.int32)
+    tiles = dict(tiles_x=2, tiles_y=1, tile_w=128, tile_h=32)
+    line = smoke.decomposition(name, (table, bins, counts), tiles, (1, 1))
+    segs = raster.peel_segments(counts, bins.shape[1], raster.DEFERRED_SEG_MIN).tolist()
+    assert segs == [1, raster.PEEL_SPLIT], segs
+    assert f"{2 * raster.PEEL_SPLIT} blocks in 2 clusters of {raster.PEEL_SPLIT}" in line, line
+    assert f"{1 + raster.PEEL_SPLIT} segments walked" in line, line
+    assert "busiest tile 300 entries, 299 live entries" in line, line
+    assert f"; {1 + raster.PEEL_SPLIT - 2} of them ascend" in line, line
+
+
 def test_smoke_kernel_table_names_what_exists():
     """chip_smoke's KERNELS: eleven kernels, each with its launcher, plain
     version and counter in the port, its source in the checkout, and the

@@ -26,7 +26,8 @@
 // opaque depth in registers) and skips, on warp-uniform branches, every
 // triangle whose edge planes miss the region and every row they miss
 // (edge_rows in raster_common.cuh: exact, so each pixel's sequence of adds
-// is unchanged).
+// is unchanged). The per-chunk body (AccumPixels in raster_common.cuh) is
+// kernel 2.7's too.
 // Chunks e + 1 and e + 2 are copied into a 4-slot shared-memory ring
 // (cp.async) while chunk e is rasterised. Shading math runs only for the fragments taken.
 // Rounding: -fmad=false and spelled-out __fmaf_rn plane evaluation, the
@@ -42,7 +43,6 @@ using namespace tr;
 
 constexpr int SPLIT = TILE_W / REGION_W;                 // 4 strips a tile
 constexpr int A_THREADS = (TILE_H / REGION_H) * 32;      // 128: 4 regions a strip
-constexpr int A_PIX = REGION_H;                          // 8 a thread
 
 __global__ void __launch_bounds__(A_THREADS)
 raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
@@ -57,62 +57,20 @@ raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int px = tx * TILE_W + strip * REGION_W + lane;
   const int py0 = ty * TILE_H + warp * REGION_H;
-  const float x = static_cast<float>(px) + 0.5f;
   const Region region(tx * TILE_W + strip * REGION_W, py0);
-  // light: [sun_dir xyz (baked into the light numerator at setup), power,
-  // ambient rgb, 0]
-  const float power = light[3];
-  const float amb[3] = {light[4], light[5], light[6]};
-
-  float zb[A_PIX], acc[3][A_PIX];
-  int cnt[A_PIX];
-#pragma unroll
-  for (int i = 0; i < A_PIX; ++i) {
-    zb[i] = z_base[static_cast<size_t>(py0 + i) * wp + px];
-    acc[0][i] = acc[1][i] = acc[2][i] = 0.0f;
-    cnt[i] = 0;
-  }
+  AccumPixels<false> s;   // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
+  s.load(z_base, light, tx * TILE_W + strip * REGION_W + lane, py0, wp);
 
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
   const int n = max(0, min(counts[tile], bin_width));
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
   walk_entries<A_THREADS>(rows, tbins, 0, n, n_chunks, ring,
-                          [&](const float* slot, int cid, int gmask) {
-    const unsigned rows_of = lane_rows(slot, gmask, region);
-    unsigned m = __ballot_sync(FULL_WARP, rows_of != 0);
-    while (m) {
-      const int t = __ffs(m) - 1;
-      m &= m - 1;
-      const unsigned rows_t = __shfl_sync(FULL_WARP, rows_of, t);
-      const float* r = slot + t * ROW_COLS;
-      Tri tri;
-      tri.load(r);
-#pragma unroll
-      for (int i = 0; i < A_PIX; ++i) {
-        if (!((rows_t >> i) & 1)) continue;   // uniform across the warp
-        const float y = static_cast<float>(py0 + i) + 0.5f;
-        float zv;
-        // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
-        if (!(tri.covers(x, y, &zv) && zv >= zb[i])) continue;
-        // numerators in columns 13-16 / 19-22 / 25-28, den in 41-43
-        add_fragment(r + 13, 6, r + 41, x, y, power, amb, &acc[0][i], &acc[1][i],
-                     &acc[2][i]);
-        cnt[i] += 1;
-      }
-    }
+                          [&](const float* slot, int, int gmask) {
+    s.add_slice(slot, (gmask >> (lane / GROUP)) & 1, region);
   });
-
-  const size_t plane_stride = static_cast<size_t>(hp) * wp;
-#pragma unroll
-  for (int i = 0; i < A_PIX; ++i) {
-    const size_t p = static_cast<size_t>(py0 + i) * wp + px;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc_out[c * plane_stride + p] = acc[c][i];
-    cnt_out[p] = cnt[i];
-  }
+  s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp, wp);
 }
 
 }  // namespace

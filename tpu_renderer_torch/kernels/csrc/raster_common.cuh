@@ -17,9 +17,6 @@ namespace tr {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_PASS = THREADS / TILE_W;       // 2 tile rows per pass
-constexpr int PIX = TILE_H * TILE_W / THREADS;         // 16 pixels per thread
 constexpr int ROW_COLS = 48;                           // fat-row width
 // Binning constants of kernels/raster.py (CHUNK, GROUP, entry_shift): a bin
 // entry is cid << ENTRY_SHIFT | gmask, one gmask bit per GROUP triangles.
@@ -73,11 +70,6 @@ struct Tri {
 // den_c (43), nu_c (29), nv_c (30).
 __device__ __forceinline__ int meta_col(int m) { return m < 13 ? 31 + m : 16 + m; }
 
-// Pixel i of this thread in a tile: its row and its offset in a plane.
-__device__ __forceinline__ int pixel_row(int ty, int i) {
-  return ty * TILE_H + static_cast<int>(threadIdx.x) / TILE_W + i * ROWS_PER_PASS;
-}
-
 // The epilogue of the fused raster and the fused peel: the winning
 // triangle's numerator planes at the pixel center and its constant planes,
 // read once from its fat row; zeros where no triangle won (id < 0).
@@ -125,8 +117,8 @@ __device__ __forceinline__ void add_fragment(const float* num, int stride,
 }
 
 // ---------------------------------------------------------------------------
-// The walk of kernels 2.1-2.3: a ring of staged chunks, and the exact
-// per-region reject.
+// The walk of kernels 2.1-2.3 and 2.7: a ring of staged chunks (2.7: of
+// gathered slices), and the exact per-region reject.
 // ---------------------------------------------------------------------------
 
 constexpr int CHUNK_FLOATS = CHUNK * ROW_COLS;   // 6,144 B of fat rows
@@ -182,40 +174,79 @@ __device__ __forceinline__ bool entry_barrier(Stop& stop) {
   return __syncthreads_and(stop()) != 0;
 }
 
-// Walk the entries [e0, e1) of a tile's bin in order, calling
-// body(slot, cid, gmask) on each chunk once all NTHREADS threads of the
-// block see its rows in shared memory. The copies (cp.async) run AHEAD
-// chunks ahead of the raster; with AHEAD + 2 slots one barrier an entry
-// keeps a slot from being refilled before every thread is done with it.
-// With a stop predicate the walk ends at the first entry's barrier where
-// stop() holds in every thread; the copies in flight are waited for
-// either way before the ring is handed back.
-// Every thread of the block must call this with the same arguments.
+// Walk units [0, n) through the ring in order: stage(slot, k) starts the
+// copies (cp.async) of unit k's rows into a slot, body(slot, k) runs once
+// all NTHREADS threads of the block see them. The copies run AHEAD units
+// ahead of the raster; with AHEAD + 2 slots one barrier a unit keeps a
+// slot from being refilled before every thread is done with it. With a
+// stop predicate the walk ends at the first unit's barrier where stop()
+// holds in every thread; the copies in flight are waited for either way
+// before the ring is handed back. Every thread of the block must call this
+// with the same arguments.
+template <int NTHREADS, typename Stage, typename Body, typename Stop = NoStop>
+__device__ __forceinline__ void walk_ring(int n, float* ring, Stage&& stage, Body&& body,
+                                          Stop stop = Stop{}) {
+#pragma unroll
+  for (int d = 0; d < AHEAD; ++d) {
+    if (d < n) stage(ring + d * CHUNK_FLOATS, d);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n; ++k) {
+    // slot (k + AHEAD) % RING_SLOTS was last read at unit k - 2: every
+    // thread passed unit k - 1's barrier after it
+    if (k + AHEAD < n) stage(ring + ((k + AHEAD) % RING_SLOTS) * CHUNK_FLOATS, k + AHEAD);
+    cp_async_commit();
+    cp_async_wait<AHEAD>();   // this thread's copies of unit k have landed
+    if (entry_barrier(stop)) break;   // and every other thread's
+    body(ring + (k % RING_SLOTS) * CHUNK_FLOATS, k);
+  }
+  cp_async_wait<0>();
+  __syncthreads();            // the ring is free for other use
+}
+
+// Walk the entries [e0, e1) of a tile's chunk bin in order (walk_ring, a
+// unit an entry), calling body(slot, cid, gmask) on each live chunk.
 template <int NTHREADS, typename Body, typename Stop = NoStop>
 __device__ __forceinline__ void walk_entries(const float* rows, const int* tbins, int e0,
                                              int e1, int n_chunks, float* ring, Body&& body,
                                              Stop stop = Stop{}) {
-  int cid, gmask;
-#pragma unroll
-  for (int d = 0; d < AHEAD; ++d) {
-    if (e0 + d < e1 && bin_entry(tbins, e0 + d, n_chunks, &cid, &gmask))
-      stage_chunk_async<NTHREADS>(ring + d * CHUNK_FLOATS, rows, cid);
-    cp_async_commit();
+  walk_ring<NTHREADS>(
+      e1 - e0, ring,
+      [&](float* slot, int k) {
+        int cid, gmask;
+        if (bin_entry(tbins, e0 + k, n_chunks, &cid, &gmask))
+          stage_chunk_async<NTHREADS>(slot, rows, cid);
+      },
+      [&](const float* slot, int k) {
+        int cid, gmask;
+        if (bin_entry(tbins, e0 + k, n_chunks, &cid, &gmask)) body(slot, cid, gmask);
+      },
+      stop);
+}
+
+// Entry e of a tile's per-triangle bin of n entries: its id if it is a row
+// of a table of n_tris rows, else -1 (past the count, a -1 hole, or no row
+// of the table: the walks skip it).
+__device__ __forceinline__ int tri_entry(const int* tbins, int e, int n, int n_tris) {
+  const int id = e < n ? tbins[e] : -1;
+  return id >= 0 && id < n_tris ? id : -1;
+}
+
+// Start the copy of a slice of a tile's per-triangle bin into a ring slot:
+// the fat row of entry base + t at row t of the slot (t < CHUNK), 16 B a
+// piece over NTHREADS threads. An entry that is no row (tri_entry) is not
+// copied: its row of the slot holds stale data and must not be read.
+template <int NTHREADS>
+__device__ __forceinline__ void stage_slice_async(float* slot, const float* rows, int n_tris,
+                                                  const int* tbins, int base, int n) {
+  constexpr int PIECES = ROW_COLS / 4;   // 16 B pieces a row
+  for (int k = threadIdx.x; k < CHUNK * PIECES; k += NTHREADS) {
+    const int t = k / PIECES;
+    const int id = tri_entry(tbins, base + t, n, n_tris);
+    if (id >= 0)
+      cp_async16(slot + t * ROW_COLS + (k % PIECES) * 4,
+                 rows + static_cast<size_t>(id) * ROW_COLS + (k % PIECES) * 4);
   }
-  for (int e = e0; e < e1; ++e) {
-    const int k = e - e0;
-    // slot (k + AHEAD) % RING_SLOTS was last read at entry k - 2: every
-    // thread passed entry k - 1's barrier after it
-    if (e + AHEAD < e1 && bin_entry(tbins, e + AHEAD, n_chunks, &cid, &gmask))
-      stage_chunk_async<NTHREADS>(ring + ((k + AHEAD) % RING_SLOTS) * CHUNK_FLOATS, rows, cid);
-    cp_async_commit();
-    cp_async_wait<AHEAD>();   // this thread's copies of chunk e have landed
-    if (entry_barrier(stop)) break;   // and every other thread's
-    if (bin_entry(tbins, e, n_chunks, &cid, &gmask))
-      body(ring + (k % RING_SLOTS) * CHUNK_FLOATS, cid, gmask);
-  }
-  cp_async_wait<0>();
-  __syncthreads();            // the ring is free for other use
 }
 
 // A warp's pixel region: REGION_W columns by REGION_H rows from pixel (x0,
@@ -272,8 +303,90 @@ __device__ __forceinline__ unsigned lane_rows(const float* slot, int gmask, cons
 }
 
 // ---------------------------------------------------------------------------
-// The peels 2.3 and 2.5: a tile's entries split over a thread-block cluster,
-// merged by a min.
+// The sums 2.2 and 2.7: a tile's pixels split among blocks (2.2: column
+// strips; 2.7: 32x8 regions), each walking the tile's whole entry list in
+// order.
+// ---------------------------------------------------------------------------
+
+// A thread's 8 pixels of a sum: one column (its lane) of its warp's 32x8
+// region, with the opaque depth, the three sums and the count in
+// registers. NONNEG_Z adds zv >= 0 to the take (kernel 2.7's rule; for 2.2
+// it is subsumed by zv >= z_base, the opaque depth, itself >= 0).
+template <bool NONNEG_Z>
+struct AccumPixels {
+  float x;                 // the column's pixel center
+  int px, py0;             // the column and the region's first row in the frame
+  float power, amb[3];     // light: sun power, ambient rgb
+  float zb[REGION_H], acc[3][REGION_H];
+  int cnt[REGION_H];
+
+  // light: [sun_dir xyz (baked into the light numerator at setup), power,
+  // ambient rgb, 0]
+  __device__ __forceinline__ void load(const float* __restrict__ z_base,
+                                       const float* __restrict__ light, int col, int py,
+                                       int wp) {
+    px = col;
+    py0 = py;
+    x = static_cast<float>(px) + 0.5f;
+    power = light[3];
+    amb[0] = light[4];
+    amb[1] = light[5];
+    amb[2] = light[6];
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) {
+      zb[i] = z_base[static_cast<size_t>(py0 + i) * wp + px];
+      acc[0][i] = acc[1][i] = acc[2][i] = 0.0f;
+      cnt[i] = 0;
+    }
+  }
+
+  // One slice of 32 fat rows in shared memory, lane t's triangle at
+  // slot + t * ROW_COLS and `live` in lane t where that row is one to
+  // take: lane t tests its triangle against the warp's region
+  // (cover_rows); the warp takes the ballot's triangles in lane order, on
+  // only the rows they may cover, and adds each fragment taken
+  // (add_fragment). The rows skipped cover no pixel of the region, so each
+  // pixel's sequence of adds is the plain walk's.
+  __device__ __forceinline__ void add_slice(const float* slot, bool live, const Region& g) {
+    const int lane = static_cast<int>(threadIdx.x) % 32;
+    const unsigned rows_of = live ? cover_rows(slot + lane * ROW_COLS, g) : 0u;
+    unsigned m = __ballot_sync(FULL_WARP, rows_of != 0);
+    while (m) {
+      const int t = __ffs(m) - 1;
+      m &= m - 1;
+      const unsigned rows_t = __shfl_sync(FULL_WARP, rows_of, t);
+      const float* r = slot + t * ROW_COLS;
+      Tri tri;
+      tri.load(r);
+#pragma unroll
+      for (int i = 0; i < REGION_H; ++i) {
+        if (!((rows_t >> i) & 1)) continue;   // uniform across the warp
+        const float y = static_cast<float>(py0 + i) + 0.5f;
+        float zv;
+        if (!(tri.covers(x, y, &zv) && (!NONNEG_Z || zv >= 0.0f) && zv >= zb[i])) continue;
+        // numerators in columns 13-16 / 19-22 / 25-28, den in 41-43
+        add_fragment(r + 13, 6, r + 41, x, y, power, amb, &acc[0][i], &acc[1][i],
+                     &acc[2][i]);
+        cnt[i] += 1;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ acc_out, int* __restrict__ cnt_out,
+                                        size_t plane_stride, int wp) const {
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) {
+      const size_t p = static_cast<size_t>(py0 + i) * wp + px;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc_out[c * plane_stride + p] = acc[c][i];
+      cnt_out[p] = cnt[i];
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The peels 2.3, 2.5 and 2.8: a tile's entries split over a thread-block
+// cluster, merged by a min.
 // ---------------------------------------------------------------------------
 
 constexpr int PEEL_SPLIT = 8;   // blocks a tile: the cluster (portable maximum)
@@ -306,8 +419,8 @@ __device__ __forceinline__ bool keys_ascend(const int* tbins, int e0, int e1, in
 
 // A thread's 8 pixels of a peel: one column (its lane) of its warp's 32x8
 // region, with the opaque depth, the previous layer and the best id so
-// far. NONNEG_Z adds zv >= 0 to the take (kernel 2.5's rule; for 2.3 it is
-// subsumed by zv >= z_base, the opaque depth, itself >= 0).
+// far. NONNEG_Z adds zv >= 0 to the take (kernels 2.5 and 2.8; for 2.3 it
+// is subsumed by zv >= z_base, the opaque depth, itself >= 0).
 template <bool NONNEG_Z>
 struct PeelPixels {
   float x;                 // the column's pixel center
@@ -390,6 +503,20 @@ __device__ __forceinline__ int merge_min(cooperative_groups::cluster_group& clus
   return best;
 }
 
+// The epilogue of the peels 2.3 and 2.8 at pixel (row, col): the layer id
+// (ID_INF: none) and its triangle's planes (store_winner; zeros where
+// there is none).
+__device__ __forceinline__ void store_layer(const float* __restrict__ rows, int best, int row,
+                                            int col, int wp, size_t plane_stride,
+                                            int* __restrict__ best_out,
+                                            float* __restrict__ nums_out,
+                                            float* __restrict__ metas_out) {
+  const size_t gp = static_cast<size_t>(row) * wp + col;
+  best_out[gp] = best;
+  store_winner(rows, best < ID_INF ? best : -1, static_cast<float>(col) + 0.5f,
+               static_cast<float>(row) + 0.5f, gp, plane_stride, nums_out, metas_out);
+}
+
 // ---------------------------------------------------------------------------
 // The visibility walk of kernels 2.4 and 2.6 over per-triangle bins: a
 // tile's entries split over a thread-block cluster, the segments' winners
@@ -418,10 +545,7 @@ template <int ROW_STRIDE>
 __device__ __forceinline__ void stage_planes(float* scoef, int* sid,
                                              const float* __restrict__ table, int n_tris,
                                              const int* tbins, int base, int e1) {
-  const int k = base + static_cast<int>(threadIdx.x);
-  int id = k < e1 ? tbins[k] : -1;
-  if (id >= n_tris) id = -1;
-  id = max(id, -1);
+  const int id = tri_entry(tbins, base + static_cast<int>(threadIdx.x), e1, n_tris);
   sid[threadIdx.x] = id;
   if (id >= 0) {
     const float* r = table + static_cast<size_t>(id) * ROW_STRIDE;
@@ -561,6 +685,98 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
   }
   cluster.sync();   // no block leaves while another reads its shared memory
   if (threadIdx.x < VIS_PIX) store(ty * TILE_H + p / TILE_W, tx * TILE_W + p % TILE_W, zw, tw);
+}
+
+// ---------------------------------------------------------------------------
+// The peel walk of kernels 2.5 and 2.8 over per-triangle bins.
+// ---------------------------------------------------------------------------
+
+constexpr int DEFERRED_SEG_MIN = 32;            // a segment for every 32 entries
+constexpr int DEFERRED_BATCH = PEEL_THREADS;    // entries staged a pass, one a thread
+static_assert(TILE_PIX <= DEFERRED_BATCH * COEF_STRIDE, "the merge buffer fits the batch");
+
+// A tile of kernel 2.5 or 2.8, one block of its cluster of PEEL_SPLIT: 2.3's
+// design (raster_peel.cu) over per-triangle bins of a table ROW_STRIDE
+// floats a row (16: packed setup rows; 48: fat rows). The tile's n =
+// clamp(count, 0, bin_width) entries are cut into segments, one for every
+// DEFERRED_SEG_MIN entries (tile_segment), a block each. Each block
+// stages its segment's entries DEFERRED_BATCH at a time (stage_planes:
+// id and 12 plane coefficients a thread); lane t of each warp tests entry
+// t of a 32-entry slice against its warp's region (cover_rows) and skips
+// it where its id is <= the region's smallest `last`, and the warp walks
+// the entries its ballot keeps, on the rows they may cover (PeelPixels<true>:
+// 0 <= z and z >= z_base). The stops are 2.3's on the ids themselves: a
+// pixel holding a layer is settled only where the segment's ids strictly
+// ascend (keys_ascend; a -1 hole after a live id reads as not ascending,
+// which only costs the stop), or where its `last` is the table's largest
+// id. The segments' layers merge by a min (merge_min); then emit(row, col,
+// best) for each of the block's 1/PEEL_SPLIT of the tile's pixels. A tile
+// of one segment is block 0's alone: no merge, no cluster barrier, emit
+// for all its pixels. Every thread of the block must call it.
+template <int ROW_STRIDE, typename Emit>
+__device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n_tris,
+                                          const int* __restrict__ bins,
+                                          const int* __restrict__ counts, int bin_width,
+                                          int tiles_x, const float* __restrict__ z_base,
+                                          const int* __restrict__ last, int wp, Emit&& emit) {
+  // the batch's plane coefficients, then the segment's layer ids for the merge
+  __shared__ float scoef[DEFERRED_BATCH * COEF_STRIDE];
+  __shared__ int sid[DEFERRED_BATCH];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / PEEL_SPLIT;
+  const int tx = tile % tiles_x;
+  const int ty = tile / tiles_x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
+  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
+  const Region region(tx * TILE_W + rx0, ty * TILE_H + ry0);
+  // bins and counts come from the caller: never walk past the bin row
+  const int n = max(0, min(counts[tile], bin_width));
+  int e0, e1;
+  const int segs = tile_segment(n, PEEL_SPLIT, DEFERRED_SEG_MIN, rank, &e0, &e1);
+  if (segs == 1 && rank > 0) return;
+
+  PeelPixels<true> s;
+  if (rank < segs) {   // uniform across the block
+    s.load(z_base, last, tx * TILE_W + rx0 + lane, ty * TILE_H + ry0, wp, n_tris - 1);
+    const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
+    s.ascending = keys_ascend(tbins, e0, e1, 0);
+    for (int base = e0; base < e1; base += DEFERRED_BATCH) {
+      // the barrier before restaging: the previous batch is consumed
+      if (__syncthreads_and(s.settled())) break;   // every pixel of the block is settled
+      stage_planes<ROW_STRIDE>(scoef, sid, table, n_tris, tbins, base, e1);
+      __syncthreads();
+      const int m = min(DEFERRED_BATCH, e1 - base);
+      for (int j0 = 0; j0 < m; j0 += 32) {
+        if (__all_sync(FULL_WARP, s.settled())) break;   // uniform across the warp
+        const int j = j0 + lane;
+        const int idj = j < m ? sid[j] : -1;
+        const unsigned rows_of =
+            idj >= 0 && idj > s.lt_min ? cover_rows(scoef + j * COEF_STRIDE, region) : 0u;
+        unsigned b = __ballot_sync(FULL_WARP, rows_of != 0);
+        while (b) {
+          const int t = __ffs(b) - 1;
+          b &= b - 1;
+          Tri tri;
+          tri.load(scoef + (j0 + t) * COEF_STRIDE);
+          s.take(tri, sid[j0 + t], __shfl_sync(FULL_WARP, rows_of, t));
+        }
+      }
+    }
+  }
+  if (segs == 1) {
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i)
+      emit(ty * TILE_H + ry0 + i, tx * TILE_W + rx0 + lane, s.best[i]);
+    return;
+  }
+  __syncthreads();   // the batch buffer is free for the merge
+
+  const int best = merge_min(cluster, reinterpret_cast<int*>(scoef), s, rx0, ry0, rank, segs);
+  const int p = rank * PEEL_THREADS + threadIdx.x;
+  emit(ty * TILE_H + p / TILE_W, tx * TILE_W + p % TILE_W, best);
 }
 
 // Launch a kernel of vis_tile's shape: n_tiles clusters of VIS_SPLIT

@@ -26,7 +26,8 @@
 // entry at every pixel (2.4 before this design) took 4.8-4.9 ms on an H100
 // 80GB HBM3 at 700 W, 1% of its bound.
 // What the design does about it (2.4 shares it with 2.6, vis_tile in
-// raster_common.cuh; 2.5 is 2.3's, raster_peel.cu):
+// raster_common.cuh; 2.5 is 2.3's, raster_peel.cu, and shares its walk
+// with 2.8, peel_tile in raster_common.cuh):
 // * a cluster of blocks a tile, each walking a contiguous segment of the
 //   entries, one segment for every SEG_MIN entries; a tile of one segment
 //   is its first block's alone, with no merge and no cluster barrier;
@@ -36,7 +37,10 @@
 //   on the rows each entry may cover;
 // * 2.4 folds the segments' (z, tid) in segment order with the walk's own
 //   rule (exact for bins in any order), 2.5 merges its segments' layers by
-//   a min; both through distributed shared memory, in one launch.
+//   a min; both through distributed shared memory, in one launch. 2.5's
+//   walk stops early only where its segment's ids strictly ascend
+//   (keys_ascend; a -1 hole after a live id reads as not ascending, which
+//   costs the stop and never the result).
 // On the deferred frame (H100 80GB HBM3, 700 W) 2.4 takes 0.21-0.23 ms:
 // 0.04-0.05 with no entries (the launch of 4,080 clusters), ~0.12 the
 // densest tiles' segments of ~557 entries. A cluster of 16 (non-portable;
@@ -44,8 +48,6 @@
 // was slower: its 65,280 blocks cost more than the tail it cut.
 
 #include "raster_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -68,84 +70,18 @@ raster_deferred_kernel(const float* __restrict__ packed, int n_tris,
                        });
 }
 
-// Kernel 2.5: kernel 2.3's design (raster_peel.cu) over per-triangle bins.
-// A segment covers one per DEFERRED_SEG_MIN entries, at most PEEL_SPLIT, a
-// block of the tile's cluster each. Each block stages its segment's entries
-// DEFERRED_BATCH at a time (id and 12 plane coefficients a thread); lane t
-// of each warp tests entry t of a 32-entry slice against its warp's region
-// (cover_rows reads only columns 0-8, as a packed row has them), and the
-// warp walks the entries its ballot keeps, on the rows they may cover. The
-// stops are 2.3's, on the ids themselves; the merge is the same min, and a
-// tile of one segment is again block 0's alone.
-constexpr int DEFERRED_SEG_MIN = 32;            // a segment for every 32 entries
-constexpr int DEFERRED_BATCH = PEEL_THREADS;    // entries staged per pass, one a thread
-static_assert(TILE_PIX <= DEFERRED_BATCH * COEF_STRIDE, "the merge buffer fits the batch");
-
+// Kernel 2.5: peel_tile (raster_common.cuh, kernel 2.8's walk too) over the
+// packed setup rows; out comes the layer id.
 __global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(PEEL_THREADS, 2)
 raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
                             const int* __restrict__ bins, const int* __restrict__ counts,
                             int bin_width, int tiles_x, const float* __restrict__ z_base,
                             const int* __restrict__ last, int* __restrict__ layer_out,
                             int wp) {
-  // the batch's plane coefficients, then the segment's layer ids for the merge
-  __shared__ float scoef[DEFERRED_BATCH * COEF_STRIDE];
-  __shared__ int sid[DEFERRED_BATCH];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tile = blockIdx.x / PEEL_SPLIT;
-  const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
-  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
-  const Region region(tx * TILE_W + rx0, ty * TILE_H + ry0);
-  const int n = max(0, min(counts[tile], bin_width));
-  int e0, e1;
-  const int segs = tile_segment(n, PEEL_SPLIT, DEFERRED_SEG_MIN, rank, &e0, &e1);
-  // a tile of one segment is block 0's alone: no merge, no cluster barrier
-  if (segs == 1 && rank > 0) return;
-
-  PeelPixels<true> s;
-  if (rank < segs) {   // uniform across the block
-    s.load(z_base, last, tx * TILE_W + rx0 + lane, ty * TILE_H + ry0, wp, n_tris - 1);
-    const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-    s.ascending = keys_ascend(tbins, e0, e1, 0);
-    for (int base = e0; base < e1; base += DEFERRED_BATCH) {
-      // the barrier before restaging: the previous batch is consumed
-      if (__syncthreads_and(s.settled())) break;   // every pixel of the block is settled
-      stage_planes<SETUP_COLS>(scoef, sid, packed, n_tris, tbins, base, e1);
-      __syncthreads();
-      const int m = min(DEFERRED_BATCH, e1 - base);
-      for (int j0 = 0; j0 < m; j0 += 32) {
-        if (__all_sync(FULL_WARP, s.settled())) break;   // uniform across the warp
-        const int j = j0 + lane;
-        const int idj = j < m ? sid[j] : -1;
-        const unsigned rows_of =
-            idj >= 0 && idj > s.lt_min ? cover_rows(scoef + j * COEF_STRIDE, region) : 0u;
-        unsigned b = __ballot_sync(FULL_WARP, rows_of != 0);
-        while (b) {
-          const int t = __ffs(b) - 1;
-          b &= b - 1;
-          Tri tri;
-          tri.load(scoef + (j0 + t) * COEF_STRIDE);
-          s.take(tri, sid[j0 + t], __shfl_sync(FULL_WARP, rows_of, t));
-        }
-      }
-    }
-  }
-  if (segs == 1) {
-#pragma unroll
-    for (int i = 0; i < REGION_H; ++i)
-      layer_out[static_cast<size_t>(ty * TILE_H + ry0 + i) * wp + tx * TILE_W + rx0 + lane] =
-          s.best[i];
-    return;
-  }
-  __syncthreads();   // the batch buffer is free for the merge
-
-  const int best = merge_min(cluster, reinterpret_cast<int*>(scoef), s, rx0, ry0, rank, segs);
-  const int p = rank * PEEL_THREADS + threadIdx.x;
-  layer_out[static_cast<size_t>(ty * TILE_H + p / TILE_W) * wp + tx * TILE_W + p % TILE_W] = best;
+  peel_tile<SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
+                        [&](int row, int col, int best) {
+                          layer_out[static_cast<size_t>(row) * wp + col] = best;
+                        });
 }
 
 }  // namespace

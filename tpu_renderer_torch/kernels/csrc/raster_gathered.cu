@@ -19,46 +19,55 @@
 // 2.8 replaces raster._peel_fused_kernel (from rasterize_peel_fused): per
 // pixel the smallest binned id greater than last[pixel] that covers it with
 // 0 <= z <= 1 and z >= z_base, and that triangle's planes (ID_INF: none).
-// The rule needs no order of the slots, so the walk never ends early.
+// The rule is a min over the slots, so it needs no order of them.
 //
 // The JAX wrappers gather fat_rows[bins] into an (n_tiles, cap, 48) block
 // first (802 MB at the deferred bench caps). Here a block reads rows by id
-// from the table, staging only the columns the walk reads at every pixel:
-// the 12 edge and depth coefficients (2.6, 2.8; 2.6 a batch of 512 entries
-// in 26 KB, 2.8 of 256 in 12 KB), and for 2.7 also the numerator and
-// denominator planes every taken fragment reads (columns 13-16, 19-22,
-// 25-28, 41-43: 27 floats an entry, 27 KB for 256). All fit the static
-// 48 KB; no dynamic shared memory. The winner's other columns are read
-// once a pixel after the walk (store_winner), which equals the JAX
-// kernel's select-at-take because the planes are a pure function of (row,
-// pixel).
+// from the table: 2.6 and 2.8 stage only the 12 edge and depth
+// coefficients every pixel test reads (stage_planes, 512 entries a batch),
+// and read the winner's other columns once a pixel after the walk
+// (store_winner), which equals the JAX kernels' select-at-take because the
+// planes are a pure function of (row, pixel); 2.7 gathers each entry's
+// whole fat row (12 pieces of 16 B), since a taken fragment reads its
+// numerator and denominator planes too.
 //
 // The JAX kernels carry the id as a float in column 47 (exact below 2^24);
 // the wrappers refuse a table of 2^24 rows or more. Entries past the
 // tile's count are never read; an entry inside it that is no row of the
-// table (negative, or >= T) is dropped, uniformly, where the JAX wrapper
-// would clip it onto row 0 or T-1: the contract is counts <= bin width and
-// live entries in [0, T).
+// table (negative, such as the -1 holes expand_bins leaves, or >= T) is
+// dropped, uniformly, where the JAX wrapper would clip it onto row 0 or
+// T-1: the contract is counts <= bin width and live entries in [0, T).
 //
 // What bounds them on the H100: per-pixel ALU work, the 4 planes (~16 float
 // operations) of a binned triangle at a pixel, plus for 2.7 five planes and
-// a divide a fragment taken, against 48 B (108 B for 2.7) of table an
+// a divide a fragment taken, against 48 B (192 B for 2.7) of table an
 // entry; and, unless the work is spread, the densest tile: on the deferred
-// frame's bins one tile holds 4,453 entries against a mean of 102.
-// What the designs do about it:
-// * 2.6 is kernel 2.4's design (vis_tile in raster_common.cuh, shared so
-//   the two cannot drift apart): a cluster of VIS_SPLIT blocks a tile over
-//   contiguous segments of the entries, each warp walking only the entries
-//   and rows its 32x8 region may be covered by, the segments' (z, tid)
-//   folded in segment order through distributed shared memory; then each
-//   block runs store_winner for its 1/VIS_SPLIT of the tile's pixels. One
-//   block a tile testing every entry at every pixel (2.6 before this
-//   design) took 4.9 ms on the deferred frame's bins (H100 80GB HBM3, 700
-//   W), 1% of its bound; this design 0.26-0.30 ms, 0.11-0.14 of it with no
-//   entries (the launch and the 21 output planes).
-// * 2.7 and 2.8: one block per 32x128 tile, 256 threads x 16 pixels with
-//   the per-pixel state in registers; a batch's coefficients in shared
-//   memory, read as broadcasts.
+// frame's bins one tile holds 4,453 entries against a mean of 102, on 2.8's
+// first peel 1,056 against 55, on 2.7's 768 against 25. One block a tile
+// testing every entry at every pixel (each kernel's first design) took 4.9
+// ms (2.6), 1.19-1.21 (2.7) and 1.48-1.54 (2.8) on an H100 80GB HBM3 at
+// 700 W, 1-4% of their bounds.
+// What the designs do about it, each another kernel's, shared in
+// raster_common.cuh so the two cannot drift apart:
+// * 2.6 is kernel 2.4's (vis_tile): a cluster of VIS_SPLIT blocks a tile
+//   over contiguous segments of the entries, each warp walking only the
+//   entries and rows its 32x8 region may be covered by, the segments'
+//   (z, tid) folded in segment order through distributed shared memory;
+//   then each block runs store_winner for its 1/VIS_SPLIT of the tile's
+//   pixels: 0.26-0.30 ms on the deferred frame's bins.
+// * 2.8 is kernel 2.5's (peel_tile): a cluster of PEEL_SPLIT blocks a tile
+//   over segments of the entries, the same reject and the warp's smallest
+//   `last`, an early stop exact only where a segment's ids ascend, the
+//   segments' layers merged by a min; then 2.3's epilogue (store_layer):
+//   0.16-0.17 ms a first peel, of which 0.12-0.16 is its floor with no
+//   entries (the launch of the clusters and the 20 output planes).
+// * 2.7 is kernel 2.2's split of the pixels, finer: a block of one warp
+//   for each 32x8 region of a tile (16 a tile; 2.2's 4 strips of 4 warps
+//   measured 0.215-0.229 ms against 0.198-0.202), each walking the whole
+//   list in slot order, 32 entries a slice, their fat rows gathered by id
+//   into the cp.async ring (stage_slice_async, two slices ahead), and
+//   2.2's per-chunk body on each slice (AccumPixels): ~0.20 ms, the
+//   densest tiles' 24 slices most of it.
 // The arithmetic is the stream kernels' own (raster_common.cuh), which is
 // what makes the oracles exact.
 
@@ -67,42 +76,6 @@
 namespace {
 
 using namespace tr;
-
-constexpr int BATCH = THREADS;   // bin entries staged per pass
-constexpr int ACCUM_COLS = 27;   // + numerators (4 x 3) and the denominator
-// Offsets into a staged ACCUM_COLS entry: numerator a's (A, B, C)
-// coefficients at NUM + a, NUM + 4 + a, NUM + 8 + a; then den (A, B, C).
-constexpr int ACCUM_NUM = 12;
-constexpr int ACCUM_NUM_STRIDE = 4;
-constexpr int ACCUM_DEN = 24;
-
-// Fat-row column of staged column c of an entry with N staged columns.
-template <int N>
-__device__ __forceinline__ int source_col(int c) {
-  if (N == PLANE_COLS || c < PLANE_COLS) return c;
-  if (c < ACCUM_DEN) return 13 + ((c - ACCUM_NUM) / ACCUM_NUM_STRIDE) * 6 +
-                            (c - ACCUM_NUM) % ACCUM_NUM_STRIDE;
-  return 41 + (c - ACCUM_DEN);
-}
-
-// Stage entries [base, base + BATCH) of a tile's bin: ids (-1 where the
-// entry is past the count or no row of the table) and N columns of their
-// fat rows. The caller synchronises before and after.
-template <int N>
-__device__ __forceinline__ void stage_entries(float* scoef, int* sid,
-                                              const float* __restrict__ rows,
-                                              int n_tris, const int* tbins, int base,
-                                              int n) {
-  const int k = base + static_cast<int>(threadIdx.x);
-  int id = k < n ? tbins[k] : -1;
-  if (id < 0 || id >= n_tris) id = -1;
-  sid[threadIdx.x] = id;
-  if (id >= 0) {
-    const float* r = rows + static_cast<size_t>(id) * ROW_COLS;
-#pragma unroll
-    for (int c = 0; c < N; ++c) scoef[threadIdx.x * N + c] = r[source_col<N>(c)];
-  }
-}
 
 // Kernel 2.6: kernel 2.4's walk and fold (vis_tile in raster_common.cuh)
 // over the fat rows' first 12 columns, then the winner's planes for the
@@ -125,127 +98,69 @@ raster_fused_gathered_kernel(const float* __restrict__ rows, int n_tris,
                      });
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Kernel 2.7: kernel 2.2's split of the pixels (raster_accum.cu) over
+// gathered slices. GATHERED_ACCUM_WARPS warps a block, each a 32x8 region
+// of the tile: region q = block * GATHERED_ACCUM_WARPS + warp of the
+// tile's 16 is 32 columns wide at strip q / 4, its rows at q % 4 (4 warps
+// would be a block a strip, 2.2's layout; 1, a block a region, measured
+// faster on phase 11's inputs, PERF.md). A slice is the next CHUNK entries
+// of the bin in slot order; their fat rows are gathered by id into a ring
+// slot (stage_slice_async, AHEAD slices ahead) and the warp runs 2.2's
+// body on it (AccumPixels<true>, lane t live where entry t of the slice is
+// a row).
+constexpr int GATHERED_ACCUM_WARPS = 1;
+constexpr int GATHERED_ACCUM_THREADS = GATHERED_ACCUM_WARPS * 32;
+constexpr int GATHERED_ACCUM_BLOCKS =   // blocks a tile
+    (TILE_W / REGION_W) * (TILE_H / REGION_H) / GATHERED_ACCUM_WARPS;
+
+__global__ void __launch_bounds__(GATHERED_ACCUM_THREADS)
 raster_accum_gathered_kernel(const float* __restrict__ rows, int n_tris,
                              const int* __restrict__ bins, const int* __restrict__ counts,
                              int bin_width, int tiles_x, const float* __restrict__ z_base,
                              const float* __restrict__ light, float* __restrict__ acc_out,
                              int* __restrict__ cnt_out, int hp, int wp) {
-  __shared__ float scoef[BATCH * ACCUM_COLS];
-  __shared__ int sid[BATCH];
-  const int tile = blockIdx.x;
+  __shared__ __align__(16) float ring[RING_SLOTS * CHUNK_FLOATS];
+  const int tile = blockIdx.x / GATHERED_ACCUM_BLOCKS;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const float x = static_cast<float>(tx * TILE_W + col) + 0.5f;
-  // light: [sun_dir xyz (baked into the light numerator at setup), power,
-  // ambient rgb, 0]
-  const float power = light[3];
-  const float amb[3] = {light[4], light[5], light[6]};
+  const int lane = threadIdx.x % 32;
+  const int q = (blockIdx.x % GATHERED_ACCUM_BLOCKS) * GATHERED_ACCUM_WARPS + threadIdx.x / 32;
+  const int rx = tx * TILE_W + (q / (TILE_H / REGION_H)) * REGION_W;
+  const int py0 = ty * TILE_H + (q % (TILE_H / REGION_H)) * REGION_H;
+  const Region region(rx, py0);
+  AccumPixels<true> s;    // the caller's z_base may be negative: keep zv >= 0
+  s.load(z_base, light, rx + lane, py0, wp);
 
-  float y[PIX], zb[PIX], acc[3][PIX];
-  int cnt[PIX];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-    y[i] = static_cast<float>(pixel_row(ty, i)) + 0.5f;
-    zb[i] = z_base[p];
-    acc[0][i] = acc[1][i] = acc[2][i] = 0.0f;
-    cnt[i] = 0;
-  }
-
-  const int n = min(counts[tile], bin_width);
+  // bins and counts come from the caller: never walk past the bin row
+  const int n = max(0, min(counts[tile], bin_width));
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  for (int base = 0; base < n; base += BATCH) {
-    __syncthreads();
-    stage_entries<ACCUM_COLS>(scoef, sid, rows, n_tris, tbins, base, n);
-    __syncthreads();
-    const int m = min(BATCH, n - base);
-#pragma unroll 1
-    for (int j = 0; j < m; ++j) {   // slot order: the order of the sum
-      if (sid[j] < 0) continue;     // uniform across the block
-      const float* r = scoef + j * ACCUM_COLS;
-      Tri tri;
-      tri.load(r);
-#pragma unroll
-      for (int i = 0; i < PIX; ++i) {
-        float zv;
-        if (!(tri.covers(x, y[i], &zv) && zv >= 0.0f && zv >= zb[i])) continue;
-        add_fragment(r + ACCUM_NUM, ACCUM_NUM_STRIDE, r + ACCUM_DEN, x, y[i], power, amb,
-                     &acc[0][i], &acc[1][i], &acc[2][i]);
-        cnt[i] += 1;
-      }
-    }
-  }
-
-  const size_t plane_stride = static_cast<size_t>(hp) * wp;
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc_out[c * plane_stride + p] = acc[c][i];
-    cnt_out[p] = cnt[i];
-  }
+  walk_ring<GATHERED_ACCUM_THREADS>(
+      (n + CHUNK - 1) / CHUNK, ring,
+      [&](float* slot, int k) {
+        stage_slice_async<GATHERED_ACCUM_THREADS>(slot, rows, n_tris, tbins, k * CHUNK, n);
+      },
+      [&](const float* slot, int k) {
+        s.add_slice(slot, tri_entry(tbins, k * CHUNK + lane, n, n_tris) >= 0, region);
+      });
+  s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp, wp);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Kernel 2.8: kernel 2.5's walk (peel_tile in raster_common.cuh) over the
+// fat rows' first 12 columns, then 2.3's epilogue (store_layer) for the
+// block's pixels.
+__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(PEEL_THREADS, 2)
 raster_peel_gathered_kernel(const float* __restrict__ rows, int n_tris,
                             const int* __restrict__ bins, const int* __restrict__ counts,
                             int bin_width, int tiles_x, const float* __restrict__ z_base,
                             const int* __restrict__ last, int* __restrict__ best_out,
                             float* __restrict__ nums_out, float* __restrict__ metas_out,
                             int hp, int wp) {
-  __shared__ float scoef[BATCH * PLANE_COLS];
-  __shared__ int sid[BATCH];
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
-  const int col = threadIdx.x % TILE_W;
-  const float x = static_cast<float>(tx * TILE_W + col) + 0.5f;
-
-  float y[PIX], zb[PIX];
-  int lt[PIX], best[PIX];
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-    y[i] = static_cast<float>(pixel_row(ty, i)) + 0.5f;
-    zb[i] = z_base[p];
-    lt[i] = last[p];
-    best[i] = ID_INF;
-  }
-
-  const int n = min(counts[tile], bin_width);
-  const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  // every live slot is walked: the smallest eligible id may sit anywhere
-  for (int base = 0; base < n; base += BATCH) {
-    __syncthreads();
-    stage_entries<PLANE_COLS>(scoef, sid, rows, n_tris, tbins, base, n);
-    __syncthreads();
-    const int m = min(BATCH, n - base);
-#pragma unroll 1
-    for (int j = 0; j < m; ++j) {
-      const int id = sid[j];
-      if (id < 0) continue;  // uniform across the block
-      Tri tri;
-      tri.load(scoef + j * PLANE_COLS);
-#pragma unroll
-      for (int i = 0; i < PIX; ++i) {
-        float zv;
-        if (id > lt[i] && id < best[i] && tri.covers(x, y[i], &zv) && zv >= 0.0f &&
-            zv >= zb[i])
-          best[i] = id;
-      }
-    }
-  }
-
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-#pragma unroll
-  for (int i = 0; i < PIX; ++i) {
-    const size_t p = static_cast<size_t>(pixel_row(ty, i)) * wp + tx * TILE_W + col;
-    best_out[p] = best[i];
-    store_winner(rows, best[i] < ID_INF ? best[i] : -1, x, y[i], p, plane_stride,
-                 nums_out, metas_out);
-  }
+  peel_tile<ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
+                      [&](int row, int col, int best) {
+                        store_layer(rows, best, row, col, wp, plane_stride, best_out,
+                                    nums_out, metas_out);
+                      });
 }
 
 }  // namespace
@@ -265,7 +180,8 @@ extern "C" int raster_accum_gathered_launch(const float* rows, int n_tris, const
                                             const float* light, float* acc, int* cnt,
                                             void* stream) {
   const int n_tiles = tiles_x * tiles_y;
-  raster_accum_gathered_kernel<<<n_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_accum_gathered_kernel<<<n_tiles * GATHERED_ACCUM_BLOCKS, GATHERED_ACCUM_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       rows, n_tris, bins, counts, bin_width, tiles_x, z_base, light, acc, cnt,
       tiles_y * TILE_H, tiles_x * TILE_W);
   return static_cast<int>(cudaGetLastError());
@@ -277,7 +193,8 @@ extern "C" int raster_peel_gathered_launch(const float* rows, int n_tris, const 
                                            int* best, float* nums, float* metas,
                                            void* stream) {
   const int n_tiles = tiles_x * tiles_y;
-  raster_peel_gathered_kernel<<<n_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  raster_peel_gathered_kernel<<<n_tiles * PEEL_SPLIT, PEEL_THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, best, nums, metas,
       tiles_y * TILE_H, tiles_x * TILE_W);
   return static_cast<int>(cudaGetLastError());

@@ -90,10 +90,7 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
   if (segs == 1 && rank > 0) return;
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
   auto emit = [&](int row, int col, int best) {
-    const size_t gp = static_cast<size_t>(row) * wp + col;
-    best_out[gp] = best;
-    store_winner(rows, best < ID_INF ? best : -1, static_cast<float>(col) + 0.5f,
-                 static_cast<float>(row) + 0.5f, gp, plane_stride, nums_out, metas_out);
+    store_layer(rows, best, row, col, wp, plane_stride, best_out, nums_out, metas_out);
   };
 
   PeelPixels<false> s;

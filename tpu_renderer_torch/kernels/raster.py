@@ -96,14 +96,17 @@ REGION_W, REGION_H = 32, 8
 FUSED_SPLIT = 8
 FUSED_SEG_MIN = 4
 ACCUM_SPLIT = TILE_W // REGION_W
-# The peels 2.3 and 2.5 (csrc/raster_peel.cu, raster_deferred.cu,
-# raster_common.cuh) cut a tile's entries the same way, into at most
-# PEEL_SPLIT segments of a cluster, one for every PEEL_SEG_MIN chunk
-# entries (2.3) or DEFERRED_SEG_MIN triangle entries (2.5), and merge the
-# segments' layers by a min (peel_segments).
+# The peels 2.3, 2.5 and 2.8 (csrc/raster_peel.cu, raster_deferred.cu,
+# raster_gathered.cu, raster_common.cuh) cut a tile's entries the same way,
+# into at most PEEL_SPLIT segments of a cluster, one for every PEEL_SEG_MIN
+# chunk entries (2.3) or DEFERRED_SEG_MIN triangle entries (2.5, 2.8), and
+# merge the segments' layers by a min (peel_segments). 2.7 splits the
+# pixels as 2.2 does, finer: GATHERED_ACCUM_BLOCKS blocks a tile, one a
+# region, each walking the tile's whole per-triangle list.
 PEEL_SPLIT = 8
 PEEL_SEG_MIN = 4
 DEFERRED_SEG_MIN = 32
+GATHERED_ACCUM_BLOCKS = (TILE_W // REGION_W) * (TILE_H // REGION_H)
 # The visibility walks 2.4 and 2.6 (vis_tile in csrc/raster_common.cuh)
 # cut a tile's per-triangle entries into at most VIS_SPLIT segments of a
 # cluster, one for every VIS_SEG_MIN entries, and fold the segments'
@@ -401,9 +404,9 @@ def fused_segments(counts, bin_width: int, split: int = FUSED_SPLIT,
 
 
 def peel_segments(counts, bin_width: int, seg_min: int = PEEL_SEG_MIN):
-    """Per tile, the segments kernel 2.3 (seg_min=PEEL_SEG_MIN) or 2.5
-    (seg_min=DEFERRED_SEG_MIN) cuts its entries into: fused_segments' cut
-    at PEEL_SPLIT."""
+    """Per tile, the segments kernel 2.3 (seg_min=PEEL_SEG_MIN) or 2.5 and
+    2.8 (seg_min=DEFERRED_SEG_MIN) cut their entries into: fused_segments'
+    cut at PEEL_SPLIT."""
     return fused_segments(counts, bin_width, PEEL_SPLIT, seg_min)
 
 
@@ -419,7 +422,7 @@ def segment_bounds(n, segs, q):
 
 
 def region_rows(rows, x0, y0, w: int = REGION_W, h: int = REGION_H):
-    """The per-region reject of kernels 2.1-2.6 (edge_rows in
+    """The per-region reject of kernels 2.1-2.8 (edge_rows in
     csrc/raster_common.cuh), in float64: for each row r of the w x h region
     at pixel (x0, y0), False only where some edge plane of the triangle row
     is negative, as the kernels evaluate it in float32, at every pixel
@@ -516,7 +519,8 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
 
 
 def _check_aligned(rows):
-    """Kernels 2.1-2.3 copy fat rows 16 bytes at a time (cp.async)."""
+    """Kernels 2.1-2.3 and 2.7 copy fat rows 16 bytes at a time
+    (cp.async)."""
     if rows.data_ptr() % 16:
         raise ValueError("rows must start on a 16-byte boundary")
 
@@ -1167,12 +1171,16 @@ def raster_accum_gathered_kernel(rows, bins, counts, z_base, light, *,
                                  tiles_x: int, tiles_y: int, tile_w: int,
                                  tile_h: int):
     """Launch the raster_accum_gathered CUDA kernel (csrc/raster_gathered.cu)
-    on CUDA tensors: the same (acc, cnt) as rasterize_accum_gathered_plain."""
+    on CUDA tensors: the same (acc, cnt) as rasterize_accum_gathered_plain.
+    One launch of GATHERED_ACCUM_BLOCKS blocks a tile, one a 32x8 region,
+    each walking the tile's entries in slot order, their rows gathered by
+    id; no wait on the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_accum_gathered_kernel takes CUDA tensors, got {dev}")
     tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
     _check_gathered(rows, bins, counts, tiles, z_base=z_base, light=light)
+    _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     acc = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
     cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
@@ -1227,7 +1235,9 @@ def raster_peel_gathered_kernel(rows, bins, counts, z_base, last, *,
                                 tile_h: int):
     """Launch the raster_peel_gathered CUDA kernel (csrc/raster_gathered.cu)
     on CUDA tensors: the same (best, nums, metas) as
-    rasterize_peel_gathered_plain."""
+    rasterize_peel_gathered_plain, for bins in any order. One launch of
+    n_tiles clusters of PEEL_SPLIT blocks (kernel 2.5's walk), with no
+    wait on the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_peel_gathered_kernel takes CUDA tensors, got {dev}")

@@ -1,7 +1,7 @@
-"""Time kernels 2.1-2.6 on the inputs their frames give them.
+"""Time kernels 2.1-2.8 on the inputs their frames give them.
 
     python3 -m tpu_renderer_torch.tools.time_stream_kernels [--runs 20]
-        [--label NAME] [--frames bench,stress,textured-glass,deferred]
+        [--label NAME] [--frames bench,stress,textured-glass,deferred,gathered]
 
 Renders each frame once and records the arguments the frame gave its
 kernels: the bench frame (demo grid 64, 1920x1080, the bench camera) and
@@ -14,7 +14,13 @@ gives raster.raster_deferred_kernel (2.4) a call and
 raster.raster_peel_kernel (2.5) a call a layer; kernel 2.6,
 raster.raster_fused_gathered_kernel, which no frame runs, is timed on the
 same frame's fat rows and bins as the raster profile tool builds them
-(tools.profile_raster.deferred_inputs). The peels are timed on their first
+(tools.profile_raster.deferred_inputs). The gathered oracles 2.7,
+raster.raster_accum_gathered_kernel, and 2.8,
+raster.raster_peel_gathered_kernel, which no frame runs either, are timed
+on the calls 2.2 and 2.3 get from the bench and the textured-glass frames,
+each chunk bin expanded to the per-triangle bin of every member of its
+chunks (oracle_call; chip_smoke.py's cross-checks hold them to 2.2 and 2.3
+on the same calls). The peels are timed on their first
 call and on a later one (the middle layer). Each kernel is
 timed on those inputs (CUDA events around one call, the median of --runs
 calls after two warm-up calls), then again with every tile's count cut to 0
@@ -54,8 +60,12 @@ FRAMES = {
     "stress": ("raster_fused_kernel", "raster_accum_kernel"),
     "textured-glass": ("raster_peel_fused_kernel",),
     "deferred": ("raster_deferred_kernel", "raster_peel_kernel", "raster_fused_gathered_kernel"),
+    "gathered": ("raster_accum_gathered_kernel", "raster_peel_gathered_kernel"),
 }
 GATHERED = "raster_fused_gathered_kernel"   # no frame runs it: deferred_inputs
+# the gathered oracles of 2.2 and 2.3, on those kernels' calls (oracle_call)
+ORACLES = {"raster_accum_gathered_kernel": ("bench", "raster_accum_kernel"),
+           "raster_peel_gathered_kernel": ("textured-glass", "raster_peel_fused_kernel")}
 
 
 def captured_calls(eng, names) -> dict:
@@ -80,6 +90,34 @@ def captured_calls(eng, names) -> dict:
     if missing:
         raise RuntimeError(f"the frame did not reach {missing}")
     return seen
+
+
+def expanded_bins(dense_bins, counts):
+    """Dense chunk entries (cid << shift | gmask) -> per-triangle bins of
+    every member of each binned chunk (raster.expand_bins), and their
+    counts."""
+    shift = raster.entry_shift(raster.CHUNK // raster.GROUP)
+    n = counts.clamp(0, dense_bins.shape[1])
+    live = torch.arange(dense_bins.shape[1], device=dense_bins.device)[None, :] < n[:, None]
+    return raster.expand_bins(torch.where(live, dense_bins >> shift, raster.NO_TRI), n)
+
+
+def oracle_call(call):
+    """A call (args, kwargs) of kernel 2.2 or 2.3 -> the same call of its
+    gathered oracle, 2.7 or 2.8: the same rows and planes, the chunk bin
+    expanded (expanded_bins)."""
+    (rows, dense, counts, *rest), kwargs = call
+    return (rows, *expanded_bins(dense, counts), *rest), kwargs
+
+
+def gathered_calls(tmp: str) -> dict:
+    """name -> the calls of 2.7 (2.2's of the bench frame) and 2.8 (2.3's of
+    the textured-glass frame, one a layer)."""
+    out = {}
+    for name, (frame, stream) in ORACLES.items():
+        calls = captured_calls(frame_engine(frame, tmp), (stream,))[stream]
+        out[name] = [oracle_call(c) for c in calls]
+    return out
 
 
 def kernel_ms(fn, runs: int) -> float:
@@ -127,12 +165,16 @@ def main(argv=None) -> int:
     card = nvidia_smi()
     with tempfile.TemporaryDirectory() as tmp:
         for frame in frames:
-            eng = frame_engine(frame, tmp)
-            names = FRAMES[frame]
-            seen = captured_calls(eng, [n for n in names if n != GATHERED])
-            if GATHERED in names:
-                _, rows48, bins48, counts48, tiles, _ = deferred_inputs(eng)
-                seen[GATHERED] = [((rows48, bins48, counts48), tiles)]
+            if frame == "gathered":
+                seen = gathered_calls(tmp)
+            else:
+                eng = frame_engine(frame, tmp)
+                names = FRAMES[frame]
+                seen = captured_calls(eng, [n for n in names if n != GATHERED])
+                if GATHERED in names:
+                    _, rows48, bins48, counts48, tiles, _ = deferred_inputs(eng)
+                    seen[GATHERED] = [((rows48, bins48, counts48), tiles)]
+                del eng
             for name, calls in seen.items():
                 # 2.1, 2.2 and 2.4 run once a frame; a peel once a layer:
                 # its first call and the middle one
@@ -157,7 +199,6 @@ def main(argv=None) -> int:
                             "entries": int(cut.clamp(max=bins.shape[1]).sum()),
                             "max_a_tile": int(cut.max()), "bins": list(bins.shape)}),
                               flush=True)
-            del eng
     print(card)
     return 0
 

@@ -1,4 +1,4 @@
-"""Adversarial fat rows for the raster kernels 2.1-2.6: inputs built to hit
+"""Adversarial fat rows for the raster kernels 2.1-2.8: inputs built to hit
 each hazard of their decomposition (csrc/raster_fused.cu, raster_accum.cu,
 raster_peel.cu, raster_deferred.cu, raster_gathered.cu), at any number of
 chunks, from a seed.
@@ -30,6 +30,10 @@ Columns 12-43 hold seeded random attribute planes (2.2 shades with them;
 the texture constants 31-36 small integers, as the JAX kernel packs them),
 44-47 each row's screen box, as the setup writes it: clamped to the frame,
 the whole frame for a full-screen row, (-1, -1, -2, -2) for a dead one.
+
+For the sum 2.7: hazard_accum_rows and hazard_accum_z_base put fragments
+at negative depths over a negative opaque depth; hazard_holes punches -1
+holes into chunk bins, which expand_bins turns into per-triangle holes.
 
 For the peels: hazard_peel_z_base puts the opaque depth exactly at the
 fragments' depths (the tie rows' 0.6, and -0.0 and +0.0 under the
@@ -152,6 +156,39 @@ def hazard_z_base(width: int, height: int) -> np.ndarray:
     z = np.zeros((height, width), np.float32)
     z[:, : width // 2] = TIE_Z
     return z
+
+
+def hazard_accum_rows(n_chunks: int, width: int, height: int, seed: int = 0) -> np.ndarray:
+    """hazard_rows with the depth planes of rows 5 and 6 of every chunk
+    (random triangles there) negated: their fragments lie at depths in
+    (-0.95, -0.05), so over hazard_accum_z_base's negative half only the
+    0 <= z test drops them (kernel 2.7 keeps that test; 2.2's opaque depth
+    is never negative)."""
+    rows = hazard_rows(n_chunks, width, height, seed=seed)
+    for t in (5, 6):
+        rows[t::CHUNK, 9:12] = -rows[t::CHUNK, 9:12]
+    return rows
+
+
+def hazard_accum_z_base(width: int, height: int) -> np.ndarray:
+    """hazard_z_base with -1 over the right half: a fragment at a negative
+    depth passes z >= z_base there, and 0 <= z decides."""
+    z = hazard_z_base(width, height)
+    z[:, width // 2:] = -1.0
+    return z
+
+
+def hazard_holes(chunk_bins: np.ndarray, counts: np.ndarray, every: int = 16) -> np.ndarray:
+    """Chunk bins (n_tiles, W) with every `every`-th slot inside each
+    tile's count (from slot 2) set to -1: expand_bins turns each such slot
+    into CHUNK -1 holes inside the tile's count, which every walk over
+    per-triangle bins must skip without moving another entry. At the
+    default, a tile of 48-64 chunk entries cut into 8 segments holds
+    segments with a hole and segments without."""
+    out = chunk_bins.copy()
+    slot = np.arange(out.shape[1])[None, :]
+    out[(slot < counts[:, None]) & (slot % every == 2)] = -1
+    return out
 
 
 def hazard_peel_z_base(width: int, height: int) -> np.ndarray:
