@@ -61,8 +61,9 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    tests/goldens/structure_*.png (at most 0.1% of pixels may differ);
 8. the background passes (kernels 2.9, 2.10, 2.11): each against its plain
    version at 480x270, 1700x900 and 1920x1080, exact on every element of
-   the padded buffer, timed at 1920x1080 (2.9 also against one torch.lerp,
-   the two in turns, four rounds each);
+   the padded buffer, timed at 1920x1080 over four rounds, three readings a
+   round (device ms, host ms, batched ms; tools/time_background.py), 2.9
+   in turns with one torch.lerp (kernel, lerp, lerp, kernel, ...);
    how many of the sky's lattice cosines the card's own cos would get
    wrong; 2.11, which no engine loads, through its public function into a
    frame;
@@ -96,8 +97,18 @@ Drives tpu_renderer_torch's paths on the card and checks them:
 14. prints each phase's seconds as it ends ([time] lines), then a JSON
    line of per-kernel results (launches on its path, max_abs_err against
    the plain version, ms and plain ms, the bound from this run's inputs,
-   the library call's ms where there is one), the nvidia-smi line, and,
-   last, {"ok": true, "device": {...}}.
+   the library call's ms where there is one; besides, device_ms and
+   host_ms), the nvidia-smi line, and, last, {"ok": true, "device": {...}}.
+
+Kernel times: "ms" is 2.1-2.8's CUDA events around one call of the
+wrapper on an idle card (its host time up to the launch, then the kernel),
+2.9-2.11's one event pair around 50 back-to-back calls (the larger of the
+host's enqueue and the card's time); "device_ms" is the card's time alone,
+one event pair around the replay of a CUDA graph that captured 50 calls,
+over the count; "host_ms" the host's time a call, time.perf_counter around
+50 calls with no synchronise (utils/timing.py's event_ms, batched_ms,
+device_ms, host_ms). Launches made to time a kernel are not counted: each
+path's counters are zeroed before it.
 
 Scene files go to chiprun_out/smoke/ inside the checkout. Any failure raises.
 """
@@ -202,47 +213,6 @@ def build_line(nvcc_seconds, load_seconds: float) -> str:
     nvcc = ("cached library reused (no nvcc run)" if nvcc_seconds is None
             else f"nvcc {nvcc_seconds:.2f} s")
     return f"[build] {nvcc}, load {load_seconds:.2f} s"
-
-
-def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `runs` runs, timed by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def cuda_ms_batched(fn, launches: int, runs: int = 5, warmup: int = 10) -> float:
-    """Milliseconds a call of fn(), for calls of tens of microseconds: one
-    pair of CUDA events around `launches` back-to-back calls, over the
-    count; the median of `runs` such batches."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
 
 
 def _tuple(out):
@@ -359,6 +329,7 @@ def check_kernel(name, calls, label):
     import torch
 
     from tpu_renderer_torch.kernels import raster
+    from tpu_renderer_torch.utils.timing import device_ms, event_ms, host_ms
 
     kernel = getattr(raster, name)
     _, plain_name, _, source, replaces = KERNELS[name]
@@ -376,13 +347,18 @@ def check_kernel(name, calls, label):
     args, kwargs = calls[0][1]
     out = kernel(*args, **kwargs)
     bound_ms, bound_by = bound(name, args, kwargs, out)
-    ms = cuda_ms(lambda: kernel(*args, **kwargs), runs=20)
-    plain_ms = cuda_ms(lambda: plain(*args, **kwargs), runs=3, warmup=1)
-    print(f"[kernel] {name}: {ms:.4f} ms (median of 20), plain {plain_ms:.2f} ms "
-          f"(median of 3), bound {bound_ms:.4f} ms by {bound_by}", flush=True)
+    fn = lambda: kernel(*args, **kwargs)  # noqa: E731
+    ms = event_ms(fn, runs=20)
+    device = device_ms(fn)
+    host = host_ms(fn)
+    plain_ms = event_ms(lambda: plain(*args, **kwargs), runs=3, warmup=1)
+    print(f"[kernel] {name}: {ms:.4f} ms (median of 20), device {device:.4f} ms (a graph of "
+          f"50), host {host:.4f} ms a call, plain {plain_ms:.2f} ms (median of 3), bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / device:.1%} of the device time)",
+          flush=True)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, device_ms=device, host_ms=host)
 
 
 def device_kernels(calls) -> dict:
@@ -604,6 +580,7 @@ def stress_path(scene_path):
     stress variant: grid 128, about 4x the entries), each against its plain
     version once and timed."""
     from tpu_renderer_torch.kernels import raster
+    from tpu_renderer_torch.utils.timing import device_ms, event_ms
     from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine
 
     grid = 2 * BENCH["grid"]
@@ -617,13 +594,14 @@ def stress_path(scene_path):
         args, kwargs = seen[n][-1]
         kernel, plain = getattr(raster, n), getattr(raster, KERNELS[n][1])
         err = max_abs_err(kernel(*args, **kwargs), plain(*args, **kwargs))
-        ms = cuda_ms(lambda: kernel(*args, **kwargs), runs=20)
+        ms = event_ms(lambda: kernel(*args, **kwargs), runs=20)
+        device = device_ms(lambda: kernel(*args, **kwargs))
         bound_ms, bound_by = bound(n, args, kwargs, kernel(*args, **kwargs))
         bins, counts = args[1], args[2]
         print(f"[kernel] {n} (stress frame): bins {tuple(bins.shape)}, entries "
               f"{int(counts.clamp(max=bins.shape[1]).sum())}, max/tile {int(counts.max())}; "
-              f"exact vs plain (max_abs_err {err}); {ms:.4f} ms (median of 20), bound "
-              f"{bound_ms:.4f} ms by {bound_by}", flush=True)
+              f"exact vs plain (max_abs_err {err}); {ms:.4f} ms (median of 20), device "
+              f"{device:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}", flush=True)
         print(decomposition(n, args, kwargs, (1, 1)), flush=True)
 
 
@@ -895,6 +873,7 @@ def past_the_guard(inputs):
     for the [split] line of phase 5b."""
     import torch
 
+    from tpu_renderer_torch.utils.timing import device_ms, event_ms
     from tpu_renderer_torch.utils.bench_frame import bench_engine
 
     path = os.path.join(OUT_DIR, "dense_scene_320.glb")
@@ -928,11 +907,13 @@ def past_the_guard(inputs):
         capture_kernel_inputs(eng.draw_device, (name,))[name][0]
     kernel = getattr(kernel_module(name), name)
     bound_ms, bound_by = bound(name, args, kwargs, kernel(*args, **kwargs))
-    ms = cuda_ms(lambda: kernel(*args, **kwargs), runs=20)
+    ms = event_ms(lambda: kernel(*args, **kwargs), runs=20)
+    device = device_ms(lambda: kernel(*args, **kwargs))
     bins, counts = args[1], args[2]
     print(f"[kernel] {name} (past the guard): bins {tuple(bins.shape)}, entries "
           f"{int(counts.clamp(max=bins.shape[1]).sum())}, max/tile {int(counts.max())}; "
-          f"{ms:.4f} ms (median of 20), bound {bound_ms:.4f} ms by {bound_by}; not held to "
+          f"{ms:.4f} ms (median of 20), device {device:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}; not held to "
           f"the plain version at this size (it walks {bins.shape[1]} slots a tile)",
           flush=True)
 
@@ -982,13 +963,13 @@ def background_calls(w, h, device):
 
 def background_bound(name, args, out):
     """(bound_ms, bound_by) of a background pass: the buffer written once
-    and the inputs read once (the parameters; for the sky its four cosine
-    vectors) at the HBM rate, against its float operations at the fp32
-    peak."""
+    and the inputs read once (the parameters; for the sky its lattice
+    cosines, wp + 1 and hp + 1) at the HBM rate, against its float
+    operations at the fp32 peak."""
     hp, wp = out.shape[1:]
     nbytes = out.numel() * out.element_size() + sum(a.numel() * 4 for a in args)
     if name == "background_sky_kernel":
-        nbytes += (2 * wp + 2 * hp) * 4
+        nbytes += (wp + 1 + hp + 1) * 4
     alu_ms = hp * wp * BACKGROUND_FLOPS_PER_PIXEL[name] / PEAK_FLOPS * 1e3
     hbm_ms = nbytes / PEAK_BYTES * 1e3
     return (alu_ms, "operations") if alu_ms >= hbm_ms else (hbm_ms, "bytes")
@@ -1001,6 +982,8 @@ def background_phase(results):
 
     from tpu_renderer_torch.kernels import background
     from tpu_renderer_torch.present import to_packed_u32, unpack_u8
+    from tpu_renderer_torch.tools.time_background import lerp_operands, readings
+    from tpu_renderer_torch.utils.timing import batched_ms
 
     dev = torch.device("cuda")
     for name in BACKGROUND_KERNELS:
@@ -1018,37 +1001,44 @@ def background_phase(results):
                   f"(max_abs_err {err})", flush=True)
         out = got
         bound_ms, bound_by = background_bound(name, args, out)
-        ms = cuda_ms_batched(lambda: kernel(*args, **kwargs), launches=50)
-        plain_ms = cuda_ms_batched(lambda: plain(*args, **kwargs), launches=10, warmup=3)
-        library_ms = None
+        plain_ms = batched_ms(lambda: plain(*args, **kwargs), launches=10, warmup=3)
+        sides = {"kernel": lambda: kernel(*args, **kwargs)}
+        order = ("kernel",) * 4
         if name == "background_gradient_kernel":
             # one torch.lerp over the broadcast row blend computes the same mix
             hp, wp = out.shape[1:]
-            blend = (torch.arange(hp, dtype=torch.float32, device=dev) / kwargs["height"])
-            a, b, t = (v.expand(4, hp, wp) for v in (args[0][:, None, None],
-                                                     args[1][:, None, None],
-                                                     blend[None, :, None]))
-            lerp = torch.lerp(a, b, t)
-            assert float((lerp - out).abs().max()) < 1e-6
-            # the kernel and torch.lerp in turns, three rounds each: kernel,
-            # lerp, lerp, kernel, ...; each side's median of its rounds
-            turns = {"kernel": [ms], "lerp": []}
-            for side in ("lerp", "lerp", "kernel", "kernel", "lerp", "lerp", "kernel"):
-                fn = (lambda: kernel(*args, **kwargs)) if side == "kernel" else \
-                    (lambda: torch.lerp(a, b, t))
-                turns[side].append(cuda_ms_batched(fn, launches=50))
-            ms, library_ms = (statistics.median(turns[k]) for k in ("kernel", "lerp"))
-            print(f"[kernel] {name} against torch.lerp in turns (ms a launch, 5 batches of 50 "
-                  f"each): kernel {[round(v, 4) for v in turns['kernel']]}, torch.lerp "
-                  f"{[round(v, 4) for v in turns['lerp']]}", flush=True)
-        print(f"[kernel] {name}: {ms:.4f} ms a launch (median of 5 batches of 50"
-              f"{'; of the 4 rounds' if library_ms is not None else ''}), plain "
-              f"{plain_ms:.4f} ms (5 batches of 10), bound {bound_ms:.4f} ms by {bound_by}, library "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms (torch.lerp)'}",
-              flush=True)
+            a, b, t = lerp_operands(*args, kwargs["height"], wp, hp)
+            assert float((torch.lerp(a, b, t) - out).abs().max()) < 1e-6
+            sides["torch.lerp"] = lambda: torch.lerp(a, b, t)
+            order = ("kernel", "torch.lerp", "torch.lerp", "kernel") * 2
+        # four rounds a side, in turns; three readings a round
+        turns = {side: [] for side in sides}
+        for side in order:
+            turns[side].append(readings(sides[side], launches=50))
+        med = {side: {k: statistics.median(r[k] for r in rounds) for k in rounds[0]}
+               for side, rounds in turns.items()}
+        for side, rounds in turns.items():
+            print(f"[kernel] {name} at 1920x1080, {side} in turns (ms; device: a graph of 50 "
+                  f"launches, host: a call, batched: 50 calls between events): "
+                  + "; ".join(f"{k} {[round(r[k], 4) for r in rounds]}" for k in rounds[0]),
+                  flush=True)
+        lerp = med.get("torch.lerp")
+        m = med["kernel"]
+        print(f"[kernel] {name}: device {m['device_ms']:.4f} ms a launch "
+              f"({bound_ms / m['device_ms']:.1%} of its bound), host {m['host_ms']:.4f} ms a "
+              f"call, batched {m['batched_ms']:.4f} ms (medians of 4 rounds), plain "
+              f"{plain_ms:.4f} ms (5 batches of 10), bound "
+              f"{bound_ms:.4f} ms by {bound_by}, library "
+              + ("none" if lerp is None else
+                 f"torch.lerp device {lerp['device_ms']:.4f} / host {lerp['host_ms']:.4f} / "
+                 f"batched {lerp['batched_ms']:.4f} ms"), flush=True)
         results[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms)
+                             max_abs_err=err, ms=m["batched_ms"], plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None if lerp is None else lerp["batched_ms"],
+                             device_ms=m["device_ms"], host_ms=m["host_ms"])
+        if lerp is not None:
+            results[name]["library_device_ms"] = lerp["device_ms"]
 
     # could the card take the lattice cosines itself? Its cos against the
     # C library's, on every lattice value of each extent

@@ -114,7 +114,8 @@ def test_bench_cpu_defaults_are_the_jax_bench_fallback_sizes():
                                     "tpu_renderer_torch.tools.profile_raster",
                                     "tpu_renderer_torch.tools.profile_stages",
                                     "tpu_renderer_torch.tools.fit_cost_model",
-                                    "tpu_renderer_torch.tools.time_stream_kernels"])
+                                    "tpu_renderer_torch.tools.time_stream_kernels",
+                                    "tpu_renderer_torch.tools.time_background"])
 def test_entry_points_refuse_without_cuda(module):
     """Each runs on the card by default and does not carry on on the CPU
     without one: non-zero exit, its message, no result line."""

@@ -659,7 +659,7 @@ def test_split_wrappers_refuse_misaligned_rows(cuda):
 
 # -- the background passes (kernels 2.9, 2.10, 2.11) --------------------------
 
-BG_EXTENTS = [(200, 100), (256, 64), (333, 222), (1700, 900)]
+BG_EXTENTS = [(200, 100), (256, 64), (333, 222), (480, 270), (1700, 900), (1920, 1080)]
 
 
 def _bg_extent(w, h):
@@ -725,6 +725,51 @@ def test_background_launchers_refuse_malformed_arguments(cuda):
         background.gradient(ok, ok, tile_h=16, tile_w=256, **ext)
     with pytest.raises(ValueError, match="CUDA"):
         background.background_gradient_kernel(torch.ones(4), torch.ones(4), **ext)
+    assert before == (background.gradient_counter.launches, background.sky_counter.launches,
+                      background.grid_counter.launches)
+
+
+def _bad_background_arguments(cuda):
+    """(what is bad: "data1", "data2" or "extent", data1, data2, extent),
+    one bad argument each."""
+    ok, ext = torch.ones(4, device=cuda), _bg_extent(256, 64)
+    return [("data1", ok.double(), ok, ext),                          # dtype
+            ("data1", torch.ones(5, device=cuda), ok, ext),           # shape
+            ("data1", torch.ones(8, device=cuda)[::2], ok, ext),      # contiguity
+            ("data2", ok, torch.ones(4), ext),                        # device
+            ("data2", ok, torch.ones(3, device=cuda), ext),           # shape
+            ("extent", ok, ok, dict(height=64, width_pad=200, height_pad=64)),
+            ("extent", ok, ok, dict(height=64, width_pad=256, height_pad=48)),
+            ("extent", ok, ok, dict(ext, height=0))]
+
+
+def _raised(fn):
+    try:
+        fn()
+    except Exception as e:   # noqa: BLE001 - the error is what is compared
+        return type(e), str(e)
+    return None
+
+
+def test_background_public_functions_and_launchers_raise_alike(cuda):
+    """Each argument is checked once, by the launcher: the public function
+    raises what its launcher raises for the same bad argument, and neither
+    launches."""
+    before = (background.gradient_counter.launches, background.sky_counter.launches,
+              background.grid_counter.launches)
+    for bad, d1, d2, ext in _bad_background_arguments(cuda):
+        pairs = [(lambda: background.gradient(d1, d2, **ext),
+                  lambda: background.background_gradient_kernel(d1, d2, **ext))]
+        if bad != "data2":
+            pairs.append((lambda: background.sky(d1, **ext),
+                          lambda: background.background_sky_kernel(d1, **ext)))
+        if bad == "extent":
+            pairs.append((lambda: background.grid_gradient(width=200, device=cuda, **ext),
+                          lambda: background.background_grid_kernel(width=200, device=cuda,
+                                                                    **ext)))
+        for public, launcher in pairs:
+            got = _raised(public)
+            assert got is not None and got == _raised(launcher), (bad, got)
     assert before == (background.gradient_counter.launches, background.sky_counter.launches,
                       background.grid_counter.launches)
 

@@ -366,3 +366,35 @@ def test_smoke_kernel_table_names_what_exists():
         path, line = replaces.rsplit(":", 1)
         src = open(os.path.join(ROOT, path)).read().splitlines()[int(line) - 1]
         assert src.startswith("def _") and "kernel" in src or "_loop(" in src, (name, src)
+
+
+def test_time_background_lerp_computes_the_gradient():
+    """tools/time_background's yardstick for 2.9 (one torch.lerp over the
+    broadcast row blend, chip_smoke's library_ms) computes 2.9's function:
+    within 1e-6 of the plain version, as chip_smoke asserts on the card."""
+    from tpu_renderer_torch.kernels import background
+    from tpu_renderer_torch.tools import time_background
+
+    d1 = torch.tensor([0.9, 0.3, 0.2, 1.0])
+    d2 = torch.tensor([0.1, 0.2, 0.7, 0.5])
+    wp, hp = time_background.pad(480, 270)
+    assert (wp, hp) == (512, 288)
+    a, b, t = time_background.lerp_operands(d1, d2, 270, wp, hp)
+    want = background.gradient_plain(d1, d2, height=270, width_pad=wp, height_pad=hp)
+    assert float((torch.lerp(a, b, t) - want).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("name", ["background_gradient_kernel", "background_sky_kernel",
+                                  "background_grid_kernel"])
+def test_smoke_background_bound_counts_the_buffer_and_inputs(name):
+    """Each background pass's bound: the (4, 1088, 1920) buffer written once
+    and its inputs read once (two colours; the sky's colour and its lattice
+    of 1921 + 1089 cosines) at the HBM rate; bytes bound them all."""
+    smoke = _chip_smoke()
+    args = smoke.background_calls(1920, 1080, torch.device("cpu"))[name][0]
+    out = torch.empty((4, 1088, 1920))
+    inputs = {"background_gradient_kernel": 32, "background_sky_kernel": 16 + 3010 * 4,
+              "background_grid_kernel": 0}[name]
+    ms, by = smoke.background_bound(name, args, out)
+    assert by == "bytes" and ms == pytest.approx((out.numel() * 4 + inputs) / smoke.PEAK_BYTES
+                                                 * 1e3, rel=1e-12)

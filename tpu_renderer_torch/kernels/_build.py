@@ -133,7 +133,8 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.raster_peel_gathered_launch.restype = i
         lib.background_gradient_launch.argtypes = [p, p, i, i, i, p, p]
         lib.background_gradient_launch.restype = i
-        lib.background_sky_launch.argtypes = [p, p, p, p, p, i, i, i, p, p]
+        # data1, the lattice's column and row cosines, height, wp, hp, out, stream
+        lib.background_sky_launch.argtypes = [p, p, p, i, i, i, p, p]
         lib.background_sky_launch.restype = i
         lib.background_grid_launch.argtypes = [i, i, i, i, p, p]
         lib.background_grid_launch.restype = i

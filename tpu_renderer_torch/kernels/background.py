@@ -12,8 +12,11 @@ PyTorch version.
 
 Each returns the planar (4, height_pad, width_pad) f32 framebuffer, padding
 included (rows run to height_pad and divide by the unpadded height). On a
-CPU tensor (or device="cpu") the public function runs the plain version; on
-CUDA it launches the kernel, and raises if it cannot.
+CPU tensor (or device="cpu") the public function checks its arguments and
+runs the plain version; on CUDA it checks the tile shape and hands the
+rest to the kernel's launcher, which checks every argument once, launches
+through the library's entry point (looked up once), and raises if it
+cannot.
 
 The plain versions spell out the operations as XLA evaluates the JAX
 package's forms on the CPU (measured bit-identical to its jitted
@@ -35,7 +38,7 @@ import torch
 
 from tpu_renderer_torch.kernels.common import fma
 from tpu_renderer_torch.kernels.raster import (TILE_H, TILE_W, _check, _Counter, _launch,
-                                               _ptr, _stream)
+                                               _raw_stream)
 
 GRID_CELL = 16  # gradient.comp's 16x16 workgroup
 
@@ -103,6 +106,24 @@ def _sky_tables(hp: int, wp: int, device):
     return (*_lattice_cos(wp, 0.2, 37.0, device), *_lattice_cos(hp, -0.06, 57.0, device))
 
 
+@functools.lru_cache(maxsize=8)
+def _sky_lattice(hp: int, wp: int, device):
+    """Kernel 2.10's star lattice: the column cosines of lattice points 0..wp
+    and the row cosines of points 0..hp (point i's is the first cosine of
+    column or row i, the last point's the last column's or row's second).
+    Neighbours share a point: cx1[i] equals cx0[i + 1] and cy1[j] equals
+    cy0[j + 1] bit for bit (the same f32 argument), so the lattice holds
+    every value of _sky_tables. Made once per extent and device."""
+    cx0, cx1, cy0, cy1 = _sky_tables(hp, wp, device)
+    return torch.cat([cx0, cx1[-1:]]), torch.cat([cy0, cy1[-1:]])
+
+
+def _check_tile(tile_h: int, tile_w: int):
+    if (tile_h, tile_w) != (TILE_H, TILE_W):
+        raise ValueError(f"the CUDA background kernels take {TILE_H}x{TILE_W} "
+                         f"tiles, got {tile_h}x{tile_w}")
+
+
 def _check_extent(height: int, width_pad: int, height_pad: int, tile_h: int,
                   tile_w: int, device):
     if device.type not in ("cpu", "cuda"):
@@ -112,9 +133,6 @@ def _check_extent(height: int, width_pad: int, height_pad: int, tile_h: int,
     if width_pad < 1 or height_pad < 1 or width_pad % tile_w or height_pad % tile_h:
         raise ValueError(f"the padded extent {width_pad}x{height_pad} must be whole "
                          f"{tile_h}x{tile_w} tiles")
-    if device.type == "cuda" and (tile_h, tile_w) != (TILE_H, TILE_W):
-        raise ValueError(f"the CUDA background kernels take {TILE_H}x{TILE_W} "
-                         f"tiles, got {tile_h}x{tile_w}")
 
 
 def _check_params(name, t, device):
@@ -136,7 +154,8 @@ def gradient_plain(data1, data2, *, height: int, width_pad: int, height_pad: int
 
 def background_gradient_kernel(data1, data2, *, height: int, width_pad: int,
                                height_pad: int):
-    """Launch the gradient CUDA kernel on CUDA tensors."""
+    """Launch the gradient CUDA kernel on CUDA tensors, every argument
+    checked here."""
     dev = data1.device
     if dev.type != "cuda":
         raise ValueError(f"background_gradient_kernel takes CUDA tensors, got {dev}")
@@ -144,9 +163,8 @@ def background_gradient_kernel(data1, data2, *, height: int, width_pad: int,
     _check_params("data1", data1, dev)
     _check_params("data2", data2, dev)
     out = torch.empty((4, height_pad, width_pad), dtype=torch.float32, device=dev)
-    _launch("background_gradient_launch", _ptr(data1), _ptr(data2),
-            ctypes.c_int(height), ctypes.c_int(width_pad), ctypes.c_int(height_pad),
-            _ptr(out), _stream(dev))
+    _launch("background_gradient_launch", data1.data_ptr(), data2.data_ptr(), height,
+            width_pad, height_pad, out.data_ptr(), _raw_stream(dev))
     gradient_counter.launches += 1
     return out
 
@@ -156,14 +174,15 @@ def gradient(data1, data2, *, height: int, width_pad: int, height_pad: int,
     """The (4, height_pad, width_pad) f32 gradient background: data1 at the
     top row, towards data2 at row `height`. data1, data2: (4,) f32 tensors
     on one device. CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    kernel (whose launcher checks the arguments)."""
     dev = data1.device
+    extent = dict(height=height, width_pad=width_pad, height_pad=height_pad)
+    if dev.type == "cuda":
+        _check_tile(tile_h, tile_w)
+        return background_gradient_kernel(data1, data2, **extent)
     _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
     _check_params("data1", data1, dev)
     _check_params("data2", data2, dev)
-    extent = dict(height=height, width_pad=width_pad, height_pad=height_pad)
-    if dev.type == "cuda":
-        return background_gradient_kernel(data1, data2, **extent)
     return gradient_plain(data1, data2, **extent)
 
 
@@ -206,19 +225,19 @@ def sky_plain(data1, *, height: int, width_pad: int, height_pad: int):
 
 
 def background_sky_kernel(data1, *, height: int, width_pad: int, height_pad: int):
-    """Launch the sky CUDA kernel on a CUDA tensor. The per-pixel work runs
-    on the card; the lattice's four cosine vectors (width_pad, width_pad,
-    height_pad, height_pad floats) come from the host's cosf."""
+    """Launch the sky CUDA kernel on a CUDA tensor, every argument checked
+    here. The per-pixel work runs on the card; the lattice's cosines
+    (width_pad + 1 and height_pad + 1 floats, _sky_lattice) come from the
+    host's cosf."""
     dev = data1.device
     if dev.type != "cuda":
         raise ValueError(f"background_sky_kernel takes CUDA tensors, got {dev}")
     _check_extent(height, width_pad, height_pad, TILE_H, TILE_W, dev)
     _check_params("data1", data1, dev)
-    tables = _sky_tables(height_pad, width_pad, dev)
+    lat_x, lat_y = _sky_lattice(height_pad, width_pad, dev)
     out = torch.empty((4, height_pad, width_pad), dtype=torch.float32, device=dev)
-    _launch("background_sky_launch", _ptr(data1), *(_ptr(t) for t in tables),
-            ctypes.c_int(height), ctypes.c_int(width_pad), ctypes.c_int(height_pad),
-            _ptr(out), _stream(dev))
+    _launch("background_sky_launch", data1.data_ptr(), lat_x.data_ptr(), lat_y.data_ptr(),
+            height, width_pad, height_pad, out.data_ptr(), _raw_stream(dev))
     sky_counter.launches += 1
     return out
 
@@ -227,13 +246,15 @@ def sky(data1, *, height: int, width_pad: int, height_pad: int,
         tile_h: int = TILE_H, tile_w: int = TILE_W):
     """The (4, height_pad, width_pad) f32 sky background. data1: (4,) f32
     tensor, rgb of the gradient at row `height` and the star threshold. A
-    CPU tensor takes the plain version, a CUDA tensor the kernel."""
+    CPU tensor takes the plain version, a CUDA tensor the kernel (whose
+    launcher checks the arguments)."""
     dev = data1.device
-    _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
-    _check_params("data1", data1, dev)
     extent = dict(height=height, width_pad=width_pad, height_pad=height_pad)
     if dev.type == "cuda":
+        _check_tile(tile_h, tile_w)
         return background_sky_kernel(data1, **extent)
+    _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
+    _check_params("data1", data1, dev)
     return sky_plain(data1, **extent)
 
 
@@ -259,7 +280,8 @@ def grid_gradient_plain(*, height: int, width: int, width_pad: int, height_pad: 
 
 def background_grid_kernel(*, height: int, width: int, width_pad: int,
                            height_pad: int, device="cuda"):
-    """Launch the grid-gradient CUDA kernel on a CUDA device."""
+    """Launch the grid-gradient CUDA kernel on a CUDA device, every argument
+    checked here."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"background_grid_kernel takes a CUDA device, got {dev}")
@@ -267,9 +289,8 @@ def background_grid_kernel(*, height: int, width: int, width_pad: int,
     if width < 1:
         raise ValueError(f"width must be positive, got {width}")
     out = torch.empty((4, height_pad, width_pad), dtype=torch.float32, device=dev)
-    _launch("background_grid_launch", ctypes.c_int(height), ctypes.c_int(width),
-            ctypes.c_int(width_pad), ctypes.c_int(height_pad), _ptr(out),
-            _stream(out.device))
+    _launch("background_grid_launch", height, width, width_pad, height_pad, out.data_ptr(),
+            _raw_stream(dev))
     grid_counter.launches += 1
     return out
 
@@ -277,12 +298,14 @@ def background_grid_kernel(*, height: int, width: int, width_pad: int,
 def grid_gradient(*, height: int, width: int, width_pad: int, height_pad: int,
                   tile_h: int = TILE_H, tile_w: int = TILE_W, device="cuda"):
     """The (4, height_pad, width_pad) f32 grid-gradient background on
-    `device`: the plain version on the CPU, the kernel on CUDA."""
+    `device`: the plain version on the CPU, the kernel on CUDA (whose
+    launcher checks the arguments)."""
     dev = torch.device(device)
+    extent = dict(height=height, width=width, width_pad=width_pad, height_pad=height_pad)
+    if dev.type == "cuda":
+        _check_tile(tile_h, tile_w)
+        return background_grid_kernel(device=dev, **extent)
     _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
     if width < 1:
         raise ValueError(f"width must be positive, got {width}")
-    extent = dict(height=height, width=width, width_pad=width_pad, height_pad=height_pad)
-    if dev.type == "cuda":
-        return background_grid_kernel(device=dev, **extent)
     return grid_gradient_plain(device=dev, **extent)

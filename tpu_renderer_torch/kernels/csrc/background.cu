@@ -12,14 +12,22 @@
 // (gradient.comp:11-28).
 //
 // What bounds them on the H100: bytes. Each writes 16 B a pixel and reads
-// next to nothing (two 4-float parameter vectors; for the sky four cosine
-// vectors of Wp or Hp floats, which stay in L1/L2), against at most ~60
-// float operations a pixel for the sky and a handful for the others.
-// What the design does about it: one thread computes 4 neighbouring pixels
-// of a row in registers and writes each of the 4 planes with one 16-byte
-// store, a warp covering one 512-byte row segment per plane; no shared
-// memory, no intermediate plane ever reaches device memory (the plain
-// PyTorch version writes some forty).
+// next to nothing (two 4-float parameter vectors; for the sky its lattice
+// cosines, Wp + 1 and Hp + 1 floats, which stay in L1/L2), against at most
+// ~60 float operations a pixel for the sky and a handful for the others.
+// A lane computes 4 neighbouring pixels of a row in registers and writes
+// each of the 4 planes with one 16-byte store, a warp covering one
+// 128-pixel row segment, 512 contiguous bytes a plane; no shared memory,
+// no intermediate plane ever reaches device memory (the plain PyTorch
+// version writes some forty).
+//
+// 2.9 and 2.10 give each warp one 128-pixel row segment (the warps of a
+// block take neighbouring segments of a row, then the next row's) and store
+// with the streaming hint. 2.9 computes its four mix values once a lane;
+// 2.10 computes each lattice star once a lane: pixel (x, y) blends the
+// stars at lattice points (x | x+1, y | y+1), so a lane's 4 pixels share
+// the 10 stars of columns x..x+4 on rows y and y+1 instead of taking 16.
+// 2.11 keeps one 4-pixel step a lane over a block a (row band, segment).
 //
 // Rounding is spelled out as in the raster kernels: the library builds with
 // -fmad=false, every fused multiply-add the JAX reference has on the CPU is
@@ -27,8 +35,8 @@
 // intrinsic, and a division by a constant extent is a multiply by its f32
 // reciprocal, as XLA evaluates it. The sky's lattice cosines are not taken
 // here: CUDA's cosf is not the C library's, an ulp of which 415.9x
-// amplifies into another star, so the host evaluates them (2 Wp + 2 Hp
-// values) and the kernel reads them; everything per pixel runs here.
+// amplifies into another star, so the host evaluates them and the kernel
+// reads them; everything per pixel runs here.
 
 #include <cuda_runtime.h>
 
@@ -36,11 +44,14 @@ namespace {
 
 constexpr int TILE_H = 32;     // the frame's raster tile: the padded extent
 constexpr int TILE_W = 128;    // is whole tiles
-constexpr int VEC = 4;         // pixels a thread, one float4 store a plane
-constexpr int BLOCK_X = TILE_W / VEC;   // 32 threads: one 128-pixel row segment
-constexpr int BLOCK_Y = 8;              // rows a block
+constexpr int VEC = 4;         // pixels a lane, one float4 store a plane
+constexpr int BLOCK_X = TILE_W / VEC;   // 32 lanes: one 128-pixel row segment
+constexpr int BLOCK_Y = 8;              // 2.11: rows a block
+constexpr int SEGMENT_WARPS = 8;        // 2.9, 2.10: warps (row segments) a block
 constexpr int GRID_CELL = 16;           // gradient.comp's workgroup edge
 static_assert(TILE_H % BLOCK_Y == 0, "a block's rows divide the tile height");
+static_assert(BLOCK_X == 32, "a row segment is one warp");
+static_assert(TILE_H % SEGMENT_WARPS == 0, "2.9, 2.10: the row segments are whole blocks");
 
 __device__ __forceinline__ float recip(int n) {
   return __fdiv_rn(1.0f, static_cast<float>(n));
@@ -53,20 +64,39 @@ __device__ __forceinline__ void store4(float* plane, size_t p, float a, float b,
   *reinterpret_cast<float4*>(plane + p) = make_float4(a, b, c, d);
 }
 
-// The first pixel of this thread and its offset in a plane.
+// 2.9, 2.10: the same store with the streaming hint (evict first): nothing
+// reads the buffer back in the kernel, and on the H100 it measured ~0.3 us
+// faster than store4 (tools/time_background.py)
+__device__ __forceinline__ void stream4(float* plane, size_t p, float a, float b, float c,
+                                        float d) {
+  __stcs(reinterpret_cast<float4*>(plane + p), make_float4(a, b, c, d));
+}
+
+// 2.11: the first pixel of this thread and its offset in a plane.
 __device__ __forceinline__ void thread_pixel(int wp, int* x, int* y, size_t* p) {
   *x = (blockIdx.x * BLOCK_X + threadIdx.x) * VEC;
   *y = blockIdx.y * BLOCK_Y + threadIdx.y;
   *p = static_cast<size_t>(*y) * wp + *x;
 }
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+// 2.9, 2.10: this lane's first pixel. Warp g of the launch takes the row
+// segment g % segs of row g / segs; the padded extent's segments are whole
+// blocks of SEGMENT_WARPS warps.
+__device__ __forceinline__ void segment_pixel(int wp, int* x, int* y, size_t* p) {
+  const int segs = wp / TILE_W;
+  const int g = blockIdx.x * SEGMENT_WARPS + threadIdx.x / BLOCK_X;
+  *y = g / segs;
+  *x = (g - *y * segs) * TILE_W + (threadIdx.x % BLOCK_X) * VEC;
+  *p = static_cast<size_t>(*y) * wp + *x;
+}
+
+__global__ void __launch_bounds__(BLOCK_X * SEGMENT_WARPS)
 background_gradient_kernel(const float* __restrict__ data1,
                            const float* __restrict__ data2, int height, int wp, int hp,
                            float* __restrict__ out) {
   int x, y;
   size_t p;
-  thread_pixel(wp, &x, &y, &p);
+  segment_pixel(wp, &x, &y, &p);
   const size_t plane = static_cast<size_t>(hp) * wp;
   const float blend = __fmul_rn(static_cast<float>(y), recip(height));
   const float rest = __fsub_rn(1.0f, blend);
@@ -75,7 +105,7 @@ background_gradient_kernel(const float* __restrict__ data1,
     // mix(d1, d2, a) = d1 * (1 - a) + d2 * a, contracted as fma(d2, a, d1 * (1 - a))
     const float mix = __fmaf_rn(data2[c], blend, __fmul_rn(data1[c], rest));
     const float v = __fadd_rn(mix, 0.0f);   // the broadcast add: -0 becomes +0
-    store4(out + c * plane, p, v, v, v, v);
+    stream4(out + c * plane, p, v, v, v, v);
   }
 }
 
@@ -90,50 +120,53 @@ __device__ __forceinline__ float star(float cx, float cy, float threshold, float
   return v >= threshold ? shaped : 0.0f;
 }
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
-background_sky_kernel(const float* __restrict__ data1, const float* __restrict__ cx0,
-                      const float* __restrict__ cx1, const float* __restrict__ cy0,
-                      const float* __restrict__ cy1, int height, int wp, int hp,
+// lat_x: the lattice's column cosines, Wp + 1 (column i's is cos(floor(i +
+// 0.2) * 37)); lat_y: its row cosines, Hp + 1 (cos(floor(j - 0.06) * 57)).
+// Pixel (x, y) blends the stars of columns x, x+1 and rows y, y+1.
+__global__ void __launch_bounds__(BLOCK_X * SEGMENT_WARPS)
+background_sky_kernel(const float* __restrict__ data1, const float* __restrict__ lat_x,
+                      const float* __restrict__ lat_y, int height, int wp, int hp,
                       float* __restrict__ out) {
   int x, y;
   size_t p;
-  thread_pixel(wp, &x, &y, &p);
+  segment_pixel(wp, &x, &y, &p);
   const size_t plane = static_cast<size_t>(hp) * wp;
   const float threshold = data1[3];
   const float span = __fsub_rn(1.0f, threshold);
-  const float yf = static_cast<float>(y);
+  // the lane's 5 lattice cosines, columns x..x+4, and the stars of lattice
+  // rows y (above) and y+1 (below) on them
+  const float4 b = *reinterpret_cast<const float4*>(lat_x + x);
+  const float cx[VEC + 1] = {b.x, b.y, b.z, b.w, lat_x[x + VEC]};
+  const float cy0 = lat_y[y], cy1 = lat_y[y + 1];
+  float above[VEC + 1], below[VEC + 1];
+#pragma unroll
+  for (int j = 0; j <= VEC; ++j) {
+    above[j] = star(cx[j], cy0, threshold, span);
+    below[j] = star(cx[j], cy1, threshold, span);
+  }
   // sky.comp:67-69: crawl offset (0.2, -0.06) * frame 1
+  const float yf = static_cast<float>(y);
   const float fy = fract(__fadd_rn(yf, -0.06f));
   const float ry = __fsub_rn(1.0f, fy);
-  const float a0 = cy0[y], a1 = cy1[y];
-  const float4 b0 = *reinterpret_cast<const float4*>(cx0 + x);
-  const float4 b1 = *reinterpret_cast<const float4*>(cx1 + x);
-  const float c0[VEC] = {b0.x, b0.y, b0.z, b0.w};
-  const float c1[VEC] = {b1.x, b1.y, b1.z, b1.w};
-
   float st[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
     const float fx = fract(__fadd_rn(static_cast<float>(x + i), 0.2f));
     const float rx = __fsub_rn(1.0f, fx);
     // bilinear blend of the 4 lattice stars (sky.comp:36-54)
-    const float v1 = star(c0[i], a0, threshold, span);
-    const float v2 = star(c0[i], a1, threshold, span);
-    const float v3 = star(c1[i], a0, threshold, span);
-    const float v4 = star(c1[i], a1, threshold, span);
-    float s = __fmaf_rn(__fmul_rn(v1, rx), ry, __fmul_rn(__fmul_rn(v2, rx), fy));
-    s = __fmaf_rn(__fmul_rn(v3, fx), ry, s);
-    st[i] = __fmaf_rn(__fmul_rn(v4, fx), fy, s);
+    float s = __fmaf_rn(__fmul_rn(above[i], rx), ry, __fmul_rn(__fmul_rn(below[i], rx), fy));
+    s = __fmaf_rn(__fmul_rn(above[i + 1], fx), ry, s);
+    st[i] = __fmaf_rn(__fmul_rn(below[i + 1], fx), fy, s);
   }
-  // sky.comp:60: rgb * y / height as (rgb * (1 / height)) * y, then + star
+  // sky.comp:60: rgb * y / height as (rgb * (1 / height)) * y
   const float r = recip(height);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float g = __fmul_rn(__fmul_rn(data1[c], r), yf);
-    store4(out + c * plane, p, __fadd_rn(g, st[0]), __fadd_rn(g, st[1]),
-           __fadd_rn(g, st[2]), __fadd_rn(g, st[3]));
+    stream4(out + c * plane, p, __fadd_rn(g, st[0]), __fadd_rn(g, st[1]),
+            __fadd_rn(g, st[2]), __fadd_rn(g, st[3]));
   }
-  store4(out + 3 * plane, p, 1.0f, 1.0f, 1.0f, 1.0f);
+  stream4(out + 3 * plane, p, 1.0f, 1.0f, 1.0f, 1.0f);
 }
 
 __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
@@ -159,11 +192,19 @@ background_grid_kernel(int height, int width, int wp, int hp, float* __restrict_
   store4(out + 3 * plane, p, 1.0f, 1.0f, 1.0f, 1.0f);
 }
 
-// The launch grid over a padded extent, or false when the extent is not
+// 2.11's launch grid over a padded extent, or false when the extent is not
 // whole tiles (the kernels have no edge masks).
 bool launch_grid(int wp, int hp, dim3* grid) {
   if (wp <= 0 || hp <= 0 || wp % TILE_W != 0 || hp % TILE_H != 0) return false;
   *grid = dim3(wp / TILE_W, hp / BLOCK_Y);
+  return true;
+}
+
+// 2.9 and 2.10's: one warp a row segment, SEGMENT_WARPS a block; false
+// when the extent is not whole tiles.
+bool segment_grid(int wp, int hp, dim3* grid) {
+  if (!launch_grid(wp, hp, grid)) return false;
+  *grid = dim3(static_cast<unsigned>(wp / TILE_W * (hp / SEGMENT_WARPS)));
   return true;
 }
 
@@ -175,20 +216,21 @@ extern "C" int background_gradient_launch(const float* data1, const float* data2
                                           int height, int wp, int hp, float* out,
                                           void* stream) {
   dim3 grid;
-  if (!launch_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
-  background_gradient_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      data1, data2, height, wp, hp, out);
+  if (!segment_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  background_gradient_kernel<<<grid, BLOCK_X * SEGMENT_WARPS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(data1, data2, height,
+                                                                    wp, hp, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int background_sky_launch(const float* data1, const float* cx0,
-                                     const float* cx1, const float* cy0,
-                                     const float* cy1, int height, int wp, int hp,
+extern "C" int background_sky_launch(const float* data1, const float* lat_x,
+                                     const float* lat_y, int height, int wp, int hp,
                                      float* out, void* stream) {
   dim3 grid;
-  if (!launch_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
-  background_sky_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      data1, cx0, cx1, cy0, cy1, height, wp, hp, out);
+  if (!segment_grid(wp, hp, &grid)) return static_cast<int>(cudaErrorInvalidValue);
+  background_sky_kernel<<<grid, BLOCK_X * SEGMENT_WARPS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(data1, lat_x, lat_y, height,
+                                                               wp, hp, out);
   return static_cast<int>(cudaGetLastError());
 }
 

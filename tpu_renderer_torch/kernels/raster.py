@@ -58,6 +58,7 @@ the JAX package's layout, so bins from either package read the same.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -525,10 +526,16 @@ def _check_aligned(rows):
         raise ValueError("rows must start on a 16-byte boundary")
 
 
+@functools.cache
+def _entry(fn_name):
+    """The kernel library's C entry point `fn_name`, looked up once (the
+    library is built and loaded at the first lookup)."""
+    return getattr(_build.load_library(), fn_name)
+
+
 def _launch(fn_name, *args):
     """Call one C entry point of the kernel library; raise on a CUDA error."""
-    lib = _build.load_library()
-    err = getattr(lib, fn_name)(*args)
+    err = _entry(fn_name)(*args)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: {_build.error_string(err)}")
 
@@ -537,8 +544,16 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _raw_stream(device) -> int:
+    """The handle of the current CUDA stream of `device`, by torch's own
+    raw query (a few hundred ns; torch.cuda.current_stream builds a Stream
+    object first, 5-10 us a call on the H100's host)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return ctypes.c_void_p(_raw_stream(device))
 
 
 class _Counter:

@@ -22,16 +22,20 @@ each chunk bin expanded to the per-triangle bin of every member of its
 chunks (oracle_call; chip_smoke.py's cross-checks hold them to 2.2 and 2.3
 on the same calls). The peels are timed on their first
 call and on a later one (the middle layer). Each kernel is
-timed on those inputs (CUDA events around one call, the median of --runs
-calls after two warm-up calls), then again with every tile's count cut to 0
-entries (what the launch, the merge and the epilogue cost alone) and to
-the mean count (the dense tiles' tails cut off). Prints one JSON line per
-frame, kernel, call and cut (ms, entries, max a tile), then the card's name
-and power limit.
+timed on those inputs (ms: CUDA events around one call, the median of
+--runs calls after two warm-up calls, the wrapper's host time before the
+launch included; device_ms: the card's time alone, CUDA events around the
+replay of a CUDA graph of 50 calls, over the count; utils/timing.py's
+event_ms and device_ms), then again with every tile's count cut
+to 0 entries (what the launch, the merge and the epilogue cost alone) and
+to the mean count (the dense tiles' tails cut off). Prints one JSON line
+per frame, kernel, call and cut (ms, device_ms, entries, max a tile), then
+the card's name and power limit.
 
 It calls only those wrappers, utils.bench_frame's engines and
-deferred_inputs, so the same file times another checkout of the package
-placed first on PYTHONPATH:
+deferred_inputs, and utils/timing.py, so the same file times another
+checkout of the package placed first on PYTHONPATH (copy utils/timing.py
+into one that lacks it):
 
     PYTHONPATH=path/to/other/checkout python3 tpu_renderer_torch/tools/time_stream_kernels.py
 
@@ -44,7 +48,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import sys
 import tempfile
 
@@ -53,6 +56,7 @@ import torch
 from tpu_renderer_torch.kernels import raster
 from tpu_renderer_torch.tools.profile_raster import deferred_inputs
 from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine, nvidia_smi, path_engine
+from tpu_renderer_torch.utils.timing import device_ms, event_ms
 
 # frame -> the kernels timed on it
 FRAMES = {
@@ -120,23 +124,6 @@ def gathered_calls(tmp: str) -> dict:
     return out
 
 
-def kernel_ms(fn, runs: int) -> float:
-    """Median ms of fn() by CUDA events over `runs` calls."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def frame_engine(frame: str, tmp: str):
     if frame in ("bench", "stress"):
         grid = BENCH["grid"] if frame == "bench" else 2 * BENCH["grid"]
@@ -194,7 +181,8 @@ def main(argv=None) -> int:
                         print(json.dumps({
                             "label": args.label, "frame": frame, "kernel": name,
                             "call": f"{which} ({i} of {len(calls)})", "counts_cut_to": cap,
-                            "ms": kernel_ms(lambda: kernel(*b, **kw), args.runs),
+                            "ms": event_ms(lambda: kernel(*b, **kw), args.runs),
+                            "device_ms": device_ms(lambda: kernel(*b, **kw)),
                             "runs": args.runs,
                             "entries": int(cut.clamp(max=bins.shape[1]).sum()),
                             "max_a_tile": int(cut.max()), "bins": list(bins.shape)}),
