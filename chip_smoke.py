@@ -94,11 +94,25 @@ Drives tpu_renderer_torch's paths on the card and checks them:
 13. the bench (tpu_renderer_torch.bench.main --frames 20) in-process: its
    JSON line; 2.1 and 2.2 must launch in every frame of every variant, and
    trilinear_auto_scale must lie in [auto_scale_min, 1];
-14. prints each phase's seconds as it ends ([time] lines), then a JSON
+14. the multi-device frame (tpu_renderer_torch/parallel/multichip.py)
+   on the bench scene at 1920x1080, each mesh's ranks started by
+   multichip.launch after the kernel library is built here: (1, 1) over
+   nccl, (2, 1), (1, 2) and (2, 2) over gloo with the ranks sharing the
+   one card, all on the fused path; the deferred frame at (2, 1), (1, 2)
+   and (2, 2); the textured-glass frame at (2, 2). Each rank zeroes its
+   counters before a path and reports them after: the path's kernels (2.1
+   and 2.2; 2.1 and 2.3; 2.4 and 2.5; and 2.9, the background) must have
+   launched on every rank. Each image is held to the single-device frame
+   of its path: (1, 1) byte for byte, every other mesh within FRAME_TOL
+   of the pixels by one u8 step; the differing pixels, the largest step,
+   the frame ms (median of 5, rank 0) and the collectives' share of a
+   frame are printed, and collected on a {"multichip": [...]} line;
+15. prints each phase's seconds as it ends ([time] lines), then a JSON
    line of per-kernel results (launches on its path, max_abs_err against
    the plain version, ms and plain ms, the bound from this run's inputs,
    the library call's ms where there is one; besides, device_ms and
-   host_ms), the nvidia-smi line, and, last, {"ok": true, "device": {...}}.
+   host_ms) after phase 14's line, the nvidia-smi line, and, last,
+   {"ok": true, "device": {...}}.
 
 Kernel times: "ms" is 2.1-2.8's CUDA events around one call of the
 wrapper on an idle card (its host time up to the launch, then the kernel),
@@ -1416,6 +1430,141 @@ def bench_phase():
           f"trilinear_auto_scale {scale}", flush=True)
 
 
+# Phase 14: each mesh and the paths it runs; every mesh renders the bench
+# scene at full width, its ranks sharing the one card
+MESH_PATHS = {(1, 1): ("bench",), (2, 1): ("bench", "deferred"),
+              (1, 2): ("bench", "deferred"),
+              (2, 2): ("bench", "textured-glass", "deferred")}
+# the kernels each path must launch on every rank (2.9: the background, at
+# the first frame)
+MESH_KERNELS = {"bench": ("raster_fused_kernel", "raster_accum_kernel",
+                          "background_gradient_kernel"),
+                "textured-glass": ("raster_fused_kernel", "raster_peel_fused_kernel",
+                                   "background_gradient_kernel"),
+                "deferred": ("raster_deferred_kernel", "raster_peel_kernel",
+                             "background_gradient_kernel")}
+MESH_FRAMES = 5
+
+
+def mesh_engine(path, scene_path, **config):
+    """The engine of a path on the bench scene (its GLB already written)."""
+    from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.utils.bench_frame import bench_engine, texture_the_glass
+
+    scene = load_scene(scene_path)
+    if path == "textured-glass":
+        scene = texture_the_glass(scene)
+    return bench_engine(scene_path, scene=scene, fused=path != "deferred", **config)
+
+
+def mesh_rank(rank, scene_path, mesh_shape, paths):
+    """One rank of phase 14: for each path, the counters zeroed, one draw()
+    (the background kernel and the caps settle here), MESH_FRAMES
+    synchronised frames, then MESH_FRAMES more with the collectives timed;
+    the counters read. Returns, from rank 0, each path's image and every
+    rank's launches and times."""
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    for path in paths:
+        eng = mesh_engine(path, scene_path, multichip=mesh_shape)
+        mesh = eng.mesh
+        reset_counters()
+        image = eng.draw()
+        times, coll, timed = [], [], []
+        for timing in (False, True):
+            mesh.timing = timing
+            for _ in range(MESH_FRAMES):
+                c0 = mesh.collective_ms
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.draw_device()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1000.0
+                (timed if timing else times).append(ms)
+                if timing:
+                    coll.append(mesh.collective_ms - c0)
+        mine = dict(launches=read_counters(), frame_ms=statistics.median(times),
+                    timed_ms=statistics.median(timed),
+                    collective_ms=statistics.median(coll),
+                    collectives=mesh.collectives // MESH_FRAMES,
+                    backend=mesh.backend, device=str(mesh.device),
+                    caps=dict(eng._caps))
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        out.append(dict(path=path, image=image if rank == 0 else None, ranks=ranks))
+        del eng, mesh
+    return out
+
+
+def multichip_phase(scene_path, lines):
+    """Phase 14: the multi-device frame (tpu_renderer_torch/parallel/
+    multichip.py) on the bench scene at 1920x1080, each mesh started by
+    multichip.launch with the kernel library built here: (1, 1) over nccl,
+    (2, 1), (1, 2) and (2, 2) over gloo with the ranks sharing the one
+    card, all fused; the deferred frame (2.4, 2.5) at (2, 1), (1, 2) and
+    (2, 2); at (2, 2) also the textured-glass frame (2.3 under the MIN
+    election). Each path's kernels
+    must have launched on every rank; each mesh image is held to the
+    single-device frame of its path: (1, 1) byte for byte, every other
+    mesh within FRAME_TOL of the pixels by one u8 step. Frame ms: the median
+    of MESH_FRAMES synchronised frames on rank 0; the collectives' share:
+    their host ms (the card synchronised around each) over the frame ms of
+    MESH_FRAMES more frames so timed."""
+    import torch
+    from tpu_renderer_torch.parallel import multichip
+
+    single = {}
+    for path in ("bench", "textured-glass", "deferred"):
+        eng = mesh_engine(path, scene_path)
+        single[path] = eng.draw()      # deferred: escalates the caps and redraws
+        del eng
+    torch.cuda.empty_cache()
+    for shape, paths in MESH_PATHS.items():
+        n = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        results = multichip.launch(mesh_rank, n, device="cuda",
+                                   args=(scene_path, shape, paths))
+        for r in results:
+            path, ranks = r["path"], r["ranks"]
+            for i, rk in enumerate(ranks):
+                for k in MESH_KERNELS[path]:
+                    assert rk["launches"][k] > 0, \
+                        f"mesh {shape} {path}: {k} never launched on rank {i}"
+            image, want = r["image"], single[path]
+            differ = np.any(image != want, axis=-1)
+            step = int(np.abs(image.astype(np.int32) - want.astype(np.int32)).max())
+            lead = ranks[0]
+            share = lead["collective_ms"] / lead["timed_ms"]
+            line = dict(mesh=f"{shape[0]}x{shape[1]}", path=path, ranks=n,
+                        backend=lead["backend"], devices=sorted({k["device"] for k in ranks}),
+                        ranks_share_one_card=n > torch.cuda.device_count(),
+                        differing_pixels=int(differ.sum()), max_u8_step=step,
+                        frame_ms=lead["frame_ms"], timed_frame_ms=lead["timed_ms"],
+                        collective_ms=lead["collective_ms"], collective_share=share,
+                        collectives_a_frame=lead["collectives"], caps=lead["caps"],
+                        launches=[{k: rk["launches"][k] for k in MESH_KERNELS[path]}
+                                  for rk in ranks])
+            lines.append(line)
+            print(f"[multichip] {line['mesh']} {path}: {lead['backend']} on "
+                  f"{line['devices']}" + (f", {n} ranks sharing one card (not a scaling "
+                                          f"number)" if line["ranks_share_one_card"] else "")
+                  + f"; {int(differ.sum())} of {differ.size} pixels differ from the "
+                  f"single-device frame, largest step {step}; frame {lead['frame_ms']:.3f} "
+                  f"ms (median of {MESH_FRAMES}, rank 0), collectives {lead['collective_ms']:.3f} "
+                  f"of {lead['timed_ms']:.3f} ms timed ({100 * share:.1f}%, "
+                  f"{lead['collectives']} a frame); launches a rank {line['launches']}",
+                  flush=True)
+            if shape == (1, 1):
+                assert lead["backend"] == "nccl", lead["backend"]
+                assert np.array_equal(image, want), f"mesh (1, 1) {path} differs"
+            else:
+                assert lead["backend"] == "gloo", lead["backend"]
+                assert differ.mean() <= FRAME_TOL and step <= 1, (shape, path, int(differ.sum()), step)
+        print(f"[multichip] mesh {shape} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1464,8 +1613,11 @@ def main() -> int:
     del inputs
     phase(profile_tool_phase, results)
     phase(bench_phase)
+    multichip_lines = []
+    phase(multichip_phase, scene_path, multichip_lines)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(json.dumps({"multichip": multichip_lines}))
     print(json.dumps({"kernels": [results[n] for n in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

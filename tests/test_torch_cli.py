@@ -128,13 +128,6 @@ def test_target_fps_flag_runs(tmp_path, target, scale):
         np.testing.assert_array_equal(b, load_png(scaled))
 
 
-@pytest.mark.parametrize("flag,value,item", [("--multichip", "2x1", "Queue 1 item 11")])
-def test_unported_flags_exit_with_the_roadmap_item(capsys, flag, value, item):
-    assert cli.main(["demo", "--grid", "2", *SMALL, flag, value]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"ROADMAP.md {item}" in err
-
-
 def test_bad_multichip_spec_exits():
     with pytest.raises(SystemExit, match="ROWSxTRI"):
         cli.main(["demo", "--grid", "2", *SMALL, "--multichip", "fast"])

@@ -5,7 +5,9 @@ the gathered oracles 2.6-2.8, the background passes 2.9-2.11) against its
 plain PyTorch version, bit for bit, each stream kernel against its gathered
 oracle, and Engine frames on the card (the fused path, textured transparency,
 the deferred path, the render scale, the pipelined draw) against the same
-frames on the CPU. They skip without a CUDA device; run them on a machine with an
+frames on the CPU, and the multi-device frame on the card (a (1, 1) mesh
+over nccl, a (2, 1) mesh over gloo with both ranks on the one card, and
+gloo's collectives on CUDA tensors) against the single-device frame. They skip without a CUDA device; run them on a machine with an
 sm_90a card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -843,3 +845,93 @@ def test_draw_pipelined_on_card_lags_draw_by_two(cuda, tmp_path):
     np.testing.assert_array_equal(eng.flush_pipelined(), want[6])
     cells = [eng.draw_pipelined(present_cells=(40, 6)) for _ in range(3)][2]
     assert cells.shape == (12, 40, 4)
+
+
+def _card_mesh_rank(rank, path, mesh_shape, fused):
+    """A rank of a mesh on the card: the demo frame through
+    Engine(multichip=...), the group's backend, the rank's device, and the
+    device type of every tensor this rank handed to a collective."""
+    import torch.distributed as dist
+
+    seen = []
+    reduce, gather = dist.all_reduce, dist.all_gather
+
+    def all_reduce(t, *a, **k):
+        seen.append(t.device.type)
+        return reduce(t, *a, **k)
+
+    def all_gather(parts, t, *a, **k):
+        seen.append(t.device.type)
+        return gather(parts, t, *a, **k)
+
+    dist.all_reduce, dist.all_gather = all_reduce, all_gather
+    try:
+        eng = _demo_engine(path, "cuda", multichip=mesh_shape, fused=fused)
+        image = eng.draw()
+    finally:
+        dist.all_reduce, dist.all_gather = reduce, gather
+    return image, dist.get_backend(), str(eng.device), sorted(set(seen))
+
+
+@pytest.mark.parametrize("mesh_shape,fused,backend", [
+    ((1, 1), True, "nccl"), ((2, 1), False, "gloo"), ((2, 1), True, "gloo")])
+def test_mesh_on_the_card_equals_the_single_device_frame(cuda, tmp_path, mesh_shape,
+                                                         fused, backend):
+    """(1, 1) runs nccl and is byte for byte the single-device frame; (2, 1)
+    on one card runs gloo with both ranks on cuda:0, hands the collectives
+    CUDA tensors (nothing staged through host memory), and is within the
+    frame bound (0.1% of pixels by one u8 step) on either path: its second
+    band's planes are rebased to band-local y, which rounds an edge or a
+    1/den differently at a few pixels (measured: 1 pixel of this deferred
+    frame)."""
+    from tpu_renderer_torch.parallel import multichip
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the backend rule is checked on a host with one card")
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    single = _demo_engine(path, cuda, fused=fused).draw()
+    image, got_backend, device, seen = multichip.launch(
+        _card_mesh_rank, mesh_shape[0] * mesh_shape[1], device="cuda",
+        args=(path, mesh_shape, fused))
+    assert (got_backend, device, seen) == (backend, "cuda:0", ["cuda"])
+    diff = np.any(image != single, axis=-1)
+    print(f"{mesh_shape} fused={fused}: {int(diff.sum())} of {diff.size} pixels differ")
+    if mesh_shape == (1, 1):
+        np.testing.assert_array_equal(image, single)
+    assert diff.mean() <= 0.001
+    assert np.abs(image.astype(int) - single.astype(int)).max() <= 1
+
+
+def _gloo_ops_rank(rank):
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dtype in (torch.float32, torch.int32):
+        for op in ("SUM", "MAX", "MIN"):
+            t = torch.full((3, 5), rank + 1, dtype=dtype, device=dev)
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+            out[(op, str(dtype))] = (t.device.type, t.cpu().unique().tolist())
+    parts = [torch.empty(4, device=dev) for _ in range(2)]
+    dist.all_gather(parts, torch.full((4,), rank + 1.0, device=dev))
+    out["all_gather"] = [p.cpu().tolist() for p in parts]
+    return dist.get_backend(), out
+
+
+def test_gloo_takes_cuda_tensors_in_every_collective_the_mesh_calls(cuda):
+    """multichip stages no tensor through host memory: two ranks sharing
+    one card run gloo, which reduces (SUM, MAX, MIN on float32 and int32)
+    and gathers CUDA tensors as they are."""
+    from tpu_renderer_torch.parallel import multichip
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("two ranks share a card only on a host with one card")
+    backend, out = multichip.launch(_gloo_ops_rank, 2, device="cuda")
+    assert backend == "gloo"
+    for dtype in ("torch.float32", "torch.int32"):
+        assert out[("SUM", dtype)] == ("cuda", [3])
+        assert out[("MAX", dtype)] == ("cuda", [2])
+        assert out[("MIN", dtype)] == ("cuda", [1])
+    assert out["all_gather"] == [[1.0] * 4, [2.0] * 4]

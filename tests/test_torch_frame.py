@@ -141,7 +141,7 @@ def test_structure_480p_golden(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("raster_nbuf", 2), ("raster_group", 4),
-    ("multichip", (2, 1)), ("tile_w", 256), ("raster_chunk", 8),
+    ("tile_w", 256), ("raster_chunk", 8),
     ("raster_sort", "morton")])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -149,11 +149,9 @@ def test_unported_config_raises(field, value):
 
 
 def test_unported_paths_raise():
-    """What still raises names its ROADMAP item; the render scale, the HUD,
-    the pipelined draw and target_fps (tests/test_torch_engine.py) no
-    longer do."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        Engine(RendererConfig(multichip=(1, 2)), device="cpu")
+    """The render scale, the HUD, the pipelined draw, target_fps
+    (tests/test_torch_engine.py) and multichip (tests/test_torch_multichip.py)
+    no longer raise."""
     eng = Engine(RendererConfig(width=128, height=64, render_scale=0.5), device="cpu")
     eng.init(scene=milestones.colored_triangle_scene())
     assert eng.draw(hud=True).shape == (64, 128, 4)

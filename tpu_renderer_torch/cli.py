@@ -8,13 +8,18 @@ headless rendering (PNG output), a terminal viewer and a benchmark mode.
     python -m tpu_renderer_torch.cli benchmark --frames 120 --width 1920 --height 1080
 
 Every command renders on the CUDA card; --device cpu is the only way to the
-CPU. Without a card, and for an option the port does not have yet
-(--multichip), the command prints the engine's message and exits 2.
+CPU. Without a card the command prints the engine's message and exits 2.
+
+--multichip ROWSxTRI runs render, demo, view and benchmark in ROWS * TRI
+ranks over a process group (parallel/multichip.launch), each rank the
+command's body with Engine(multichip=(ROWS, TRI)); rank 0 alone writes the
+PNG and prints. milestone renders on one device, as the JAX CLI's does.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -23,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu_renderer_torch import milestones, resources
 from tpu_renderer_torch.config import RendererConfig
@@ -50,8 +56,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="auto quality: draw at the largest render scale the "
                         "engine's cost model predicts reaches this target")
     p.add_argument("--multichip", default=None, metavar="ROWSxTRI",
-                   help="shard the frame over a ROWSxTRI device mesh, e.g. "
-                        "2x4 (not ported yet: the engine refuses it)")
+                   help="shard the frame over a ROWSxTRI mesh of ranks, "
+                        "e.g. 2x4: ROWS row bands by TRI triangle shards")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the scene and the frames live (default: the "
                         "CUDA card; nothing falls back to the CPU)")
@@ -103,19 +109,29 @@ def _wrote(args, eng: Engine) -> None:
           f"{eng.stats.drawcall_count} draws, {eng.stats.mesh_draw_time:.2f} ms)")
 
 
+def _lead() -> bool:
+    """Does this process write the command's output? Rank 0 of a mesh, or
+    the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _save(image, args, eng: Engine) -> None:
+    if _lead():
+        save_png(image, args.out)
+        _wrote(args, eng)
+
+
 def cmd_render(args) -> int:
     eng = _make_engine(args, (30.0, 0.0, -85.0))
     eng.init(scene_path=args.scene, variant=args.variant)
-    save_png(eng.draw(), args.out)
-    _wrote(args, eng)
+    _save(eng.draw(), args, eng)
     return 0
 
 
 def cmd_demo(args) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         eng = _demo_engine(args, tmp)
-    save_png(eng.draw(), args.out)
-    _wrote(args, eng)
+    _save(eng.draw(), args, eng)
     return 0
 
 
@@ -187,7 +203,29 @@ def cmd_view(args) -> int:
     return 0
 
 
+def _rank_command(rank: int, argv) -> int:
+    """One rank of a --multichip command: the command's body, its output
+    from rank 0 alone."""
+    if rank == 0:
+        return main(argv)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return main(argv)
+
+
+def _launch_mesh(args, argv, mesh) -> int:
+    """Run the command in ROWS * TRI ranks (parallel/multichip.launch)."""
+    from tpu_renderer_torch.parallel import multichip
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise NoDeviceError("--multichip runs its ranks on the CUDA card by "
+                            "default and no CUDA device is available: pass "
+                            "--device cpu to run them on the CPU")
+    return multichip.launch(_rank_command, mesh[0] * mesh[1], device=args.device,
+                            args=(argv,))
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(prog="tpu_renderer_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -232,6 +270,9 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     try:
+        mesh = _parse_multichip(args)
+        if mesh is not None and args.fn is not cmd_milestone and not dist.is_initialized():
+            return _launch_mesh(args, argv, mesh)
         return args.fn(args)
     except (NoDeviceError, NotImplementedError) as e:
         print(f"tpu_renderer_torch: {e}", file=sys.stderr)

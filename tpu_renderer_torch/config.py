@@ -78,10 +78,12 @@ class RendererConfig:
     dense_bin_max_chunks: int = 32768
 
     # --- Multi-chip scale-out (no reference counterpart; SURVEY §2.4) ---
-    # (rows, tri): shard the framebuffer row bands over 'rows' devices and
-    # the triangle list over 'tri' devices (parallel/multichip.py). None =
-    # single-chip. When the backend exposes fewer than rows*tri devices,
-    # Engine.init bootstraps a virtual CPU mesh (ensure_devices).
+    # (rows, tri): shard the framebuffer row bands over 'rows' ranks and
+    # the triangle list over 'tri' ranks (tpu_renderer_torch/parallel/
+    # multichip.py), one process a rank. None = one device. Engine.init
+    # needs an initialised process group of rows*tri ranks
+    # (multichip.launch or torchrun); ranks share a card where there are
+    # fewer cards than ranks.
     multichip: Tuple[int, int] | None = None
 
     # --- Raster kernel knobs (ours; see kernels/raster.py) ---

@@ -18,8 +18,13 @@ config.target_fps engages the auto quality: the largest render scale a
 per-pixel cost model, fitted to frames measured on the card, predicts to
 reach the target (_pick_auto_scale).
 
+config.multichip = (rows, tri) renders every frame over a ('rows', 'tri')
+mesh of ranks (parallel/multichip.py): each rank of an initialised process
+group of rows * tri ranks runs its own Engine, and each gets the whole
+frame.
+
 What the port does not have yet raises NotImplementedError naming the
-ROADMAP.md item: multichip, and the tile, chunk, ring-depth and sort knobs.
+ROADMAP.md item: the tile, chunk, ring-depth and sort knobs.
 """
 
 from __future__ import annotations
@@ -68,8 +73,6 @@ def _not_ported(what: str, item: str):
 def _check_config(cfg: RendererConfig) -> None:
     """Raise on every config value the port does not implement."""
     default = RendererConfig()
-    if cfg.multichip is not None:
-        raise _not_ported("multichip", "Queue 1 item 11")
     if (cfg.tile_h, cfg.tile_w) != (raster.TILE_H, raster.TILE_W):
         raise _not_ported(f"tile {cfg.tile_h}x{cfg.tile_w} (the kernels take "
                           f"{raster.TILE_H}x{raster.TILE_W})",
@@ -117,6 +120,7 @@ class Engine:
         self.flat: Optional[scene_mod.FlattenedDrawList] = None
         self.frame_number = 0
         self.current_background_effect = self.config.background_effect
+        self.mesh = None
         self._last_aux = None
         self._params_key = None
         self._bg_key = None
@@ -135,6 +139,13 @@ class Engine:
             raise NoDeviceError(
                 "Engine runs on the CUDA card by default and no CUDA device "
                 "is available: pass device=\"cpu\" to render on the CPU")
+        if self.config.multichip is not None:
+            # the mesh first: it decides the rank's card
+            from tpu_renderer_torch.parallel import multichip
+
+            self.mesh = multichip.make_mesh(*self.config.multichip,
+                                            device=self.device)
+            self.device = self.mesh.device
         if scene is not None:
             self.scene = scene
         elif scene_path is not None:
@@ -288,13 +299,22 @@ class Engine:
         if params is None:
             params = self.update_scene()
         cfg = self.config
-        image, aux = render_frame(
-            self.flat.buffers, params,
-            tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-            fp16=cfg.framebuffer_fp16,
-            transp_textured=self._transp_textured(), fused=self._fused,
-            trilinear=self._trilinear, pot=self._pot,
-            bg_fb=self._bg_fb_cached(params), **self._extents(), **self._caps)
+        statics = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                       fp16=cfg.framebuffer_fp16,
+                       transp_textured=self._transp_textured(), fused=self._fused,
+                       trilinear=self._trilinear, pot=self._pot,
+                       bg_fb=self._bg_fb_cached(params), **self._extents(),
+                       **self._caps)
+        if self.mesh is not None:
+            # the same statics and caps over the mesh; the aux counters
+            # composite over it, so the stats and the cap escalation read
+            # them as the single-device frame's
+            from tpu_renderer_torch.parallel.multichip import render_frame_multichip
+
+            image, aux = render_frame_multichip(self.flat.buffers, params,
+                                                mesh=self.mesh, **statics)
+        else:
+            image, aux = render_frame(self.flat.buffers, params, **statics)
         self.frame_number += 1
         self._last_aux = aux
         return image, aux
@@ -309,10 +329,18 @@ class Engine:
         ext = self._extents()
         key = (self.current_background_effect, ext["width"], ext["height"])
         if self._bg_key != key:
-            self._bg_fb = background_fb(params, width=ext["width"],
-                                        height=ext["height"], tile_h=cfg.tile_h,
-                                        tile_w=cfg.tile_w,
-                                        effect=self.current_background_effect)
+            extent = dict(width=ext["width"], height=ext["height"],
+                          tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                          effect=self.current_background_effect)
+            if self.mesh is not None:
+                # the whole background at the mesh's padded extent; each
+                # rank slices its band from it
+                from tpu_renderer_torch.parallel import multichip
+
+                self._bg_fb = multichip.background_fb(params, mesh=self.mesh,
+                                                      **extent)
+            else:
+                self._bg_fb = background_fb(params, **extent)
             self._bg_key = key
         return self._bg_fb
 

@@ -221,18 +221,18 @@ def shade_fused(attrs, meta, inv, atlas, ambient_rgb, sun_power,
 
 
 def shade_core(t, rows, atlas, ambient_rgb, sun_power, textured: bool = True,
-               trilinear: bool = True, pot: bool = False):
+               trilinear: bool = True, pot: bool = False, y0: int = 0):
     """mesh.frag for a per-pixel triangle index plane t (a valid index
     everywhere; the caller masks pixels that have none) over the fat rows
     (the JAX package's shade.shade_core): one row gather per pixel, then
-    the perspective-correct interpolation numerator * 1/den. Returns
-    (3, Hp, Wp) rgb."""
+    the perspective-correct interpolation numerator * 1/den. t's first row
+    is the frame's row y0 (a multi-device band). Returns (3, Hp, Wp) rgb."""
     hp, wp = t.shape
     dev = t.device
     g = rows[t.long()]                                # (Hp, Wp, 48)
     xx = (torch.arange(wp, dtype=torch.int32, device=dev).to(torch.float32)
           + 0.5)[None, :].expand(hp, wp)
-    yy = (torch.arange(hp, dtype=torch.int32, device=dev).to(torch.float32)
+    yy = (torch.arange(y0, y0 + hp, dtype=torch.int32, device=dev).to(torch.float32)
           + 0.5)[:, None].expand(hp, wp)
 
     def plane(a, b, c):   # a*X + b*Y + c, contracted as XLA does
@@ -253,14 +253,14 @@ def shade_core(t, rows, atlas, ambient_rgb, sun_power, textured: bool = True,
 
 
 def shade(tid, rows, atlas, ambient_rgb, sun_power, background,
-          trilinear: bool = True, pot: bool = False):
+          trilinear: bool = True, pot: bool = False, y0: int = 0):
     """The deferred opaque pass (the JAX package's shade.shade): mesh.frag
-    over the visibility buffer tid (-1 = background); the background
-    (4, Hp, Wp) survives where no triangle won (the LOAD-op attachment).
-    Returns (4, Hp, Wp)."""
+    over the visibility buffer tid (-1 = background; its first row the
+    frame's row y0); the background (4, Hp, Wp) survives where no triangle
+    won (the LOAD-op attachment). Returns (4, Hp, Wp)."""
     valid = tid >= 0
     rgb = shade_core(torch.where(valid, tid, 0), rows, atlas, ambient_rgb,
-                     sun_power, trilinear=trilinear, pot=pot)
+                     sun_power, trilinear=trilinear, pot=pot, y0=y0)
     rgb = torch.where(valid[None], rgb, background[:3])
     alpha = torch.where(valid, torch.ones((), device=tid.device), background[3])
     return torch.cat([rgb, alpha[None]])
