@@ -107,7 +107,18 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    of the pixels by one u8 step; the differing pixels, the largest step,
    the frame ms (median of 5, rank 0) and the collectives' share of a
    frame are printed, and collected on a {"multichip": [...]} line;
-15. prints each phase's seconds as it ends ([time] lines), then a JSON
+15. the rest of the port's surface: `cli view --multichip 2x1` on the
+   bench scene at 1920x1080 in a subprocess whose stdin is a
+   pseudo-terminal, keys typed and then q: it must exit 0, both ranks must
+   have presented the same frames (count and digest, as the CLI prints
+   them) and launched 2.1, 2.2 and, once, 2.9; utils.profiling.debug_mode around a
+   first bench frame (2.9, 2.1, 2.2) and a warm one: each passes, equals
+   the frame without it byte for byte, and its ms is printed;
+   tools.profile_binwidth, tools.bench_gather and tools.make_gallery (into
+   chiprun_out/smoke/gallery) in-process, their lines echoed; and
+   tools.sweep_tiles over the tile_h axis only (SWEEP_AXES; the tool's
+   default sweeps every axis), whose every check must pass;
+16. prints each phase's seconds as it ends ([time] lines), then a JSON
    line of per-kernel results (launches on its path, max_abs_err against
    the plain version, ms and plain ms, the bound from this run's inputs,
    the library call's ms where there is one; besides, device_ms and
@@ -365,7 +376,8 @@ def check_kernel(name, calls, label):
     ms = event_ms(fn, runs=20)
     device = device_ms(fn)
     host = host_ms(fn)
-    plain_ms = event_ms(lambda: plain(*args, **kwargs), runs=3, warmup=1)
+    # the exactness check above has just run the plain version on these inputs
+    plain_ms = event_ms(lambda: plain(*args, **kwargs), runs=3, warmup=0)
     print(f"[kernel] {name}: {ms:.4f} ms (median of 20), device {device:.4f} ms (a graph of "
           f"50), host {host:.4f} ms a call, plain {plain_ms:.2f} ms (median of 3), bound "
           f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / device:.1%} of the device time)",
@@ -1565,6 +1577,132 @@ def multichip_phase(scene_path, lines):
         print(f"[multichip] mesh {shape} took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 15: the viewer over a mesh on a terminal, debug_mode on the card,
+# the tool twins; the sweep's axes in the smoke (the tool's default sweeps
+# every axis, tools/sweep_tiles.py)
+VIEW_KEYS = ("w", "w", "d", "\x1b[C", "s")
+SWEEP_AXES = "tile_h"
+
+
+def view_on_terminal(argv, keys, timeout=300.0):
+    """tpu_renderer_torch.cli with argv in a subprocess whose stdin is a
+    pseudo-terminal: once its first frame is out, each key (then q) is
+    typed 0.3 s apart. Returns (exit code, its standard output)."""
+    import pty
+    import signal
+    import subprocess
+
+    master, slave = pty.openpty()
+    out_path = os.path.join(OUT_DIR, "view_multichip.txt")
+    with open(out_path, "wb") as out, open(out_path + ".err", "wb") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "tpu_renderer_torch.cli", *argv],
+                                stdin=slave, stdout=out, stderr=err, cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=ROOT),
+                                start_new_session=True)
+        os.close(slave)
+        try:
+            deadline = time.monotonic() + timeout
+            while b"frame " not in open(out_path, "rb").read():
+                assert proc.poll() is None, f"cli {argv} exited {proc.returncode} before a frame"
+                assert time.monotonic() < deadline, f"cli {argv}: no frame in {timeout} s"
+                time.sleep(0.2)
+            for k in (*keys, "q"):
+                os.write(master, k.encode())
+                time.sleep(0.3)
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 10.0))
+        finally:
+            if proc.poll() is None:     # the launcher and its ranks
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            os.close(master)
+    with open(out_path, "rb") as f:
+        return rc, f.read().decode("utf-8", errors="replace")
+
+
+def view_ranks(text):
+    """The [multichip] view rank lines of a mesh view's output: one dict a
+    rank (frames, digest, launches of 2.1, 2.2, 2.9 and 2.10)."""
+    import re
+
+    pat = (r"\[multichip\] view rank (\d+): (\d+) frames presented, digest (\w+); "
+           r"kernel 2\.1 launched (\d+), 2\.2 (\d+), 2\.9 (\d+), 2\.10 (\d+)")
+    return [dict(rank=int(m[0]), frames=int(m[1]), digest=m[2], fused=int(m[3]),
+                 accum=int(m[4]), gradient=int(m[5]), sky=int(m[6]))
+            for m in re.findall(pat, text)]
+
+
+def run_tool(module, argv):
+    """A tool's main(argv) in-process; its printed lines, echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        print(f"[tool] {module.__name__.rsplit('.', 1)[-1]}: {line}", flush=True)
+    assert rc == 0, f"{module.__name__} exited {rc}"
+    return text
+
+
+def surface_phase(scene_path):
+    """Phase 15: view --multichip 2x1 on a pseudo-terminal (keys, then q:
+    exit 0, every rank the same frames, 2.1 and 2.2 launched on every
+    rank); debug_mode around bench frames (a first frame, so 2.9 too, and
+    a warm one: each passes and equals the frame without it byte for byte;
+    the cost printed); profile_binwidth, bench_gather and make_gallery
+    in-process; sweep_tiles over SWEEP_AXES (every check must pass)."""
+    import torch
+    from tpu_renderer_torch.tools import bench_gather, make_gallery, profile_binwidth, sweep_tiles
+    from tpu_renderer_torch.utils.bench_frame import bench_engine
+    from tpu_renderer_torch.utils.profiling import debug_mode
+
+    t0 = time.perf_counter()
+    argv = ["view", "--multichip", "2x1", "--grid", "64", "--width", "1920", "--height",
+            "1080", "--cols", "48", "--rows", "12"]
+    rc, text = view_on_terminal(argv, VIEW_KEYS)
+    ranks = view_ranks(text)
+    print(f"[view] {' '.join(argv)} on a pseudo-terminal, keys {list(VIEW_KEYS)} then q: "
+          f"exit {rc}; {ranks}; {time.perf_counter() - t0:.1f} s", flush=True)
+    assert rc == 0 and len(ranks) == 2, (rc, text[-2000:])
+    assert ranks[0]["frames"] > 0 and all(
+        (r["frames"], r["digest"]) == (ranks[0]["frames"], ranks[0]["digest"]) for r in ranks)
+    assert all(r["fused"] > 0 and r["accum"] > 0 and r["gradient"] == 1 for r in ranks), ranks
+
+    eng = bench_engine(scene_path)
+    want = eng.draw()
+    times = {}
+    for label, e, debug in (("first frame", bench_engine(scene_path), False),
+                            ("first frame, debug_mode", bench_engine(scene_path), True),
+                            ("warm frame", eng, False), ("warm frame, debug_mode", eng, True)):
+        reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with debug_mode() if debug else contextlib.nullcontext():
+            got = e.draw()
+        times[label] = (time.perf_counter() - t) * 1000.0
+        launches = read_counters()
+        assert np.array_equal(got, want), f"{label}: the frame differs"
+        kernels = ("raster_fused_kernel", "raster_accum_kernel") + (
+            ("background_gradient_kernel",) if label.startswith("first") else ())
+        assert all(launches[k] == 1 for k in kernels), (label, launches)
+        del e
+    print(f"[debug] debug_mode on the bench frame: a first frame (2.9, 2.1, 2.2 checked) and "
+          f"a warm one pass and equal the frame without it byte for byte; host ms a draw() "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()), flush=True)
+    del eng
+
+    run_tool(profile_binwidth, ["--iters", "10"])
+    run_tool(bench_gather, [])
+    gallery = os.path.join(OUT_DIR, "gallery")
+    run_tool(make_gallery, ["--out", gallery])
+    assert sorted(os.listdir(gallery)) == sorted(make_gallery.NAMES), os.listdir(gallery)
+    t = time.perf_counter()
+    text = run_tool(sweep_tiles, ["--axes", SWEEP_AXES])
+    rows = json.loads(text.strip().splitlines()[-1])["sweep"]
+    assert len(rows) == 3 and not sweep_tiles.failed(rows), rows
+    print(f"[sweep] the {SWEEP_AXES} axis only (the tool sweeps every axis by default): "
+          f"{len(rows)} points in {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1615,6 +1753,7 @@ def main() -> int:
     phase(bench_phase)
     multichip_lines = []
     phase(multichip_phase, scene_path, multichip_lines)
+    phase(surface_phase, scene_path)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"multichip": multichip_lines}))

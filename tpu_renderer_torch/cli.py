@@ -14,12 +14,18 @@ CPU. Without a card the command prints the engine's message and exits 2.
 ranks over a process group (parallel/multichip.launch), each rank the
 command's body with Engine(multichip=(ROWS, TRI)); rank 0 alone writes the
 PNG and prints. milestone renders on one device, as the JAX CLI's does.
+view --multichip: rank 0 reads the launching process's terminal (its path
+goes to the ranks; spawned ranks have no stdin of their own) and leads;
+before each frame it broadcasts the camera and "go on" to the other ranks,
+which follow until it broadcasts "stop". At the end rank 0 prints, for
+every rank, the frames it presented and a digest of them.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import sys
@@ -196,20 +202,161 @@ def cmd_view(args) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         eng = _demo_engine(args, tmp, camera=(0.0, 6.0, 20.0))
     keys = list(args.keys) if args.keys is not None else None
-    n = run_viewer(eng, n_frames=args.frames, keys=keys,
-                   cols=args.cols, rows=args.rows)
+    view = dict(n_frames=args.frames, keys=keys, cols=args.cols, rows=args.rows)
+    if eng.mesh is not None:
+        return _view_mesh(eng, view)
+    n = run_viewer(eng, **view)
     eng.flush_pipelined()
     print(f"\n{n} frames")
     return 0
 
 
-def _rank_command(rank: int, argv) -> int:
+class _Presented:
+    """The frames a rank's draw_pipelined presented: their count and one
+    digest over all of them, in order."""
+
+    def __init__(self):
+        self.frames = 0
+        self._sha = hashlib.sha256()
+
+    def add(self, img):
+        if img is not None:
+            self.frames += 1
+            self._sha.update(np.ascontiguousarray(img).tobytes())
+
+    def digest(self) -> str:
+        return self._sha.hexdigest()[:16]
+
+
+def _camera_message(cam, go: bool, device):
+    """The camera state and the "go on" flag as one float64 tensor (exact
+    for the camera's float32 and float fields)."""
+    vals = [*cam.position, *cam.velocity, cam.yaw, cam.pitch, cam.cursor_x,
+            cam.cursor_y, 1.0 if go else 0.0]
+    return torch.tensor([float(v) for v in vals], dtype=torch.float64, device=device)
+
+
+def _set_camera(cam, msg) -> bool:
+    """Apply a _camera_message; returns its "go on" flag."""
+    v = msg.tolist()
+    cam.position = np.asarray(v[0:3], np.float32)
+    cam.velocity = np.asarray(v[3:6], np.float32)
+    cam.yaw, cam.pitch = np.float32(v[6]), np.float32(v[7])
+    cam.cursor_x, cam.cursor_y = v[8], v[9]
+    return v[10] != 0.0
+
+
+class _LeadEngine:
+    """Rank 0's engine as run_viewer sees it: each draw_pipelined first
+    broadcasts the camera and "go on" to the following ranks, then draws,
+    so every rank renders the same frame; every other attribute is the
+    engine's."""
+
+    def __init__(self, eng, presented: _Presented):
+        self._eng, self._presented = eng, presented
+
+    def __getattr__(self, name):
+        return getattr(self._eng, name)
+
+    def send(self, go: bool) -> None:
+        dist.broadcast(_camera_message(self._eng.camera, go, self._eng.device), src=0)
+
+    def draw_pipelined(self, *args, **kwargs):
+        self.send(True)
+        img = self._eng.draw_pipelined(*args, **kwargs)
+        self._presented.add(img)
+        return img
+
+
+def _follow(eng, presented: _Presented, cols: int, rows: int) -> None:
+    """A following rank of view --multichip: take rank 0's camera, draw as
+    it does, until it sends stop."""
+    msg = _camera_message(eng.camera, False, eng.device)
+    while True:
+        dist.broadcast(msg, src=0)
+        if not _set_camera(eng.camera, msg):
+            return
+        presented.add(eng.draw_pipelined(hud=False, present_cells=(cols, rows)))
+
+
+def _view_mesh(eng, view: dict) -> int:
+    """view over a mesh: rank 0 runs the viewer on the terminal and leads,
+    the other ranks follow (_follow). Then every rank's presented frames
+    and kernel launches (2.1, 2.2, and the background's 2.9 or 2.10) go to
+    rank 0, which prints them and fails unless
+    every rank presented the same frames."""
+    from tpu_renderer_torch.kernels import background, raster
+
+    presented = _Presented()
+    if dist.get_rank() == 0:
+        lead = _LeadEngine(eng, presented)
+        n = run_viewer(lead, **view)
+        lead.send(False)
+    else:
+        _follow(eng, presented, view["cols"], view["rows"])
+        n = presented.frames
+    eng.flush_pipelined()
+    mine = dict(frames=presented.frames, digest=presented.digest(),
+                fused=raster.fused_counter.launches, accum=raster.accum_counter.launches,
+                gradient=background.gradient_counter.launches,
+                sky=background.sky_counter.launches)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    print(f"\n{n} frames")
+    for r, m in enumerate(ranks):
+        print(f"[multichip] view rank {r}: {m['frames']} frames presented, digest "
+              f"{m['digest']}; kernel 2.1 launched {m['fused']}, 2.2 {m['accum']}, "
+              f"2.9 {m['gradient']}, 2.10 {m['sky']}")
+    if any((m["frames"], m["digest"]) != (ranks[0]["frames"], ranks[0]["digest"])
+           for m in ranks):
+        print("tpu_renderer_torch: view --multichip: the ranks presented different "
+              "frames", file=sys.stderr)
+        return 1
+    return 0
+
+
+class _Terminal:
+    """The launching process's terminal, opened by path in rank 0 of view
+    --multichip as its stdin: the fileno() and read(n) that the viewer's tty
+    input uses, unbuffered, so a select() on it sees every pending key."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "rb", buffering=0)
+
+    def fileno(self) -> int:
+        return self._f.fileno()
+
+    def read(self, n: int = 1) -> str:
+        return self._f.read(n).decode("latin-1")
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def _terminal_path():
+    """The path of this process's terminal when its stdin is one, else None."""
+    try:
+        return os.ttyname(sys.stdin.fileno()) if sys.stdin.isatty() else None
+    except (AttributeError, OSError, ValueError):   # no stdin, or not a file
+        return None
+
+
+def _rank_command(rank: int, argv, tty=None) -> int:
     """One rank of a --multichip command: the command's body, its output
-    from rank 0 alone."""
-    if rank == 0:
+    from rank 0 alone; rank 0 reads the terminal at path tty, if given, as
+    its stdin."""
+    if rank != 0:
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return main(argv)
+    if tty is None:
         return main(argv)
-    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+    term, stdin = _Terminal(tty), sys.stdin
+    sys.stdin = term
+    try:
         return main(argv)
+    finally:
+        sys.stdin = stdin
+        term.close()
 
 
 def _launch_mesh(args, argv, mesh) -> int:
@@ -220,8 +367,9 @@ def _launch_mesh(args, argv, mesh) -> int:
         raise NoDeviceError("--multichip runs its ranks on the CUDA card by "
                             "default and no CUDA device is available: pass "
                             "--device cpu to run them on the CPU")
+    tty = _terminal_path() if args.fn is cmd_view else None
     return multichip.launch(_rank_command, mesh[0] * mesh[1], device=args.device,
-                            args=(argv,))
+                            args=(argv, tty))
 
 
 def main(argv=None) -> int:

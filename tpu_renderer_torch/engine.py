@@ -76,15 +76,17 @@ def _check_config(cfg: RendererConfig) -> None:
     if (cfg.tile_h, cfg.tile_w) != (raster.TILE_H, raster.TILE_W):
         raise _not_ported(f"tile {cfg.tile_h}x{cfg.tile_w} (the kernels take "
                           f"{raster.TILE_H}x{raster.TILE_W})",
-                          "Queue 1 item 9 (Hopper tile sweep)")
+                          "Queue 1 item 16 (the tile tools/sweep_tiles.py measured)")
     if (cfg.raster_chunk, cfg.raster_group) != (raster.CHUNK, raster.GROUP):
         raise _not_ported(f"raster_chunk={cfg.raster_chunk}, raster_group="
                           f"{cfg.raster_group} (the port owns CHUNK="
                           f"{raster.CHUNK}, GROUP={raster.GROUP})",
-                          "Queue 1 item 9 (Hopper CHUNK/GROUP sweep)")
+                          "Queue 1 item 16 (CHUNK is fixed by the walk; GROUP "
+                          "measured by tools/sweep_tiles.py)")
     if cfg.raster_nbuf != default.raster_nbuf:
-        raise _not_ported("raster_nbuf (a TPU DMA-ring depth)",
-                          "Queue 1 item 9")
+        raise _not_ported("raster_nbuf (a TPU DMA-ring depth; the CUDA ring's "
+                          "depth is AHEAD in csrc/raster_common.cuh)",
+                          "Queue 1 item 16")
     if cfg.raster_sort != "hilbert":
         raise _not_ported(f"raster_sort={cfg.raster_sort!r}", "Queue 1 item 12")
 

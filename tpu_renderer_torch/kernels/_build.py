@@ -50,13 +50,13 @@ def _nvcc() -> str:
                        "toolkit (sm_90a) to build")
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def _sources(csrc_dir: str):
+    return sorted(glob.glob(os.path.join(csrc_dir, "*.cu")))
 
 
-def _digest() -> str:
+def _digest(csrc_dir: str = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
+    for p in sorted(glob.glob(os.path.join(csrc_dir or CSRC_DIR, "*"))):
         h.update(os.path.basename(p).encode())
         with open(p, "rb") as f:
             h.update(f.read())
@@ -67,24 +67,32 @@ def build(verbose: bool = False) -> str:
     """Compile csrc/*.cu into BUILD_DIR (if not built yet); return the path
     of the shared library. build_seconds is None after a cache hit."""
     global build_seconds
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"libraster_kernels_{_digest()}.so")
+    out, build_seconds = build_from(CSRC_DIR, BUILD_DIR, verbose)
+    return out
+
+
+def build_from(csrc_dir: str, build_dir: str, verbose: bool = False):
+    """Compile csrc_dir/*.cu into build_dir, as build() does the shipped
+    sources (tools/sweep_tiles.py builds rewritten copies with it). Returns
+    (library path, nvcc wall seconds, or None when it was already built)."""
+    os.makedirs(build_dir, exist_ok=True)
+    out = os.path.join(build_dir, f"libraster_kernels_{_digest(csrc_dir)}.so")
     if os.path.exists(out):
-        build_seconds = None
-        return out
-    tmp = f"{out}.{os.getpid()}.tmp"
+        return out, None
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     nvcc = _nvcc()
     flags = [*NVCC_FLAGS, "-Xptxas=-v"] if verbose else list(NVCC_FLAGS)
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in _sources():
+    sources = _sources(csrc_dir)
+    for src in sources:
         obj = f"{tmp}.{os.path.basename(src)}.o"
         objs.append(obj)
         procs.append(subprocess.Popen([nvcc, *flags, "-c", "-o", obj, src],
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
     errors = []
-    for src, proc in zip(_sources(), procs):
+    for src, proc in zip(sources, procs):
         _, err = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
@@ -98,11 +106,11 @@ def build(verbose: bool = False) -> str:
     for obj in objs:
         if os.path.exists(obj):
             os.remove(obj)
-    build_seconds = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     if errors:
         raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)
-    return out
+    return out, seconds
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

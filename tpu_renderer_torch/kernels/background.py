@@ -16,7 +16,7 @@ CPU tensor (or device="cpu") the public function checks its arguments and
 runs the plain version; on CUDA it checks the tile shape and hands the
 rest to the kernel's launcher, which checks every argument once, launches
 through the library's entry point (looked up once), and raises if it
-cannot.
+cannot; inside utils.profiling.debug_mode its output is checked for NaN.
 
 The plain versions spell out the operations as XLA evaluates the JAX
 package's forms on the CPU (measured bit-identical to its jitted
@@ -39,6 +39,7 @@ import torch
 from tpu_renderer_torch.kernels.common import fma
 from tpu_renderer_torch.kernels.raster import (TILE_H, TILE_W, _check, _Counter, _launch,
                                                _raw_stream)
+from tpu_renderer_torch.utils.profiling import checked
 
 GRID_CELL = 16  # gradient.comp's 16x16 workgroup
 
@@ -152,6 +153,7 @@ def gradient_plain(data1, data2, *, height: int, width_pad: int, height_pad: int
                              device=data1.device)
 
 
+@checked
 def background_gradient_kernel(data1, data2, *, height: int, width_pad: int,
                                height_pad: int):
     """Launch the gradient CUDA kernel on CUDA tensors, every argument
@@ -224,6 +226,7 @@ def sky_plain(data1, *, height: int, width_pad: int, height_pad: int):
                         torch.ones((hp, wp), dtype=torch.float32, device=dev)])
 
 
+@checked
 def background_sky_kernel(data1, *, height: int, width_pad: int, height_pad: int):
     """Launch the sky CUDA kernel on a CUDA tensor, every argument checked
     here. The per-pixel work runs on the card; the lattice's cosines
@@ -278,6 +281,7 @@ def grid_gradient_plain(*, height: int, width: int, width_pad: int, height_pad: 
     return torch.stack([r, g, torch.zeros_like(r), torch.ones_like(r)])
 
 
+@checked
 def background_grid_kernel(*, height: int, width: int, width_pad: int,
                            height_pad: int, device="cuda"):
     """Launch the grid-gradient CUDA kernel on a CUDA device, every argument

@@ -49,7 +49,13 @@ Names, this module <-> tpu_renderer/kernels/raster.py of the JAX package
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (and raises if it cannot). The plain versions loop over
 bin slots, vectorised across tiles, and evaluate triangles in the same
-per-pixel order as the kernels, so both agree bit for bit.
+per-pixel order as the kernels, so both agree bit for bit. Inside
+utils.profiling.debug_mode each kernel launcher's float outputs are checked
+for NaN (``checked``), as torch's own operations are.
+
+``pad_for_raster`` and ``full_bins`` are the JAX package's helpers for
+small scenes and tests: inert padding rows to a chunk multiple, and bins
+in which every tile tests every chunk.
 
 Dense bin entries are ``cid << entry_shift | gmask`` (bin_triangles_full),
 the JAX package's layout, so bins from either package read the same.
@@ -65,6 +71,7 @@ import torch
 
 from tpu_renderer_torch.kernels import _build
 from tpu_renderer_torch.kernels.common import cdiv, fma
+from tpu_renderer_torch.utils.profiling import checked
 
 DEPTH_CLEAR = 0.0  # vk_initializers.cpp:144 (reversed-Z)
 NO_TRI = -1
@@ -128,6 +135,20 @@ def entry_shift(n_groups: int) -> int:
 
 def pad_tris(n: int, chunk: int = CHUNK) -> int:
     return cdiv(n, chunk) * chunk
+
+
+def pad_for_raster(packed, aabb, valid, chunk: int = CHUNK):
+    """Triangle arrays padded to a chunk multiple with inert rows (the JAX
+    package's raster.pad_for_raster): zero rows (zero edge planes, never
+    covered), the empty box (binned nowhere) and False validity."""
+    n = packed.shape[0]
+    pad = pad_tris(n, chunk) - n
+    if pad:
+        packed = torch.nn.functional.pad(packed, (0, 0, 0, pad))
+        empty = torch.tensor(_EMPTY_AABB, dtype=aabb.dtype, device=aabb.device)
+        aabb = torch.cat([aabb, empty.expand(pad, 4)])
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    return packed, aabb, valid
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +280,19 @@ def bin_triangles_full(caabb, cvalid, gaabb, gvalid, *, tiles_x: int,
     if width != C:
         bins = torch.nn.functional.pad(bins, (0, width - C), value=NO_TRI)
     return bins.contiguous(), counts
+
+
+def full_bins(n_chunks: int, n_tiles: int, bin_cap: int, device="cuda"):
+    """Trivial binning, every tile testing every chunk (small scenes and
+    tests; the JAX package's raster.full_bins): (bins (n_tiles, bin_cap)
+    i32 holding 0..n_chunks-1 then -1, counts (n_tiles,) i32 n_chunks)."""
+    if bin_cap < n_chunks:
+        raise ValueError(f"bin_cap {bin_cap} < n_chunks {n_chunks}")
+    slot = torch.arange(bin_cap, dtype=torch.int32, device=device)
+    row = torch.where(slot < n_chunks, slot, NO_TRI)
+    bins = row.expand(n_tiles, bin_cap).contiguous()
+    counts = torch.full((n_tiles,), n_chunks, dtype=torch.int32, device=device)
+    return bins, counts
 
 
 # ---------------------------------------------------------------------------
@@ -574,6 +608,7 @@ accum_gathered_counter = _Counter()
 peel_gathered_counter = _Counter()
 
 
+@checked
 def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
                         tile_w: int, tile_h: int):
     """Launch the raster_fused CUDA kernel (csrc/raster_fused.cu) on CUDA
@@ -670,6 +705,7 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
             _tiles_to_frame(cnt, tiles_x, tiles_y).contiguous())
 
 
+@checked
 def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
                         tiles_y: int, tile_w: int, tile_h: int):
     """Launch the raster_accum CUDA kernel (csrc/raster_accum.cu) on CUDA
@@ -783,6 +819,7 @@ def rasterize_peel_fused_plain(rows, bins, counts, z_base, last, *,
     return f(best), f(nums), f(metas)
 
 
+@checked
 def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
                              tiles_x: int, tiles_y: int, tile_w: int,
                              tile_h: int):
@@ -975,6 +1012,7 @@ def rasterize_plain(packed, bins, counts, *, tiles_x: int, tiles_y: int,
     return f(z), f(tid)
 
 
+@checked
 def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
                            tile_w: int, tile_h: int):
     """Launch the raster_deferred CUDA kernel (csrc/raster_deferred.cu) on
@@ -1032,6 +1070,7 @@ def rasterize_peel_plain(packed, bins, counts, z_base, last, *, tiles_x: int,
     return _tiles_to_frame(best, tiles_x, tiles_y).contiguous()
 
 
+@checked
 def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
                        tiles_y: int, tile_w: int, tile_h: int):
     """Launch the raster_peel_deferred CUDA kernel (csrc/raster_deferred.cu)
@@ -1116,6 +1155,7 @@ def _gathered_launch_args(rows, bins, counts, tiles_x, tiles_y):
             ctypes.c_int(bins.shape[1]), ctypes.c_int(tiles_x), ctypes.c_int(tiles_y))
 
 
+@checked
 def raster_fused_gathered_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
                                  tile_w: int, tile_h: int):
     """Launch the raster_fused_gathered CUDA kernel (csrc/raster_gathered.cu)
@@ -1182,6 +1222,7 @@ def rasterize_accum_gathered_plain(rows, bins, counts, z_base, light, *,
             _tiles_to_frame(cnt, tiles_x, tiles_y).contiguous())
 
 
+@checked
 def raster_accum_gathered_kernel(rows, bins, counts, z_base, light, *,
                                  tiles_x: int, tiles_y: int, tile_w: int,
                                  tile_h: int):
@@ -1245,6 +1286,7 @@ def rasterize_peel_gathered_plain(rows, bins, counts, z_base, last, *,
     return f(best), f(nums), f(metas)
 
 
+@checked
 def raster_peel_gathered_kernel(rows, bins, counts, z_base, last, *,
                                 tiles_x: int, tiles_y: int, tile_w: int,
                                 tile_h: int):
