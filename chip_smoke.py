@@ -37,9 +37,9 @@ Drives tpu_renderer_torch's paths on the card and checks them:
 4. the textured-glass bench frame (the same scene, its glass sampling the
    checker texture, so its transparency takes the depth peel): kernel 2.3
    against its plain version on the first peel's inputs and a later one's,
-   timed; 1 + 5 frames with the counters reset, layers per frame and the
-   host's wait at the per-layer syncs; the plain-version frame must be
-   identical;
+   timed; 1 + 5 graphed frames with the counters reset, layers per frame
+   and the host syncs inside each draw_device(); the plain-version frame
+   must be identical;
 5. the deferred bench frame (fused=False): the caps the escalation reached,
    kernels 2.4 and 2.5 against their plain versions (2.5 on two peels),
    timed; 1 + 5 frames counted; the plain-version frame must be
@@ -118,12 +118,34 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    chiprun_out/smoke/gallery) in-process, their lines echoed; and
    tools.sweep_tiles over the tile_h axis only (SWEEP_AXES; the tool's
    default sweeps every axis), whose every check must pass;
-16. prints each phase's seconds as it ends ([time] lines), then a JSON
+16. the graphed frame (tpu_renderer_torch/frame_graph.py: each key of
+   statics captured as a CUDA graph at its first frame, the peel loop a
+   WHILE node inside it, then replayed) against the same frames drawn
+   eagerly (pipeline.eager()) on the bench, trilinear, stress,
+   textured-glass and deferred paths: over a 10-frame orbit each graphed
+   frame equals the eager one byte for byte, with the same aux and the same
+   launches of every kernel (the peels counted on the card), and no host
+   sync inside a graphed draw_device() (torch.cuda.set_sync_debug_mode); the
+   textured-glass graph is captured looking away from the glass, so its
+   replays peel every layer they find on the card; each capture's ms and
+   memory pool, wall and host ms in turns (graphed, eager, eager, graphed),
+   the eager frame's syncs; then draw_pipelined() on the graphed bench
+   engine against eager draws, a lag of 2;
+17. prints each phase's seconds as it ends ([time] lines), then a JSON
    line of per-kernel results (launches on its path, max_abs_err against
    the plain version, ms and plain ms, the bound from this run's inputs,
    the library call's ms where there is one; besides, device_ms and
    host_ms) after phase 14's line, the nvidia-smi line, and, last,
    {"ok": true, "device": {...}}.
+
+Frames on the card are graphed (a replay of a captured CUDA graph) unless
+pipeline.eager() is entered: every check that patches or wraps a kernel
+function (capture_kernel_inputs, plain_versions) sees only what runs
+eagerly, so each runs its frames under pipeline.eager(), and a graph's
+replay inside plain_versions raises. The
+launch counters count replays: a replay adds the launches its graph holds,
+and the launches inside its peel loop count on the card
+(raster._Counter.total).
 
 Kernel times: "ms" is 2.1-2.8's CUDA events around one call of the
 wrapper on an idle card (its host time up to the launch, then the kernel),
@@ -260,21 +282,27 @@ def max_abs_err(got, want) -> float:
 
 
 def capture_kernel_inputs(draw, names):
-    """Run draw(), recording the arguments of every launch of the named
-    kernels (the path's real inputs): name -> list of (args, kwargs)."""
+    """Run draw() eagerly (pipeline.eager(): a frame graph's replay calls no
+    wrapper), recording the arguments of every launch of the named kernels
+    (the path's real inputs, copied as each launch saw them): name -> list
+    of (args, kwargs)."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.tools.time_stream_kernels import frozen_call
+
     seen = {n: [] for n in names}
     originals = {n: getattr(kernel_module(n), n) for n in names}
 
     def recorder(name):
         def call(*args, **kwargs):
-            seen[name].append((args, kwargs))
+            seen[name].append(frozen_call(args, kwargs))
             return originals[name](*args, **kwargs)
         return call
 
     for n in names:
         setattr(kernel_module(n), n, recorder(n))
     try:
-        draw()
+        with pipeline.eager():
+            draw()
     finally:
         for n, f in originals.items():
             setattr(kernel_module(n), n, f)
@@ -501,77 +529,70 @@ def ascending_segments(bins, counts, segs) -> int:
 
 def reset_counters():
     for name, (_, _, counter, _, _) in KERNELS.items():
-        getattr(kernel_module(name), counter).launches = 0
+        getattr(kernel_module(name), counter).reset()
 
 
 def read_counters():
-    return {n: getattr(kernel_module(n), c).launches
+    """Each kernel's launches since reset_counters(): the wrappers' host
+    counts, the launches graph replays added, and those counted on the card
+    inside the graphs' peel loops (a sync)."""
+    return {n: getattr(kernel_module(n), c).total()
             for n, (_, _, c, _, _) in KERNELS.items()}
 
 
-class SyncTimer:
-    """Host ms spent in pipeline._layer_found, the peel loop's one sync a
-    layer, and its calls."""
-
-    def __enter__(self):
-        from tpu_renderer_torch import pipeline
-
-        self.ms, self.calls = 0.0, 0
-        self._orig = pipeline._layer_found
-
-        def timed(found):
-            t0 = time.perf_counter()
-            v = self._orig(found)
-            self.ms += (time.perf_counter() - t0) * 1000.0
-            self.calls += 1
-            return v
-
-        pipeline._layer_found = timed
-        return self
-
-    def __exit__(self, *exc):
-        from tpu_renderer_torch import pipeline
-
-        pipeline._layer_found = self._orig
-
-
 def counted_frames(eng, n, path, expect):
-    """The path, counted: counters to 0, one draw() and n timed
-    draw_device() frames, counters read. Returns (median ms, image, layers
-    per frame, sync ms per frame, launches)."""
+    """The path as a user runs it (graphed: frame_graph.py), counted:
+    counters to 0, one draw() and n timed draw_device() frames, counters
+    read. Returns (median ms, image, layers per frame, host syncs per frame
+    inside draw_device(), launches)."""
     import torch
+
+    from tpu_renderer_torch.utils.bench_frame import SyncCount
 
     reset_counters()
     image = eng.draw()
-    times, layers = [], []
-    with SyncTimer() as sync:
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    times, layers, syncs = [], [], 0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SyncCount() as sync:
             _img, aux = eng.draw_device()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1000.0)
-            layers.append(int(aux.get("transparent_layers", torch.zeros(()))))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+        syncs += sync.calls
+        layers.append(int(aux.get("transparent_layers", torch.zeros(()))))
     launches = read_counters()
     for k in expect:
         assert launches[k] > 0, f"{k} was never launched on the {path} path"
     med = statistics.median(times)
-    print(f"[frame] {path}: {eng.stats.triangle_count} tris, median {med:.3f} ms over "
-          f"{n} frames (min {min(times):.3f}); transparent layers {layers}; "
-          f"sync wait {sync.ms / n:.3f} ms/frame over {sync.calls / n:.1f} syncs; "
-          f"launches {launches}", flush=True)
-    return med, image, layers, sync.ms / n, launches
+    print(f"[frame] {path} (graphed): {eng.stats.triangle_count} tris, median {med:.3f} ms "
+          f"over {n} frames (min {min(times):.3f}); transparent layers {layers}; "
+          f"{syncs / n:.1f} host syncs a frame; launches {launches}", flush=True)
+    return med, image, layers, syncs / n, launches
+
+
+def _no_replay(*args, **kwargs):
+    raise AssertionError("a frame graph replayed inside plain_versions: the check "
+                         "would compare the graph's kernels with themselves")
 
 
 @contextlib.contextmanager
 def plain_versions(names):
-    """Inside the block the named kernels are their plain versions."""
+    """Inside the block the named kernels are their plain versions, and
+    frames draw eagerly (pipeline.eager()); a frame graph's replay raises
+    (it would launch the captured kernels, not the plain versions)."""
+    from tpu_renderer_torch import frame_graph, pipeline
+
     originals = {n: getattr(kernel_module(n), n) for n in names}
+    replay = frame_graph.FrameGraph.replay
     for n in names:
         setattr(kernel_module(n), n, getattr(kernel_module(n), KERNELS[n][1]))
+    frame_graph.FrameGraph.replay = _no_replay
     try:
-        yield
+        with pipeline.eager():
+            yield
     finally:
+        frame_graph.FrameGraph.replay = replay
         for n, f in originals.items():
             setattr(kernel_module(n), n, f)
 
@@ -827,7 +848,7 @@ def textured_glass_path(scene_path, results, inputs):
     later = len(calls) // 2
     results[name] = check_kernel(name, [(0, calls[0]), (later, calls[later])],
                                  "textured-glass frame")
-    frame_ms, image, layers, sync_ms, launches = counted_frames(
+    frame_ms, image, layers, _, launches = counted_frames(
         eng, 5, "textured-glass frame", ("raster_fused_kernel", name))
     assert np.array_equal(image, plain_frame(eng, ("raster_fused_kernel", name))), \
         "textured-glass kernel frame differs from plain frame"
@@ -859,7 +880,7 @@ def deferred_path(scene_path, results, inputs):
     results[names[1]] = check_kernel(names[1], [(0, peels[0]), (later, peels[later])],
                                      "deferred frame")
     inputs[names[1]] = peels[0]
-    frame_ms, image, layers, sync_ms, launches = counted_frames(
+    frame_ms, image, layers, _, launches = counted_frames(
         eng, 5, "deferred frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), \
         "deferred kernel frame differs from plain frame"
@@ -920,7 +941,9 @@ def past_the_guard(inputs):
     assert launches["raster_fused_kernel"] == 0
     assert img.shape == (1080, 1920, 4)
     print(f"[frame] past the guard: first draw {ms:.1f} ms (caps escalated to "
-          f"{eng._caps}); launches {launches}", flush=True)
+          f"{eng._caps}); launches {launches}; frame graphs captured (one a cap "
+          f"step): " + ", ".join(f"{c:.1f} ms, pool {m:.1f} MiB"
+                                 for c, m in eng.frame_graphs.captured), flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.draw()
@@ -1703,6 +1726,134 @@ def surface_phase(scene_path):
           f"{len(rows)} points in {time.perf_counter() - t:.1f} s", flush=True)
 
 
+# Phase 16: the paths whose graphed frames are held to the eager ones, the
+# orbit, and the frames a turn of the in-turn timing
+GRAPH_PATHS = ("bench", "trilinear", "stress", "textured-glass", "deferred")
+GRAPH_FRAMES = 10
+GRAPH_TURN = 5
+
+
+def graph_engine(path, scene_path):
+    """Phase 16's engine of a path: the bench scene (its GLB already
+    written) as phase 14 takes it, the stress scene of phase 3b, or the
+    bench scene with trilinear samplers."""
+    from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine
+
+    if path == "trilinear":
+        return bench_engine(os.path.join(OUT_DIR, "bench_scene_trilinear.glb"), trilinear=True)
+    if path == "stress":
+        glb = os.path.join(OUT_DIR, f"bench_scene_{2 * BENCH['grid']}.glb")
+        return bench_engine(glb, scene=load_scene(glb),
+                            camera_position=(0.0, 6.0, 4.0 * BENCH["grid"]))
+    return mesh_engine(path, scene_path)
+
+
+def graphed_eager_frame(eng):
+    """One frame of eng graphed and the same frame eager (pipeline.eager()),
+    each counted: ((image, aux, launches, host syncs) graphed, the same
+    eager)."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.utils.bench_frame import SyncCount
+
+    out = []
+    params = eng.update_scene()
+    for eager in (False, True):
+        reset_counters()
+        with pipeline.eager() if eager else contextlib.nullcontext(), \
+                SyncCount() as syncs:
+            image, aux = eng.draw_device(params)
+        out.append((image, {k: int(v) for k, v in aux.items()}, read_counters(),
+                    syncs.calls))
+    return out[0], out[1]
+
+
+def graphed_turns(eng):
+    """Wall ms (synchronised) and draw_device() host ms of GRAPH_TURN frames
+    a turn, in turns graphed, eager, eager, graphed, over a slow orbit."""
+    import torch
+
+    from tpu_renderer_torch import pipeline
+
+    ms = {m: dict(wall=[], host=[]) for m in ("graphed", "eager")}
+    for turn in ("graphed", "eager", "eager", "graphed"):
+        with pipeline.eager() if turn == "eager" else contextlib.nullcontext():
+            for i in range(GRAPH_TURN):
+                eng.camera.yaw = np.float32(0.002 * i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.draw_device()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                ms[turn]["wall"].append((time.perf_counter() - t0) * 1000.0)
+                ms[turn]["host"].append((t1 - t0) * 1000.0)
+    return ms
+
+
+def graphed_phase(scene_path):
+    """Phase 16: the graphed frame (frame_graph.py) against the eager one
+    on the bench, trilinear, stress, textured-glass and deferred paths:
+    over a GRAPH_FRAMES-frame orbit each graphed frame equals the same
+    frame drawn eagerly byte for byte, with the same aux and the same
+    launches of every kernel (the peels counted on the card), and no host
+    sync inside the graphed draw_device(); the textured-glass graph is
+    captured looking away from the glass (no layer), so its replays peel
+    every layer they find on the card; the capture's ms and memory pool;
+    wall and host ms in turns; then draw_pipelined() on the graphed bench
+    engine against eager draws, a lag of 2."""
+    import torch
+
+    from tpu_renderer_torch import pipeline
+
+    for path in GRAPH_PATHS:
+        t0 = time.perf_counter()
+        eng = graph_engine(path, scene_path)
+        if path == "textured-glass":
+            eng.camera.yaw = np.float32(np.pi)       # the glass behind the camera
+        eng.draw()
+        captured_layers = int(eng._last_aux.get("transparent_layers", torch.zeros(())))
+        (capture_ms, pool_mib), = eng.frame_graphs.captured[-1:]
+        layers, syncs, eager_syncs = [], [], []
+        for i in range(GRAPH_FRAMES):
+            eng.camera.yaw = np.float32(0.02 * i)
+            (g_img, g_aux, g_n, g_syncs), (e_img, e_aux, e_n, e_syncs) = \
+                graphed_eager_frame(eng)
+            assert torch.equal(g_img, e_img), f"{path} frame {i}: graphed != eager"
+            assert g_aux == e_aux, (path, i, g_aux, e_aux)
+            assert g_n == e_n, (path, i, g_n, e_n)
+            assert g_syncs == 0, f"{path} frame {i}: {g_syncs} host syncs in a graphed frame"
+            layers.append(g_aux.get("transparent_layers", 0))
+            syncs.append(g_syncs)
+            eager_syncs.append(e_syncs)
+        launched = {k: v for k, v in g_n.items() if v}
+        ms = graphed_turns(eng)
+        med = {m: (statistics.median(v["wall"]), min(v["wall"]), statistics.median(v["host"]))
+               for m, v in ms.items()}
+        print(f"[graph] {path}: captured at its first frame in {capture_ms:.1f} ms, pool "
+              f"{pool_mib:.1f} MiB ({captured_layers} layers in view); {GRAPH_FRAMES}-frame "
+              f"orbit: graphed == eager byte for byte, aux and launches equal (a frame "
+              f"{launched}); transparent layers {layers}; host syncs a frame graphed "
+              f"{max(syncs)}, eager {statistics.mean(eager_syncs):.1f}; wall ms median/min "
+              f"graphed {med['graphed'][0]:.3f}/{med['graphed'][1]:.3f}, eager "
+              f"{med['eager'][0]:.3f}/{med['eager'][1]:.3f}, draw_device() host ms graphed "
+              f"{med['graphed'][2]:.3f}, eager {med['eager'][2]:.3f} (turns graphed, eager, "
+              f"eager, graphed of {GRAPH_TURN} frames); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if path == "bench":
+            want, got = [], []
+            for i in range(8):
+                eng.camera.yaw = np.float32(0.02 * i)
+                with pipeline.eager():
+                    want.append(eng.draw())
+                got.append(eng.draw_pipelined(stats_interval=0))
+            assert got[0] is None and got[1] is None
+            for i in range(2, 8):
+                assert np.array_equal(got[i], want[i - 2]), f"pipelined frame {i} differs"
+            print("[graph] bench: draw_pipelined() (graphed) over 8 frames equals the eager "
+                  "draws with a lag of 2, byte for byte", flush=True)
+        del eng
+
+
 def main() -> int:
     import torch
 
@@ -1754,6 +1905,7 @@ def main() -> int:
     multichip_lines = []
     phase(multichip_phase, scene_path, multichip_lines)
     phase(surface_phase, scene_path)
+    phase(graphed_phase, scene_path)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"multichip": multichip_lines}))

@@ -14,6 +14,7 @@ import pytest
 
 from tpu_renderer import cli as jcli
 from tpu_renderer_torch import cli
+from tpu_renderer_torch.engine import Engine
 from tpu_renderer_torch.present import load_png
 from tpu_renderer_torch.utils.demo import build_demo_glb
 
@@ -110,11 +111,13 @@ def test_view_command_runs_the_pipelined_loop(capsys):
 
 
 @pytest.mark.parametrize("target,scale", [("60", 0.5), ("1", 1.0)])
-def test_target_fps_flag_runs(tmp_path, target, scale):
-    """--target-fps engages the auto quality: a 60 fps budget lies below
-    the cost model's fixed term, so the draw extent floors at
+def test_target_fps_flag_runs(tmp_path, monkeypatch, target, scale):
+    """--target-fps engages the auto quality: with the cost model's fixed
+    term above a 60 fps budget (30.8 ms, the fit to the eager frame; the
+    shipped fit to the graphed frame is below it) the draw extent floors at
     auto_scale_min and the frame blits up to the window extent; 1 fps is
     under budget natively. Either way the PNG has the window extent."""
+    monkeypatch.setattr(Engine, "_COST_FIXED_MS", 30.8)
     native, out = str(tmp_path / "native.png"), str(tmp_path / "auto.png")
     args = ["demo", "--grid", "2", *SMALL, "--background", "1"]
     assert cli.main([*args, "--out", native]) == 0

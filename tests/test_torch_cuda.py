@@ -935,3 +935,193 @@ def test_gloo_takes_cuda_tensors_in_every_collective_the_mesh_calls(cuda):
         assert out[("MAX", dtype)] == ("cuda", [2])
         assert out[("MIN", dtype)] == ("cuda", [1])
     assert out["all_gather"] == [[1.0] * 4, [2.0] * 4]
+
+
+# -- the graphed frame (frame_graph.py) ----------------------------------------
+
+
+def _path_engine(path, device, kind):
+    """The demo grid 4 engine of a path: "bench", "textured-glass" (its glass
+    given the checker texture: the peel, kernel 2.3) or "deferred" (past a
+    dense-bin guard of 1: kernels 2.4 and 2.5)."""
+    from tpu_renderer_torch.config import RendererConfig
+    from tpu_renderer_torch.engine import Engine
+    from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.utils.bench_frame import texture_the_glass
+
+    eng = Engine(RendererConfig(width=W, height=H, camera_position=(0.0, 6.0, 8.0),
+                                dense_bin_max_chunks=1 if kind == "deferred" else 8192),
+                 device=device)
+    eng.camera.pitch = np.float32(-0.18)
+    s = load_scene(path)
+    eng.init(scene=s if kind == "bench" else texture_the_glass(s))
+    return eng
+
+
+def _counts():
+    return {c: c.total() for c in raster._Counter.registry}
+
+
+def _moved(before):
+    return {c: n - before[c] for c, n in _counts().items() if n != before[c]}
+
+
+@pytest.mark.parametrize("kind", ["bench", "textured-glass", "deferred"])
+def test_graphed_frames_equal_eager_frames(cuda, tmp_path, kind):
+    """Over an orbit the graphed engine's frames (the first captured, the
+    rest replays) equal the eager engine's byte for byte, aux too, and
+    launch every kernel as often, the peels counted on the card."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng, ref = _path_engine(path, cuda, kind), _path_engine(path, cuda, kind)
+    eng.draw()             # captured (the deferred path: at each cap escalation)
+    with pipeline.eager():
+        ref.draw()
+    for i in range(5):
+        for e in (eng, ref):
+            e.camera.yaw = np.float32(0.2 * i)
+        before = _counts()
+        got = eng.draw()
+        graphed = _moved(before)
+        before = _counts()
+        with pipeline.eager():
+            want = ref.draw()
+        eager = _moved(before)
+        np.testing.assert_array_equal(got, want)
+        assert {k: int(v) for k, v in eng._last_aux.items()} == \
+            {k: int(v) for k, v in ref._last_aux.items()}
+        assert graphed == eager and graphed, (graphed, eager)
+    assert len(eng.frame_graphs) >= 1 and len(ref.frame_graphs) == 0
+
+
+def test_graph_peels_as_many_layers_as_the_replayed_frame_has(cuda):
+    """The loop runs on the card as long as a layer finds a fragment: a
+    graph captured on a view with no transparent layer replays the six-layer
+    stack exactly, with 7 peels and 6 layers."""
+    from tpu_renderer_torch import milestones, pipeline, scene
+    from tpu_renderer_torch.frame_graph import GraphCache
+    from tpu_renderer_torch.utils.demo import checker_texture
+
+    s = milestones.textured_quad_scene(checker_texture(32, 4), mipmapped=True)
+    s.materials[-1].transparent = True
+    for k in range(5):
+        node = scene.MeshNode(0, f"layer{k}")
+        node.refresh_transform(np.eye(4, dtype=np.float32))
+        s.nodes.append(node)
+        s.top_nodes.append(node)
+    flat = scene.flatten_scene(s, device=cuda)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda)  # noqa: E731
+    params = pipeline.FrameParams(
+        view=torch.eye(4, device=cuda), proj=torch.eye(4, device=cuda),
+        bg_effect=torch.tensor(0, dtype=torch.int32, device=cuda),
+        bg_data1=f([0.1, 0.1, 0.1, 0.7]), bg_data2=f([0.1, 0.1, 0.1, 1.0]),
+        ambient=torch.zeros(4, device=cuda), sun_dir=f([0, 0, 1, 1]),
+        sun_color=torch.ones(4, device=cuda))
+    away = params._replace(view=torch.diag(f([1.0, 1.0, 1.0, 1.0])) + f(
+        [[0, 0, 0, 50.0], [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0]]))
+    kw = dict(width=128, height=64, transp_textured=True)
+    bg = pipeline.background_fb(params, width=128, height=64)
+    graphs = GraphCache()
+    _, first = graphs.frame(flat.buffers, away, bg_fb=bg, **kw)
+    assert int(first["transparent_layers"]) == 0
+    before = _counts()
+    got, aux = graphs.frame(flat.buffers, params, bg_fb=bg, **kw)
+    moved = _moved(before)
+    with pipeline.eager():
+        want, want_aux = pipeline.render_frame(flat.buffers, params, bg_fb=bg, **kw)
+    assert torch.equal(got, want)
+    assert int(aux["transparent_layers"]) == int(want_aux["transparent_layers"]) == 6
+    assert moved[raster.peel_fused_counter] == 7
+
+
+def test_render_frames_replays_equal_eager_frames(cuda, tmp_path):
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.bench import frame_statics, orbit_params
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng = _path_engine(path, cuda, "textured-glass")
+    params, kw = orbit_params(eng, 4), frame_statics(eng)
+    img, sums = pipeline.render_frames(eng.flat.buffers, params, frame=eng.render_fn(), **kw)
+    assert len(eng.frame_graphs) == 1
+    img2, sums2 = pipeline.render_frames(eng.flat.buffers, params, frame=eng.render_fn(), **kw)
+    with pipeline.eager():
+        want, want_sums = pipeline.render_frames(eng.flat.buffers, params,
+                                                 frame=eng.render_fn(), **kw)
+    assert torch.equal(img, want) and torch.equal(img2, want)
+    assert torch.equal(sums, want_sums) and torch.equal(sums2, want_sums)
+    assert len(eng.frame_graphs.captured) == 1
+
+
+def test_a_scene_loaded_again_is_captured_again(cuda, tmp_path):
+    """Engine.init drops the graphs of the scene before: a second scene of
+    the same shapes draws itself, not the first one's buffers, through a
+    graph captured anew."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.utils.bench_frame import texture_the_glass
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    paths = [str(tmp_path / f"demo4_{seed}.glb") for seed in (0, 1)]
+    for seed, path in enumerate(paths):
+        build_demo_glb(path, grid=4, seed=seed)
+    eng = _path_engine(paths[0], cuda, "textured-glass")
+    first = eng.draw()
+    eng.init(scene=texture_the_glass(load_scene(paths[1])))
+    got = eng.draw()
+    with pipeline.eager():
+        want = eng.draw()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, first) and len(eng.frame_graphs.captured) == 2
+
+
+def test_draw_pipelined_keeps_each_frames_aux(cuda, tmp_path):
+    """Frames in flight each keep their own image and aux: a replay
+    overwrites only the graph's own buffers."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng, ref = _path_engine(path, cuda, "textured-glass"), _path_engine(path, cuda,
+                                                                        "textured-glass")
+    want, got = [], []
+    for i in range(6):
+        for e in (eng, ref):
+            e.camera.yaw = np.float32(0.4 * i)
+        with pipeline.eager():
+            want.append((ref.draw(), {k: int(v) for k, v in ref._last_aux.items()}))
+        got.append(eng.draw_pipelined(stats_interval=0))
+        if i >= 2:
+            old = eng._inflight[0]
+            assert {k: int(v) for k, v in old.aux.items()} == want[i - 1][1]
+    for i in range(2, 6):
+        np.testing.assert_array_equal(got[i], want[i - 2][0])
+    assert eng._last_aux is not None and len(eng.frame_graphs) == 1
+
+
+def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
+    """No fallback: outside pipeline.eager() a frame that cannot be captured
+    raises; under it the same engine draws eagerly."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng = _path_engine(path, cuda, "bench")
+    shade_fused = pipeline.shade.shade_fused
+
+    def host_read(*args, **kwargs):
+        out = shade_fused(*args, **kwargs)
+        float(out.max())     # a host read: refused inside a capture
+        return out
+
+    monkeypatch.setattr(pipeline.shade, "shade_fused", host_read)
+    with pytest.raises(Exception):
+        eng.draw()
+    with pipeline.eager():
+        assert eng.draw().shape == (H, W, 4)

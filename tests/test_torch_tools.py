@@ -197,19 +197,53 @@ def test_smoke_bound_counts_the_work_a_peel_needs(name):
     assert smoke.bound(name, padded, tiles, out) == smoke.bound(name, args, tiles, out)
 
 
-def test_smoke_sync_timer_counts_the_peel_syncs(tmp_path):
-    """chip_smoke's SyncTimer sees the peel loop's one sync a layer (and
-    the last, empty one) and restores pipeline._layer_found."""
+def test_smoke_sync_timer_counts_the_peel_syncs(tmp_path, monkeypatch):
+    """The peel syncs chip_smoke counts in an eager frame (SyncCount on the
+    card, which took the place of its SyncTimer): the peel loop reads its
+    tests on the host, the first one, then two a pass (the layer's IF and
+    the loop's next test) over the layers and the last, empty pass; and the
+    smoke patches no pipeline function to count them."""
     smoke = _chip_smoke()
     eng = bench_frame.path_engine("textured-glass", str(tmp_path / "demo4.glb"),
                                   device="cpu", grid=4, width=256, height=64,
                                   camera_position=(0.0, 6.0, 8.0))
-    before = pipeline._layer_found
-    with smoke.SyncTimer() as sync:
-        _img, aux = eng.draw_device()
-    assert int(aux["transparent_layers"]) > 0
-    assert sync.calls == int(aux["transparent_layers"]) + 1 and sync.ms > 0.0
-    assert pipeline._layer_found is before
+    reads, test = [], torch.Tensor.__bool__
+
+    def counted(t):
+        reads.append(t.shape)
+        return test(t)
+
+    monkeypatch.setattr(torch.Tensor, "__bool__", counted)
+    _img, aux = eng.draw_device()
+    monkeypatch.undo()
+    layers = int(aux["transparent_layers"])
+    assert layers > 0 and reads == [torch.Size([])] * (2 * layers + 3)
+    assert not hasattr(smoke, "SyncTimer")
+
+
+@pytest.mark.parametrize("recorder", ["chip_smoke", "time_stream_kernels"])
+def test_recorded_peel_inputs_are_each_launchs_own(tmp_path, monkeypatch, recorder):
+    """The kernel inputs the smoke and time_stream_kernels record are copies
+    as each launch saw them: the peel loop updates `last` in place, so the
+    first peel's recorded `last` is still all -1 after the frame. (On the
+    CPU the frame calls no kernel wrapper: the recorders take 2.3's public
+    function, which gets the same arguments.)"""
+    from tpu_renderer_torch.tools import time_stream_kernels
+
+    eng = bench_frame.path_engine("textured-glass", str(tmp_path / "demo4.glb"),
+                                  device="cpu", grid=4, width=256, height=64,
+                                  camera_position=(0.0, 6.0, 8.0))
+    name = "rasterize_peel_fused"
+    if recorder == "chip_smoke":
+        smoke = _chip_smoke()
+        monkeypatch.setitem(smoke.KERNELS, name, smoke.KERNELS["raster_peel_fused_kernel"])
+        calls = smoke.capture_kernel_inputs(eng.draw_device, (name,))[name]
+    else:
+        calls = time_stream_kernels.captured_calls(eng, (name,))[name]
+    lasts = [args[4] for args, _ in calls]
+    assert len(lasts) == int(eng._last_aux["transparent_layers"]) + 1 >= 3
+    assert bool((lasts[0] == -1).all())
+    assert all(not torch.equal(a, b) for a, b in zip(lasts, lasts[1:]))
 
 
 SMALL_TOOL = ["--device", "cpu", "--grid", "2", "--width", "256", "--height", "64"]

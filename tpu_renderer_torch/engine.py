@@ -23,6 +23,12 @@ mesh of ranks (parallel/multichip.py): each rank of an initialised process
 group of rows * tri ranks runs its own Engine, and each gets the whole
 frame.
 
+On the card with no mesh, a frame is a replay of a CUDA graph
+(frame_graph.py): each key of statics is captured at its first frame and
+replayed after, the peel loop inside the graph; frame_graphs keeps a few.
+The CPU, a mesh and pipeline.eager() (utils.profiling.debug_mode) draw op by
+op.
+
 What the port does not have yet raises NotImplementedError naming the
 ROADMAP.md item: the tile, chunk, ring-depth and sort knobs.
 """
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 import time
 from typing import Optional
@@ -42,8 +49,9 @@ from tpu_renderer_torch import math3d, scene as scene_mod
 from tpu_renderer_torch import hud as hud_mod
 from tpu_renderer_torch.camera import Camera
 from tpu_renderer_torch.config import RendererConfig
+from tpu_renderer_torch.frame_graph import GraphCache
 from tpu_renderer_torch.kernels import raster
-from tpu_renderer_torch.pipeline import FrameParams, background_fb, render_frame
+from tpu_renderer_torch.pipeline import FrameParams, background_fb, graphed, render_frame
 from tpu_renderer_torch.present import unpack_u8
 from tpu_renderer_torch.resources import FILTER_MIP_LINEAR
 
@@ -131,6 +139,7 @@ class Engine:
         self._auto_scale = 1.0
         self._inflight = collections.deque()
         self._slots = []   # draw_pipelined's pinned host images, reused in turn
+        self.frame_graphs = GraphCache()
 
     # -- init (vk_engine.cpp:171-201) ---------------------------------------
 
@@ -156,6 +165,9 @@ class Engine:
             # empty scene: background only
             self.scene = scene_mod.LoadedScene()
             scene_mod.default_materials_and_textures(self.scene)
+        # the graphs read the old scene's buffers (a new scene's may take
+        # their ids, which key the graphs)
+        self.frame_graphs.clear()
         self.flat = scene_mod.flatten_scene(self.scene, device=self.device)
         self._compute_caps()
 
@@ -204,25 +216,24 @@ class Engine:
 
     # The per-pixel cost model of the auto quality, in the JAX package's
     # form: frame_ms(s) = fixed + Mpx * s^2 * (base + taps * tap) + blit
-    # (blit only when s < 1). The constants are fits to frames of the bench
-    # scene measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit by
-    # tools/fit_cost_model.py (the points, the fit and its residuals are in
-    # PERF.md): trilinear at s = 1.0 and s = 0.7 split the fixed from the
-    # per-pixel cost, the single-tap frame at s = 1.0 splits base from tap.
+    # (blit only when s < 1). The constants are fits to graphed frames
+    # (frame_graph.py) of the bench scene measured on an NVIDIA H100 80GB
+    # HBM3 at a 700 W power limit by tools/fit_cost_model.py (the points,
+    # the fit and its residuals are in PERF.md): trilinear at s = 1.0 and
+    # s = 0.7 split the fixed from the per-pixel cost, the single-tap frame
+    # at s = 1.0 splits base from tap.
     #   _COST_TAP_NS:   what a second mip tap adds, spread over the pixels
-    #   _COST_BASE_NS:  the rest of the per-pixel cost; the fit made it
-    #                   negative (the frame barely shrinks with the extent)
-    #                   and it is clamped at 0
-    #   _COST_FIXED_MS: what does not shrink with the draw extent: on this
-    #                   card the frame is bound by the host's launch rate,
-    #                   so this term carries almost all of it, and a target
-    #                   whose budget lies below it floors at auto_scale_min
+    #   _COST_BASE_NS:  the rest of the per-pixel cost
+    #   _COST_FIXED_MS: what does not shrink with the draw extent (setup,
+    #                   bins and the raster over the scene's triangles); a
+    #                   target whose budget lies below it floors at
+    #                   auto_scale_min
     #   _COST_BLIT_MS:  the linear upscale blit, timed alone
     # _COST_MARGIN keeps the pick under budget through frame-to-frame
     # variance.
-    _COST_BASE_NS = 0.0
-    _COST_TAP_NS = 5.83
-    _COST_FIXED_MS = 30.8
+    _COST_BASE_NS = 1.109
+    _COST_TAP_NS = 2.442
+    _COST_FIXED_MS = 8.18
     _COST_BLIT_MS = 0.28
     _COST_MARGIN = 0.97
 
@@ -281,9 +292,11 @@ class Engine:
                 sun_color=f(cfg.sunlight_color),
             )
             self._params_key = key
-        view = np.asarray(self.camera.get_view_matrix(), np.float32)
-        return self._params_static._replace(
-            view=torch.as_tensor(view, device=self.device))
+        view = torch.from_numpy(np.asarray(self.camera.get_view_matrix(), np.float32))
+        if self.device.type == "cuda":
+            # through pinned memory, so the host does not wait for the card
+            view = view.pin_memory().to(self.device, non_blocking=True)
+        return self._params_static._replace(view=view.to(self.device))
 
     def update_scene(self, top_matrix=None,
                      refresh_transforms: bool = False) -> FrameParams:
@@ -297,7 +310,10 @@ class Engine:
 
     def draw_device(self, params: Optional[FrameParams] = None):
         """Render one frame, leaving the image on the device. Returns (image
-        (H, W) int32 packed RGBA tensor, aux dict of device scalars)."""
+        (H, W) int32 packed RGBA tensor, aux dict of device scalars). On the
+        card with no mesh, outside pipeline.eager(), a replay of the frame
+        graph of these statics (captured at their first frame); the image
+        and aux are the caller's own."""
         if params is None:
             params = self.update_scene()
         cfg = self.config
@@ -307,19 +323,25 @@ class Engine:
                        trilinear=self._trilinear, pot=self._pot,
                        bg_fb=self._bg_fb_cached(params), **self._extents(),
                        **self._caps)
-        if self.mesh is not None:
-            # the same statics and caps over the mesh; the aux counters
-            # composite over it, so the stats and the cap escalation read
-            # them as the single-device frame's
-            from tpu_renderer_torch.parallel.multichip import render_frame_multichip
-
-            image, aux = render_frame_multichip(self.flat.buffers, params,
-                                                mesh=self.mesh, **statics)
-        else:
-            image, aux = render_frame(self.flat.buffers, params, **statics)
+        image, aux = self.render_fn()(self.flat.buffers, params, **statics)
         self.frame_number += 1
         self._last_aux = aux
         return image, aux
+
+    def render_fn(self):
+        """What draws this engine's frames, with render_frame's signature:
+        over a mesh render_frame_multichip (the same statics and caps; the
+        aux counters composite over it, so the stats and the cap escalation
+        read them as the single-device frame's); on the card outside
+        pipeline.eager() a replay of the frame graph of the frame's statics
+        (frame_graphs.frame); else render_frame."""
+        if self.mesh is not None:
+            from tpu_renderer_torch.parallel.multichip import render_frame_multichip
+
+            return functools.partial(render_frame_multichip, mesh=self.mesh)
+        if graphed(self.device):
+            return self.frame_graphs.frame
+        return render_frame
 
     def _bg_fb_cached(self, params: FrameParams):
         """Background framebuffer (kernel 2.9 or 2.10), cached across
@@ -527,6 +549,7 @@ class Engine:
         self._caps = None
 
     def _drop_frame_state(self) -> None:
+        self.frame_graphs.clear()
         self._inflight.clear()
         self._slots.clear()
         self._bg_fb = None

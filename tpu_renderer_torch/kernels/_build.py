@@ -1,5 +1,5 @@
-"""Build and load the CUDA kernels (csrc/*.cu: the raster passes and the
-background passes).
+"""Build and load the CUDA kernels (csrc/*.cu: the raster passes, the
+background passes, and the conditional nodes of a captured frame).
 
 The sources are compiled with nvcc for sm_90a, one nvcc process per source,
 all started together, and linked into one shared library with a plain C
@@ -146,6 +146,16 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.background_sky_launch.restype = i
         lib.background_grid_launch.argtypes = [i, i, i, i, p, p]
         lib.background_grid_launch.restype = i
+        # the conditional nodes of a captured frame (csrc/conditional.cu)
+        lib.graph_conditional_begin.argtypes = [p, p, i, p,
+                                                ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.graph_conditional_begin.restype = i
+        lib.graph_conditional_set.argtypes = [p, ctypes.c_ulonglong, p]
+        lib.graph_conditional_set.restype = i
+        lib.graph_conditional_end.argtypes = [p]
+        lib.graph_conditional_end.restype = i
+        lib.graph_body_stream.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+        lib.graph_body_stream.restype = i
         lib.raster_error_string.argtypes = [i]
         lib.raster_error_string.restype = ctypes.c_char_p
         _lib = lib

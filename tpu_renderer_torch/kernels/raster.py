@@ -137,6 +137,13 @@ def pad_tris(n: int, chunk: int = CHUNK) -> int:
     return cdiv(n, chunk) * chunk
 
 
+def _empty_box(dtype, device):
+    """_EMPTY_AABB as a (4,) tensor, made on the device (a host value copied
+    in would wait for the card, and cannot be captured in a CUDA graph)."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in _EMPTY_AABB])
+
+
 def pad_for_raster(packed, aabb, valid, chunk: int = CHUNK):
     """Triangle arrays padded to a chunk multiple with inert rows (the JAX
     package's raster.pad_for_raster): zero rows (zero edge planes, never
@@ -145,8 +152,7 @@ def pad_for_raster(packed, aabb, valid, chunk: int = CHUNK):
     pad = pad_tris(n, chunk) - n
     if pad:
         packed = torch.nn.functional.pad(packed, (0, 0, 0, pad))
-        empty = torch.tensor(_EMPTY_AABB, dtype=aabb.dtype, device=aabb.device)
-        aabb = torch.cat([aabb, empty.expand(pad, 4)])
+        aabb = torch.cat([aabb, _empty_box(aabb.dtype, aabb.device).expand(pad, 4)])
         valid = torch.nn.functional.pad(valid, (0, pad))
     return packed, aabb, valid
 
@@ -193,14 +199,14 @@ def _box_unions(aabb, valid, n: int):
     assert aabb.shape[0] % n == 0, "pad triangle arrays to the block size first"
     a = aabb.reshape(-1, n, 4)
     v = valid.reshape(-1, n)
-    big = torch.tensor(1e30, dtype=torch.float32, device=aabb.device)
+    big = torch.full((), 1e30, dtype=torch.float32, device=aabb.device)
     xmin = torch.where(v, a[..., 0], big).amin(-1)
     ymin = torch.where(v, a[..., 1], big).amin(-1)
     xmax = torch.where(v, a[..., 2], -big).amax(-1)
     ymax = torch.where(v, a[..., 3], -big).amax(-1)
     any_valid = v.any(-1)
-    empty = torch.tensor(_EMPTY_AABB, dtype=torch.float32, device=aabb.device)
     out = torch.stack([xmin, ymin, xmax, ymax], -1)
+    empty = _empty_box(torch.float32, aabb.device)
     return torch.where(any_valid[:, None], out, empty[None]), any_valid
 
 
@@ -592,10 +598,84 @@ def _stream(device):
 
 class _Counter:
     """Launch counter of one kernel wrapper (chip_smoke reads it to show
-    the main path went through the kernel)."""
+    the main path went through the kernel).
+
+    launches counts on the host: the wrapper adds one where it launches
+    its kernel, and a CUDA graph replay adds the launches its graph holds
+    (frame_graph.FrameGraph). A launch inside a conditional node of a graph
+    runs as many times as the node's test lets it, so it counts on the
+    card instead, in a tally the node's body adds to
+    (kernels/conditional.py); total() adds the tallies in."""
+
+    registry: list = []   # every counter, in the order made
 
     def __init__(self):
         self.launches = 0
+        self._tallies = {}
+        _Counter.registry.append(self)
+
+    def tally(self, device):
+        """The int64 count on `device` that conditional bodies add this
+        kernel's launches to (made at the first call, which must come
+        before a capture: a tensor made during one would live in the
+        graph's memory and read garbage)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._tallies:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a launch tally is made before the capture "
+                                   "that adds to it")
+            self._tallies[device] = torch.zeros((), dtype=torch.int64, device=device)
+        return self._tallies[device]
+
+    def total(self) -> int:
+        """Every launch: the host's count and the tallies (a sync a tally)."""
+        return self.launches + sum(int(t) for t in self._tallies.values())
+
+    def reset(self) -> None:
+        self.launches = 0
+        for t in self._tallies.values():
+            t.zero_()
+
+    # what a capture counted: a CUDA graph capture or a conditional body
+    # takes a snapshot() before it, restore()s it after (a capture launches
+    # nothing) and keeps what moved, which each replay add()s on the host or
+    # the body counts on the card (to_device)
+
+    @classmethod
+    def snapshot(cls) -> list:
+        return [c.launches for c in cls.registry]
+
+    @classmethod
+    def restore(cls, snap: list) -> list:
+        """Set every count back to `snap`; returns [(counter, launches)]
+        counted since."""
+        moved = []
+        for c, n in zip(cls.registry, snap):
+            if c.launches != n:
+                moved.append((c, c.launches - n))
+                c.launches = n
+        return moved
+
+    @staticmethod
+    def add(moved: list) -> None:
+        for c, n in moved:
+            c.launches += n
+
+    @staticmethod
+    def to_device(moved: list, device) -> None:
+        """Add `moved` to the tallies on `device`: inside a capture, an
+        operation each replay of it runs."""
+        for c, n in moved:
+            c.tally(device).add_(n)
+
+    @classmethod
+    def make_tallies(cls, device) -> None:
+        """Every counter's tally on `device`, made before a capture adds to
+        them."""
+        for c in cls.registry:
+            c.tally(device)
 
 
 fused_counter = _Counter()

@@ -188,7 +188,8 @@ def light_and_texture(light_num, color_in, uv, texmeta, grads, atlas,
                              texmeta[3], texmeta[4], texmeta[5], uv[0], uv[1],
                              grads, trilinear=trilinear, pot=pot)
     # mesh.frag:13 — light = max(dot(N, sunlight_direction.xyz), 0.1)
-    light = torch.maximum(light_num, torch.tensor(0.1, device=light_num.device))
+    light = torch.maximum(light_num, torch.full((), 0.1, dtype=torch.float32,
+                                                device=light_num.device))
     scale = light * sun_power   # mesh.frag:15-18
     out = []
     for c in range(3):

@@ -532,7 +532,7 @@ def _peel(mesh, st, bins, counts, z_frame, fb, q, base_id, y0, fused, textured,
         # after the MIN `found` is the same on every rank of the 'tri'
         # group, so each group's ranks leave the loop together: the one
         # host sync a layer needs no collective of its own
-        if not pipeline._layer_found(found):
+        if not bool(found.any()):
             break
         layers += 1
         win = found_l & (gl == layer)

@@ -23,17 +23,28 @@ kernels:
 The framebuffer is R16G16B16A16_SFLOAT in the reference (vk_engine.cpp:749):
 every composite rounds through fp16, exactly where the JAX package's q()
 runs. Everything runs on the device the scene buffers live on.
+
+On the card a steady frame is one device program, as the JAX package's
+jax.jit(render_frame) is: frame_graph.FrameGraph captures the frame once per
+key of statics as a CUDA graph, with the peel loop inside it as a WHILE node
+(kernels/conditional.py: lax.while_loop's counterpart), and replays it;
+render_frames, given the Engine's render_fn(), replays one captured frame
+per FrameParams (lax.scan's counterpart). The CPU, a multi-device mesh and
+the eager() block draw op by op; the peel loop is the same, its tests read
+on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import List, NamedTuple, Optional
+import threading
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from tpu_renderer_torch.kernels import background, raster, shade, vertex
+from tpu_renderer_torch.kernels import background, conditional, raster, shade, vertex
 from tpu_renderer_torch.kernels.common import fma, pad_extent
 from tpu_renderer_torch.present import to_packed_u32
 from tpu_renderer_torch.resources import TextureAtlas
@@ -205,10 +216,70 @@ def _composite(fb, found, src, q):
     return q(torch.cat([rgb, alpha[None]]))
 
 
-def _layer_found(found) -> bool:
-    """Did any pixel find a fragment in this peel? The peel loop's one host
-    sync a layer (the JAX package loops on the device, lax.while_loop)."""
-    return bool(found.any())
+class _Peel(NamedTuple):
+    """What every layer of the transparent peel reads."""
+
+    fused: bool                # kernel 2.3 over fat rows, or 2.5 over packed rows
+    rows: torch.Tensor         # (Tt, 48) fat rows: the peel's (fused) or shading's
+    packed: Optional[torch.Tensor]  # (Tt, 16) setup rows (deferred)
+    bins: torch.Tensor
+    counts: torch.Tensor
+    z: torch.Tensor            # (Hp, Wp) opaque depth
+    tiles: dict
+    look: dict                 # shading statics and uniforms
+    textured: bool
+    q: Callable
+
+
+def _peel_layer(p: _Peel, fb, last):
+    """One transparent layer past `last` (per pixel the next triangle id in
+    submission order, ID_INF where none): kernel 2.3 or 2.5. Returns (found
+    (Hp, Wp) bool, blend), where blend() shades the layer, composites it over
+    fb and returns (fb, last) for the next layer."""
+    if p.fused:
+        layer, attrs, meta, inv = raster.rasterize_peel_fused(
+            p.rows, p.bins, p.counts, p.z, last, **p.tiles)
+    else:
+        layer = raster.rasterize_peel(p.packed, p.bins, p.counts, p.z, last, **p.tiles)
+    found = layer < raster.ID_INF
+
+    def blend():
+        if p.fused:
+            src = shade.shade_fused(attrs, meta, inv, textured=p.textured, **p.look)
+            out = _composite(fb, found, src, p.q)
+        else:
+            out = p.q(shade.blend_layer(fb, torch.where(found, layer, raster.NO_TRI),
+                                        p.rows, textured=p.textured, **p.look))
+        return out, torch.where(found, layer, raster.ID_INF)
+
+    return found, blend
+
+
+def _peel_on_device(p: _Peel, fb, last, layers, limit: int) -> None:
+    """Peel until a layer finds nothing (that empty layer is not shaded: it
+    would leave fb unchanged), the tests on the device: a WHILE node around
+    an IF node when a FrameGraph captures it (no host read, as many passes
+    as the frame needs); elsewhere the host reads each test (two a pass).
+    fb, last and layers are updated in place. Every pass raises `last` at
+    each pixel it shades, so a frame of `limit` transparent triangles shades
+    at most `limit` layers; the loop also stops past that, which only a
+    faulty pass could reach (it keeps such a loop from running on the card
+    forever)."""
+
+    def one_pass():
+        found, blend = _peel_layer(p, fb, last)
+        more = found.any()
+
+        def keep():
+            new_fb, new_last = blend()
+            fb.copy_(new_fb)
+            last.copy_(new_last)
+            layers.add_(1)
+
+        conditional.run_if(more, keep)
+        return more & (layers <= limit)
+
+    conditional.run_while(torch.ones((), dtype=torch.bool, device=fb.device), one_pass)
 
 
 @torch.no_grad()
@@ -353,29 +424,14 @@ def render_frame(buffers: SceneBuffers, params: FrameParams, *,
                 else:
                     bins_t, counts_t, overflow_tt = raster.refine_bins(
                         cbins_t, t_aabb, tri_cap=tri_cap, **tiles)
+            peel = _Peel(fused=fused, rows=rows_t, packed=None if fused else setup_t.packed,
+                         bins=bins_t, counts=counts_t, z=z, tiles=tiles, look=look,
+                         textured=transp_textured, q=q)
             last = torch.full((hp, wp), -1, dtype=torch.int32, device=dev)
-            n_layers = 0
-            while True:
-                if fused:
-                    layer, attrs, meta, inv = raster.rasterize_peel_fused(
-                        rows_t, bins_t, counts_t, z, last, **tiles)
-                else:
-                    layer = raster.rasterize_peel(setup_t.packed, bins_t,
-                                                  counts_t, z, last, **tiles)
-                found = layer < raster.ID_INF
-                # an empty layer would leave fb unchanged
-                if not _layer_found(found):
-                    break
-                n_layers += 1
-                if fused:
-                    src = shade.shade_fused(attrs, meta, inv,
-                                            textured=transp_textured, **look)
-                    fb = _composite(fb, found, src, q)
-                else:
-                    fb = q(shade.blend_layer(fb, torch.where(found, layer, raster.NO_TRI),
-                                             rows_t, textured=transp_textured, **look))
-                last = torch.where(found, layer, raster.ID_INF)
-            layers = torch.tensor(n_layers, dtype=torch.int32, device=dev)
+            layers = torch.zeros((), dtype=torch.int32, device=dev)
+            if fb is bg_fb:   # updated in place: never the caller's buffer
+                fb = fb.clone()
+            _peel_on_device(peel, fb, last, layers, limit=tt)
         # chunk and triangle overflow apart, so the engine widens only the
         # capacity that overflowed
         aux["bin_overflow_transparent"] = overflow_tc
@@ -391,15 +447,43 @@ def render_frame(buffers: SceneBuffers, params: FrameParams, *,
     return to_packed_u32(fb, width=width, height=height), aux
 
 
+# -- eager or graphed (frame_graph.py: jax.jit's counterpart) -----------------
+
+_mode = threading.local()
+
+
+@contextlib.contextmanager
+def eager():
+    """jax.disable_jit()'s counterpart: inside the block the Engine (so
+    render_frames through its render_fn()) draws every frame op by op on the
+    card too, capturing and replaying no graph (utils.profiling.debug_mode enters it: its checks
+    need each operation dispatched). Blocks nest."""
+    _mode.eager = getattr(_mode, "eager", 0) + 1
+    try:
+        yield
+    finally:
+        _mode.eager -= 1
+
+
+def graphed(device) -> bool:
+    """Does a frame on `device` go through a FrameGraph here: a CUDA device,
+    outside eager()?"""
+    return torch.device(device).type == "cuda" and getattr(_mode, "eager", 0) == 0
+
+
 @torch.no_grad()
-def render_frames(buffers: SceneBuffers, params_list: List[FrameParams], **kw):
-    """Render a sequence of frames. The background depends only on the
-    background params, which a batch holds constant, so it is computed once.
-    Returns (last frame image, (F,) int32 per-frame checksums)."""
+def render_frames(buffers: SceneBuffers, params_list: List[FrameParams],
+                  frame: Callable = render_frame, **kw):
+    """Render a sequence of frames, each by frame(buffers, params, bg_fb=...,
+    **kw) (render_frame's signature; the Engine's render_fn() replays its
+    frame graph on the card: the port's lax.scan). The background depends
+    only on the background params, which a batch holds constant, so it is
+    computed once. Returns (last frame image, (F,) int32 per-frame
+    checksums)."""
     bg = background_fb(params_list[0], width=kw["width"], height=kw["height"],
                        tile_h=kw.get("tile_h", 32), tile_w=kw.get("tile_w", 128))
     img, sums = None, []
     for p in params_list:
-        img, _aux = render_frame(buffers, p, bg_fb=bg, **kw)
+        img, _aux = frame(buffers, p, bg_fb=bg, **kw)
         sums.append((img[::191, ::127] & 0xFF).sum(dtype=torch.int32))
     return img, torch.stack(sums)

@@ -242,7 +242,8 @@ def capture_inputs(eng, path: str) -> None:
 
     pipeline._binned, raster.rasterize_accum = take_binned, take_light
     try:
-        eng.draw()
+        with pipeline.eager():   # a graph's replay calls neither
+            eng.draw()
     finally:
         pipeline._binned, raster.rasterize_accum = binned, accum
     if len(got) != 2 or len(light) != 1:

@@ -53,6 +53,7 @@ import tempfile
 
 import torch
 
+from tpu_renderer_torch import pipeline
 from tpu_renderer_torch.kernels import raster
 from tpu_renderer_torch.tools.profile_raster import deferred_inputs
 from tpu_renderer_torch.utils.bench_frame import BENCH, bench_engine, nvidia_smi, path_engine
@@ -72,21 +73,32 @@ ORACLES = {"raster_accum_gathered_kernel": ("bench", "raster_accum_kernel"),
            "raster_peel_gathered_kernel": ("textured-glass", "raster_peel_fused_kernel")}
 
 
+def frozen_call(args, kwargs) -> tuple:
+    """(args, kwargs) of a launch with every tensor copied as the launch
+    sees it: the peel loop updates its `last` in place, so the arguments
+    themselves hold the last pass's values once the frame ends."""
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+    return tuple(copy(a) for a in args), {k: copy(v) for k, v in kwargs.items()}
+
+
 def captured_calls(eng, names) -> dict:
     """name -> [(args, kwargs), ...] of every launch of each named kernel in
-    one draw_device() of eng."""
+    one eager draw_device() of eng (a replay of a frame graph calls no
+    wrapper), each as the launch saw it (frozen_call)."""
     seen, originals = {n: [] for n in names}, {n: getattr(raster, n) for n in names}
 
     def recorder(name):
         def call(*args, **kwargs):
-            seen[name].append((args, kwargs))
+            seen[name].append(frozen_call(args, kwargs))
             return originals[name](*args, **kwargs)
         return call
 
     for n in names:
         setattr(raster, n, recorder(n))
     try:
-        eng.draw_device()
+        with pipeline.eager():
+            eng.draw_device()
     finally:
         for n, f in originals.items():
             setattr(raster, n, f)

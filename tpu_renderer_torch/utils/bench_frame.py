@@ -5,29 +5,38 @@
 The bench frame is the JAX package's bench.py frame: the demo scene at
 grid=64 (seed 0), 1920x1080, camera (0, 6, 128), pitch -0.18, the default
 gradient background, through Engine(device="cuda").draw_device(). --path
-picks the frame: "bench" (the default), "textured-glass" (the same scene,
-its glass sampling the checker texture: the depth peel, kernel 2.3) or
-"deferred" (fused=False: kernels 2.4 and 2.5). Run as a script, this
-module prints, each from its own pass over the same engine:
+picks the frame: "bench" (the default), "trilinear" (its samplers
+LINEAR_MIPMAP_LINEAR: two mip taps), "stress" (grid 128, camera (0, 6,
+256)), "textured-glass" (the bench scene, its glass sampling the checker
+texture: the depth peel, kernel 2.3) or "deferred" (fused=False: kernels
+2.4 and 2.5). Run as a script, this module prints, each from its own pass
+over the same engine:
 
-1. frame ms: host clock around draw_device() ending in synchronize(),
-   median, p25, p75 and min over --frames frames; and the peak device
-   memory of one frame;
-2. stage ms: each stage of pipeline.render_frame (PATHS[path]) between two
-   synchronize() calls, host clock, summed within a frame, median over
-   --frames frames;
-3. under torch.profiler, over --profile-frames frames as in 1: device busy
-   ms a frame (the union of kernel, memcpy and memset intervals), device
-   operations a frame, the frame's wall ms under the profiler, and the idle
-   share 1 - busy / wall, all of the same profiled frames;
-4. under torch.profiler, with the stages of 2: each stage's device ms, the
-   device work that ran inside the stage's synchronised host window (each
-   operation goes to the window it overlaps most; work between windows,
-   the composites, is "other").
+1. frame ms, graphed (a replay of the engine's frame graph,
+   frame_graph.py) and eager (pipeline.eager()) in turns, graphed, eager,
+   eager, graphed, --frames / 2 frames a turn: host clock around
+   draw_device() ending in synchronize(), median, p25, p75 and min; the
+   host ms of the draw_device() call itself (before the synchronize); the
+   host syncs inside it (torch.cuda.set_sync_debug_mode's warnings); the
+   peak device memory of one frame each way; and each capture's ms and
+   memory pool MiB;
+2. stage ms, eager: each stage of pipeline.render_frame (PATHS[path])
+   between two synchronize() calls, host clock, summed within a frame,
+   median over --frames frames;
+3. under torch.profiler, over --profile-frames frames as in 1, graphed and
+   eager: device busy ms a frame (the union of kernel, memcpy and memset
+   intervals), device operations a frame, the frame's wall ms under the
+   profiler, and the idle share 1 - busy / wall, all of the same profiled
+   frames;
+4. under torch.profiler, eager, with the stages of 2: each stage's device
+   ms, the device work that ran inside the stage's synchronised host window
+   (each operation goes to the window it overlaps most; work between
+   windows, the composites, is "other").
 
-It writes key_averages.txt (pass 3) and bench_frame.json under --out
-(default chiprun_out/profile in the checkout). Without CUDA it exits 1.
-For a --path other than "bench", both names end in _<path>.
+It writes key_averages.txt (pass 3, graphed; key_averages_eager.txt eager)
+and bench_frame.json under --out (default: profile/ in the checkout's
+output directory, which .gitignore lists). Without CUDA it exits 1. For a --path other than "bench", the
+names end in _<path>.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -92,7 +102,9 @@ DEFERRED_STAGES = (
     ("blend layer", shade, "blend_layer"),
     ("present", pipeline, "to_packed_u32"),
 )
-PATHS = {"bench": STAGES, "textured-glass": PEEL_STAGES, "deferred": DEFERRED_STAGES}
+PATHS = {"bench": STAGES, "trilinear": STAGES, "stress": STAGES,
+         "textured-glass": PEEL_STAGES, "deferred": DEFERRED_STAGES}
+MODES = ("graphed", "eager", "eager", "graphed")   # the turns of pass 1
 HAND_KERNELS = ("raster_fused_kernel", "raster_accum_kernel", "raster_peel_fused_kernel",
                 "raster_deferred_kernel", "raster_peel_deferred_kernel")
 STAGE_PREFIX = "stage:"
@@ -146,8 +158,12 @@ def bench_engine(scene_path: str, device="cuda", grid: int = BENCH["grid"],
 def path_engine(path: str, scene_path: str, device="cuda", **size) -> Engine:
     """The engine of one of PATHS on the bench scene (size: grid, width,
     height and camera_position, for small runs on the CPU)."""
-    if path == "bench":
-        return bench_engine(scene_path, device=device, **size)
+    if path in ("bench", "trilinear"):
+        return bench_engine(scene_path, device=device, trilinear=path == "trilinear", **size)
+    if path == "stress":
+        grid = size.pop("grid", 2 * BENCH["grid"])
+        return bench_engine(scene_path, device=device, grid=grid,
+                            **{"camera_position": (0.0, 6.0, 2.0 * grid), **size})
     grid = size.pop("grid", BENCH["grid"])
     build_demo_glb(scene_path, grid=grid, seed=0)
     scene = load_scene(scene_path)
@@ -166,7 +182,8 @@ def _sync(device) -> None:
 def staged(device, record, stages=STAGES):
     """Run every stage function between two synchronize() calls, inside a
     record_function("stage:<name>") range; record(name, ms) receives each
-    call's host ms. The functions are restored on exit."""
+    call's host ms. The functions are restored on exit. Frames inside draw
+    eagerly (pipeline.eager()): a frame graph's replay calls no stage."""
     originals = [(mod, attr, getattr(mod, attr)) for _, mod, attr in stages]
 
     def wrap(name, fn):
@@ -183,10 +200,55 @@ def staged(device, record, stages=STAGES):
     try:
         for (name, mod, attr), (_, _, fn) in zip(stages, originals):
             setattr(mod, attr, wrap(name, fn))
-        yield
+        with pipeline.eager():
+            yield
     finally:
         for mod, attr, fn in originals:
             setattr(mod, attr, fn)
+
+
+def mode(name: str):
+    """The block for a turn of pass 1: "graphed" draws as the Engine does
+    by default, "eager" inside pipeline.eager()."""
+    return pipeline.eager() if name == "eager" else contextlib.nullcontext()
+
+
+class SyncCount:
+    """Host syncs inside the block: each call torch finds synchronising
+    with the card (torch.cuda.set_sync_debug_mode("warn"): a value read on
+    the host, a copy that waits) warns once, and `calls` counts them."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        self.calls = sum("called a synchronizing CUDA operation" in str(w.message)
+                         for w in self._seen)
+        return False
+
+
+def turn_times(eng: Engine, n: int) -> dict:
+    """Per frame over n frames: wall ms (a synchronised start to a
+    synchronised end), host ms of the draw_device() call, and its host
+    syncs (SyncCount)."""
+    out = dict(wall=[], host=[], syncs=[])
+    for _ in range(n):
+        _sync(eng.device)
+        t0 = time.perf_counter()
+        with SyncCount() as syncs:
+            eng.draw_device()
+        t1 = time.perf_counter()
+        _sync(eng.device)
+        out["wall"].append((time.perf_counter() - t0) * 1000.0)
+        out["host"].append((t1 - t0) * 1000.0)
+        out["syncs"].append(syncs.calls)
+    return out
 
 
 def frame_times(eng: Engine, n: int) -> list:
@@ -314,6 +376,11 @@ def _window_of(windows, s: float, e: float) -> str:
     return name
 
 
+def _quartiles(times) -> dict:
+    q = statistics.quantiles(times, n=4)
+    return dict(median=statistics.median(times), p25=q[0], p75=q[2], min=min(times))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=sorted(PATHS), default="bench")
@@ -327,39 +394,61 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     print(f"[device] {smi}", flush=True)
     os.makedirs(args.out, exist_ok=True)
-    eng = path_engine(args.path, os.path.join(args.out, "bench_scene.glb"))
+    eng = path_engine(args.path, os.path.join(args.out, f"bench_scene_{args.path}.glb"))
     stages = PATHS[args.path]
     suffix = "" if args.path == "bench" else f"_{args.path}"
     print(f"[path] {args.path}: fused={eng._fused}, caps {eng._caps}", flush=True)
-    eng.draw()                              # warm-up and build; fills eng.stats
+    eng.draw()                              # warm-up and build; captured; fills eng.stats
     eng.draw()                              # the deferred caps have escalated
-    frame_times(eng, 2)
+    peak_mib = {}
+    for name in ("graphed", "eager"):
+        with mode(name):
+            frame_times(eng, 2)
+            torch.cuda.reset_peak_memory_stats()
+            frame_times(eng, 1)
+        peak_mib[name] = torch.cuda.max_memory_allocated() / 2 ** 20
 
-    torch.cuda.reset_peak_memory_stats()
-    frame_times(eng, 1)
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    times = frame_times(eng, args.frames)
-    q = statistics.quantiles(times, n=4)
-    frame = dict(median=statistics.median(times), p25=q[0], p75=q[2], min=min(times))
-    print(f"[frame] {eng.stats.triangle_count} tris; ms over {args.frames} frames: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in frame.items())
-          + f"; peak device memory {peak_mib:.1f} MiB", flush=True)
+    turns = {name: dict(wall=[], host=[], syncs=[]) for name in MODES}
+    for name in MODES:
+        with mode(name):
+            got = turn_times(eng, max(args.frames // 2, 1))
+        for k, v in got.items():
+            turns[name][k] += v
+    frame = {}
+    for name, t in turns.items():
+        frame[name] = dict(wall=_quartiles(t["wall"]), host_median=statistics.median(t["host"]),
+                           syncs_per_frame=sum(t["syncs"]) / len(t["syncs"]),
+                           peak_mib=peak_mib[name])
+        print(f"[frame] {name}: {eng.stats.triangle_count} tris; wall ms over "
+              f"{len(t['wall'])} frames in turns {'/'.join(MODES)}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in frame[name]["wall"].items())
+              + f"; draw_device() host ms median {frame[name]['host_median']:.3f}; "
+              f"{frame[name]['syncs_per_frame']:.1f} host syncs a frame; peak device "
+              f"memory {peak_mib[name]:.1f} MiB", flush=True)
+    captures = [dict(capture_ms=ms, pool_mib=mib) for ms, mib in eng.frame_graphs.captured]
+    print("[graph] captures: " + ", ".join(f"{c['capture_ms']:.1f} ms, pool "
+                                          f"{c['pool_mib']:.1f} MiB" for c in captures),
+          flush=True)
     stage_ms = stage_times(eng, args.frames, stages)
-    print(f"[stages] host ms, synchronised, median of {args.frames}: "
+    print(f"[stages] eager, host ms, synchronised, median of {args.frames}: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()), flush=True)
-    prof = profile_frames(eng, args.profile_frames, args.out, suffix)
-    print(f"[profile] {prof['frames']} frames under the profiler: wall "
-          f"{prof['wall_ms_per_frame']:.3f} ms/frame, device busy "
-          f"{prof['device_busy_ms_per_frame']:.3f} ms/frame, idle share "
-          f"{prof['idle_share']:.3f}, {prof['device_ops_per_frame']:.1f} device "
-          f"ops/frame ({prof['kernels_per_frame']:.1f} kernels); "
-          + ", ".join(f"{k} {v:.3f} ms/frame"
-                      for k, v in prof["hand_kernel_ms_per_frame"].items()), flush=True)
+    prof = {}
+    for name in ("graphed", "eager"):
+        with mode(name):
+            prof[name] = p = profile_frames(eng, args.profile_frames, args.out,
+                                            suffix + ("_eager" if name == "eager" else ""))
+        print(f"[profile] {name}: {p['frames']} frames under the profiler: wall "
+              f"{p['wall_ms_per_frame']:.3f} ms/frame, device busy "
+              f"{p['device_busy_ms_per_frame']:.3f} ms/frame, idle share "
+              f"{p['idle_share']:.3f}, {p['device_ops_per_frame']:.1f} device "
+              f"ops/frame ({p['kernels_per_frame']:.1f} kernels); "
+              + ", ".join(f"{k} {v:.3f} ms/frame"
+                          for k, v in p["hand_kernel_ms_per_frame"].items()), flush=True)
     dev_stages = profile_stages(eng, args.profile_frames, stages)
-    print(f"[profile] device ms/frame by stage ({args.profile_frames} frames): "
+    print(f"[profile] eager, device ms/frame by stage ({args.profile_frames} frames): "
           + ", ".join(f"{k} {v:.3f}" for k, v in dev_stages.items()), flush=True)
     result = dict(device=smi, path=args.path, caps=eng._caps, frame_ms=frame,
-                  peak_mib=peak_mib, stage_host_ms=stage_ms, profile=prof,
+                  captures=captures, stage_host_ms=stage_ms, profile=prof,
                   stage_device_ms=dev_stages)
     with open(os.path.join(args.out, f"bench_frame{suffix}.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -7,7 +7,8 @@ std::chrono counters + ImGui stats HUD (vk_engine.cpp:1164-1200, 1358-1359,
   analog of GPU timestamp queries, which the reference does not have).
 * ``debug_mode`` turns on the NaN checks (the analog of the Vulkan
   validation layer, vk_engine.cpp:39-44): every torch operation and every
-  CUDA kernel wrapper (``checked``) raises at the first NaN it writes.
+  CUDA kernel wrapper (``checked``) raises at the first NaN it writes; the
+  frames inside draw eagerly (pipeline.eager()).
 * ``stats_text`` is the stats window as text.
 """
 
@@ -124,8 +125,12 @@ def debug_mode():
     kernel wrapper checks its floating outputs and raises FloatingPointError
     at the first NaN, naming the operation or kernel. Infinities pass, as
     they do under jax_debug_nans (the frame makes them on purpose). Each
-    check synchronises with the card; debug only."""
-    with NanCheck():
+    check synchronises with the card; debug only. The frames inside draw
+    eagerly (pipeline.eager()): a CUDA graph's replay dispatches no
+    operation to check."""
+    from tpu_renderer_torch import pipeline
+
+    with NanCheck(), pipeline.eager():
         yield
 
 
