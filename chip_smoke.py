@@ -131,12 +131,24 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    memory pool, wall and host ms in turns (graphed, eager, eager, graphed),
    the eager frame's syncs; then draw_pipelined() on the graphed bench
    engine against eager draws, a lag of 2;
-17. prints each phase's seconds as it ends ([time] lines), then a JSON
+17. the raster tile: Engine(RendererConfig(tile_h, tile_w)) at every tile
+   of raster.TILES, the default (32x128) first, on the bench,
+   textured-glass and deferred frames at 1920x1080: kernels 2.1-2.5 on the
+   inputs each frame gives them at that tile, and 2.6-2.8 on inputs made
+   from them as phases 5 and 11 make them, each against its plain version
+   bit for bit (at the default tile phases 3-11 hold them) with its device
+   ms and bound; the path's graphed frames counted (20 at the default
+   tile, 10 at the others; the path's kernels must launch), each image
+   byte for byte the default tile's, and their median ms; 2.9-2.11 against
+   their plain versions at 1920x1080 and 1700x900 padded to the tile
+   (1728 wide at 64-pixel tiles, a half row segment), device ms at
+   1920x1080; a {"tiles": [...]} line collects them;
+18. prints each phase's seconds as it ends ([time] lines), then a JSON
    line of per-kernel results (launches on its path, max_abs_err against
    the plain version, ms and plain ms, the bound from this run's inputs,
    the library call's ms where there is one; besides, device_ms and
-   host_ms) after phase 14's line, the nvidia-smi line, and, last,
-   {"ok": true, "device": {...}}.
+   host_ms) after phase 14's and phase 17's lines, the nvidia-smi line,
+   and, last, {"ok": true, "device": {...}}.
 
 Frames on the card are graphed (a replay of a captured CUDA graph) unless
 pipeline.eager() is entered: every check that patches or wraps a kernel
@@ -180,7 +192,6 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_PER_TEST = 16      # 3 edge planes + the depth plane, 4 flops each
 FLOPS_PER_FRAGMENT = 40  # kernels 2.2 and 2.7: shading a taken fragment
-PIXELS_PER_TILE = 32 * 128
 
 # Float operations a pixel of the background passes: 2.9 a multiply, a
 # fused multiply-add and an add a plane; 2.10 four stars of ~10, the two
@@ -319,9 +330,10 @@ def _live_entries(bins, counts):
     return torch.arange(bins.shape[1], device=bins.device)[None, :] < n[:, None]
 
 
-def _frame_tiles(plane, tiles_x, tiles_y):
-    """(Hp, Wp) -> (n_tiles, 32 * 128) tile-major."""
-    return plane.reshape(tiles_y, 32, tiles_x, 128).transpose(1, 2).reshape(
+def _frame_tiles(plane, tiles_x, tiles_y, tile_h=32, tile_w=128):
+    """(Hp, Wp) -> (n_tiles, tile_h * tile_w) tile-major (by default the
+    default tile's)."""
+    return plane.reshape(tiles_y, tile_h, tiles_x, tile_w).transpose(1, 2).reshape(
         tiles_x * tiles_y, -1)
 
 
@@ -351,8 +363,9 @@ def work_tests(name, args, kwargs, out) -> int:
         per_id = 1
     work = work * live
     if name not in EARLY_EXIT_PEELS:
-        return int(work.sum()) * PIXELS_PER_TILE
-    layer = _frame_tiles(_tuple(out)[0], kwargs["tiles_x"], kwargs["tiles_y"])
+        return int(work.sum()) * kwargs["tile_h"] * kwargs["tile_w"]
+    layer = _frame_tiles(_tuple(out)[0], kwargs["tiles_x"], kwargs["tiles_y"],
+                         kwargs["tile_h"], kwargs["tile_w"])
     stop = torch.where(layer < raster.ID_INF, layer // per_id, raster.ID_INF)
     key, order = torch.where(live, key, torch.iinfo(torch.int32).max).sort(dim=1)
     done = torch.cat([torch.zeros_like(work[:, :1]), work.gather(1, order).cumsum(dim=1)], dim=1)
@@ -378,7 +391,8 @@ def bound(name, args, kwargs, out):
 
 def check_kernel(name, calls, label):
     """Hold the kernel against its plain version on each captured call,
-    then time both on the first; returns the kernel's JSON entry."""
+    then time the kernel on the first; the plain version's time is its
+    call on the first, in the check. Returns the kernel's JSON entry."""
     import torch
 
     from tpu_renderer_torch.kernels import raster
@@ -387,11 +401,17 @@ def check_kernel(name, calls, label):
     kernel = getattr(raster, name)
     _, plain_name, _, source, replaces = KERNELS[name]
     plain = getattr(raster, plain_name)
-    err = 0.0
+    err, plain_ms = 0.0, None
     for i, (args, kwargs) in calls:
         got = kernel(*args, **kwargs)
-        want = plain(*args, **kwargs)
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        if plain_ms is None:
+            plain_ms = start.elapsed_time(end)
         err = max(err, max_abs_err(got, want))
         bins, counts = args[1], args[2]
         print(f"[kernel] {name} ({label}, call {i}): bins {tuple(bins.shape)}, "
@@ -404,10 +424,8 @@ def check_kernel(name, calls, label):
     ms = event_ms(fn, runs=20)
     device = device_ms(fn)
     host = host_ms(fn)
-    # the exactness check above has just run the plain version on these inputs
-    plain_ms = event_ms(lambda: plain(*args, **kwargs), runs=3, warmup=0)
     print(f"[kernel] {name}: {ms:.4f} ms (median of 20), device {device:.4f} ms (a graph of "
-          f"50), host {host:.4f} ms a call, plain {plain_ms:.2f} ms (median of 3), bound "
+          f"50), host {host:.4f} ms a call, plain {plain_ms:.2f} ms (one call), bound "
           f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / device:.1%} of the device time)",
           flush=True)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -492,9 +510,11 @@ def decomposition(name, args, kwargs, launched, label="") -> str:
     line = (f"[split] {name}{label}: {launches} launch a call ({kernels} device kernel); busiest "
             f"tile {int(counts[busiest])} entries, {int(work[busiest].sum())} {unit}")
     if name in ACCUM_KERNELS:
-        blocks = (f"{n_tiles * raster.ACCUM_SPLIT} blocks ({raster.ACCUM_SPLIT} 32-column "
-                  f"strips a tile)" if name == "raster_accum_kernel" else
-                  f"{n_tiles * raster.GATHERED_ACCUM_BLOCKS} blocks (one a 32x8 region)")
+        split = raster.accum_split(kwargs["tile_w"])
+        blocks = (f"{n_tiles * split} blocks ({split} 32-column strips a tile)"
+                  if name == "raster_accum_kernel" else
+                  f"{n_tiles * raster.gathered_accum_blocks(kwargs['tile_h'], kwargs['tile_w'])} "
+                  f"blocks (one a 32x8 region)")
         return (f"{line}; {blocks}, each walking its tile's whole list; "
                 f"{int(torch.count_nonzero(live))} live entries")
     split, segs = tile_split(name, bins, counts)
@@ -576,6 +596,19 @@ def _no_replay(*args, **kwargs):
                          "would compare the graph's kernels with themselves")
 
 
+def _as_launcher(name):
+    """Kernel `name`'s plain version, called as its launcher is: a
+    background launcher takes the tile its extent is whole tiles of, which
+    the plain version, at any extent, does not."""
+    plain = getattr(kernel_module(name), KERNELS[name][1])
+    if name not in BACKGROUND_KERNELS:
+        return plain
+
+    def call(*args, tile_h=None, tile_w=None, **kwargs):
+        return plain(*args, **kwargs)
+    return call
+
+
 @contextlib.contextmanager
 def plain_versions(names):
     """Inside the block the named kernels are their plain versions, and
@@ -586,7 +619,7 @@ def plain_versions(names):
     originals = {n: getattr(kernel_module(n), n) for n in names}
     replay = frame_graph.FrameGraph.replay
     for n in names:
-        setattr(kernel_module(n), n, getattr(kernel_module(n), KERNELS[n][1]))
+        setattr(kernel_module(n), n, _as_launcher(n))
     frame_graph.FrameGraph.replay = _no_replay
     try:
         with pipeline.eager():
@@ -1854,6 +1887,145 @@ def graphed_phase(scene_path):
         del eng
 
 
+# Phase 17: the raster tile. Every tile of raster.TILES, the default
+# first: the paths each tile renders and the kernels each path's frame
+# gives its inputs to, the background extents, and the graphed frames a
+# path (the default tile's as many as phase 3's)
+TILE_PATHS = {"bench": ("raster_fused_kernel", "raster_accum_kernel"),
+              "textured-glass": ("raster_peel_fused_kernel",),
+              "deferred": ("raster_deferred_kernel", "raster_peel_kernel")}
+TILE_BACKGROUND_EXTENTS = ((1920, 1080), (1700, 900))
+TILE_FRAMES = 10
+
+
+def tile_calls(eng, path):
+    """name -> (args, kwargs): the first call of each kernel of the path's
+    frame at the engine's tile (one eager frame), and the gathered oracles'
+    calls made from them, as phases 5 and 11 make them: 2.7 from 2.2's
+    call, 2.8 from 2.3's, 2.6 on the deferred frame's fat rows and bins."""
+    from tpu_renderer_torch.tools.profile_raster import deferred_inputs
+    from tpu_renderer_torch.tools.time_stream_kernels import oracle_call
+
+    seen = capture_kernel_inputs(eng.draw_device, TILE_PATHS[path])
+    calls = {n: c[0] for n, c in seen.items()}
+    if path == "bench":
+        calls["raster_accum_gathered_kernel"] = oracle_call(calls["raster_accum_kernel"])
+    elif path == "textured-glass":
+        calls["raster_peel_gathered_kernel"] = oracle_call(calls["raster_peel_fused_kernel"])
+    else:
+        _, rows48, bins, counts, tiles, _ = deferred_inputs(eng)
+        calls["raster_fused_gathered_kernel"] = ((rows48, bins, counts), tiles)
+    return calls
+
+
+def tile_background_calls(w, h, tile_h, tile_w, device):
+    """name -> (args, kwargs) of each background kernel at extent w x h
+    padded to whole tile_h x tile_w tiles (hold_at_tile adds the tile)."""
+    import torch
+
+    ext = dict(height=h, width_pad=-(-w // tile_w) * tile_w,
+               height_pad=-(-h // tile_h) * tile_h)
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    return {
+        "background_gradient_kernel": ((f((0.9, 0.3, 0.2, 1.0)), f((0.1, 0.2, 0.7, 0.5))), ext),
+        "background_sky_kernel": ((f((0.1, 0.2, 0.4, 0.97)),), ext),
+        "background_grid_kernel": ((), dict(width=w, device=device, **ext)),
+    }
+
+
+def hold_at_tile(name, call, tile, check: bool) -> dict:
+    """Kernel `name` on one call at the tile: bit for bit against its plain
+    version (when check), its device ms (utils/timing.device_ms) and its
+    bound from these inputs."""
+    import torch
+
+    from tpu_renderer_torch.utils.timing import device_ms
+
+    kernel, plain = getattr(kernel_module(name), name), _as_launcher(name)
+    args, kwargs = call
+    if name in BACKGROUND_KERNELS:
+        kwargs = dict(kwargs, tile_h=tile[0], tile_w=tile[1])
+    out = kernel(*args, **kwargs)
+    err = None
+    if check:
+        want = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want)
+    bound_ms, bound_by = (background_bound(name, args, out) if name in BACKGROUND_KERNELS
+                          else bound(name, args, kwargs, out))
+    return dict(max_abs_err=err, device_ms=device_ms(lambda: kernel(*args, **kwargs)),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def tile_phase(scene_path, lines):
+    """Phase 17: RendererConfig(tile_h, tile_w) at every tile of
+    raster.TILES, the default first. For each tile, on the bench,
+    textured-glass and deferred frames at 1920x1080: each kernel the frame
+    runs (2.1-2.5) and the oracles on inputs made from them (2.6-2.8)
+    against its plain version on that tile's inputs, bit for bit (at the
+    default tile phases 3-11 hold them; here they are timed only), with its
+    device ms and bound; then the path's graphed frames counted
+    (counted_frames: counters to 0, a draw, the timed frames, counters
+    read; the path's kernels must launch), each image byte for byte the
+    default tile's; the background kernels 2.9-2.11 against their plain
+    versions at 1920x1080 and 1700x900 padded to that tile's whole tiles
+    (1728 wide at 64-pixel tiles: a half row segment). Appends a line a
+    tile to `lines`."""
+    import gc
+
+    import torch
+
+    from tpu_renderer_torch.kernels import raster
+
+    default = (raster.TILE_H, raster.TILE_W)
+    images = {}
+    for tile in [default] + [t for t in raster.TILES if t != default]:
+        t0 = time.perf_counter()
+        label = f"{tile[0]}x{tile[1]}"
+        check = tile != default
+        entry = dict(tile=label, frame_ms={}, launches={}, kernels={})
+        for path, names in TILE_PATHS.items():
+            eng = mesh_engine(path, scene_path, tile_h=tile[0], tile_w=tile[1])
+            if path == "deferred":
+                eng.draw()          # escalates the caps (a capture a step)
+            for name, call in tile_calls(eng, path).items():
+                r = entry["kernels"][name] = hold_at_tile(name, call, tile, check)
+                bins, counts = call[0][1], call[0][2]
+                print(f"[tile] {label} {name} ({path} frame): bins {tuple(bins.shape)}, "
+                      f"entries {int(counts.clamp(max=bins.shape[1]).sum())}, max/tile "
+                      f"{int(counts.max())}; "
+                      + ("exact vs plain (max_abs_err {})".format(r["max_abs_err"]) if check
+                         else "held to its plain version in phases 3-11")
+                      + f"; device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']}", flush=True)
+            n = 2 * TILE_FRAMES if tile == default else TILE_FRAMES
+            ms, image, layers, _, launches = counted_frames(eng, n, f"{path} at {label}", names)
+            if tile == default:
+                images[path] = image
+            assert np.array_equal(image, images[path]), \
+                f"the {path} frame at {label} differs from the {default[0]}x{default[1]} frame"
+            entry["frame_ms"][path] = ms
+            entry["launches"][path] = {k: v for k, v in launches.items() if v}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        for name in BACKGROUND_KERNELS:
+            for w, h in TILE_BACKGROUND_EXTENTS:
+                call = tile_background_calls(w, h, *tile, torch.device("cuda"))[name]
+                r = hold_at_tile(name, call, tile, True)
+                print(f"[tile] {label} {name} at {w}x{h} (buffer "
+                      f"{call[1]['height_pad']}x{call[1]['width_pad']}): exact vs plain "
+                      f"(max_abs_err {r['max_abs_err']}); device {r['device_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+                if (w, h) == TILE_BACKGROUND_EXTENTS[0]:
+                    entry["kernels"][name] = r
+        print(f"[tile] {label}: the bench, textured-glass and deferred frames equal the "
+              f"{default[0]}x{default[1]} frames byte for byte; graphed frame ms (median) "
+              + ", ".join(f"{p} {v:.3f}" for p, v in entry["frame_ms"].items())
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+        lines.append(entry)
+
+
 def main() -> int:
     import torch
 
@@ -1906,9 +2078,12 @@ def main() -> int:
     phase(multichip_phase, scene_path, multichip_lines)
     phase(surface_phase, scene_path)
     phase(graphed_phase, scene_path)
+    tile_lines = []
+    phase(tile_phase, scene_path, tile_lines)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"multichip": multichip_lines}))
+    print(json.dumps({"tiles": tile_lines}))
     print(json.dumps({"kernels": [results[n] for n in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

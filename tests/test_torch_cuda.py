@@ -1125,3 +1125,134 @@ def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
         eng.draw()
     with pipeline.eager():
         assert eng.draw().shape == (H, W, 4)
+
+
+# -- every tile of the kernels' set (raster.TILES) ----------------------------
+
+
+def _tiles(tile_h, tile_w):
+    return dict(tiles_x=W // tile_w, tiles_y=H // tile_h, tile_w=tile_w, tile_h=tile_h)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", raster.TILES)
+def test_raster_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
+    """Kernels 2.1-2.8 at each tile of the set against their plain
+    versions, bit for bit, on random triangles binned at that tile: 2.1 and
+    2.2 on sorted rows, 2.3 and 2.5 over two peels (`last` fed back), 2.4
+    on refined bins, 2.6-2.8 over per-triangle bins of the same rows."""
+    tiles = _tiles(tile_h, tile_w)
+    rows, aabb, valid = vertex.triangle_setup_rows(
+        _corners(cuda, 192, 7), *_setup_args(cuda, 192),
+        sun_dir=torch.tensor(SUN, device=cuda))
+    aabb, valid, rows = raster.spatial_sort(aabb, valid, rows)
+    rows = rows.contiguous()
+    caabb, cvalid = raster.chunk_aabbs(aabb, valid)
+    dense = raster.bin_triangles_full(caabb, cvalid, *raster.group_aabbs(aabb, valid),
+                                      **tiles)
+    cbins, ccounts, _ = raster.bin_triangles(caabb, cvalid, bin_cap=64, **tiles)
+    tbins, tcounts, _ = raster.refine_bins(cbins, aabb, tri_cap=1024, **tiles)
+    setup = vertex.triangle_setup_c(_corners(cuda, 192, 7), *_setup_args(cuda, 192),
+                                    sun_dir=torch.tensor(SUN, device=cuda))
+    pc = raster.bin_triangles(*raster.chunk_aabbs(setup.aabb, setup.valid), bin_cap=64,
+                              **tiles)
+    pbins, pcounts, _ = raster.refine_bins(pc[0], setup.aabb, tri_cap=1024, **tiles)
+    light = torch.tensor(LIGHT, device=cuda)
+    z = raster.raster_fused_kernel(rows, *dense, **tiles)[0].clone()
+    z[:, 128:] = 0.0
+    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    calls = [("raster_fused_kernel", "rasterize_fused_plain", (rows, *dense)),
+             ("raster_accum_kernel", "rasterize_accum_plain", (rows, *dense, z, light)),
+             ("raster_deferred_kernel", "rasterize_plain", (setup.packed, pbins, pcounts)),
+             ("raster_fused_gathered_kernel", "rasterize_fused_gathered_plain",
+              (rows, tbins, tcounts)),
+             ("raster_accum_gathered_kernel", "rasterize_accum_gathered_plain",
+              (rows, tbins, tcounts, z, light))]
+    for name, plain, args in calls:
+        got, want = getattr(raster, name)(*args, **tiles), getattr(raster, plain)(*args, **tiles)
+        torch.cuda.synchronize()
+        assert all(_same(g, w) for g, w in zip(got, want)), (name, tile_h, tile_w)
+    for name, plain, args in (
+            ("raster_peel_fused_kernel", "rasterize_peel_fused_plain", (rows, *dense)),
+            ("raster_peel_kernel", "rasterize_peel_plain", (setup.packed, pbins, pcounts)),
+            ("raster_peel_gathered_kernel", "rasterize_peel_gathered_plain",
+             (rows, tbins, tcounts))):
+        lt, found = last, []
+        for _ in range(2):
+            got = getattr(raster, name)(*args, z, lt, **tiles)
+            want = getattr(raster, plain)(*args, z, lt, **tiles)
+            got, want = (got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,))
+            torch.cuda.synchronize()
+            assert all(_same(g, w) for g, w in zip(got, want)), (name, tile_h, tile_w)
+            found.append(int((got[0] < raster.ID_INF).sum()))
+            lt = torch.where(got[0] < raster.ID_INF, got[0], raster.ID_INF)
+        assert found[0] > 500 and found[1] > 0, (name, found)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", raster.TILES)
+def test_background_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
+    """Kernels 2.9-2.11 at each tile's padded extent: 1700x900 pads to
+    1728 at 64-pixel tiles, an odd multiple of 64 (a half row segment)."""
+    d1, d2 = torch.tensor([0.9, 0.3, 0.2, 1.0], device=cuda), torch.tensor(
+        [0.1, 0.2, 0.7, 0.5], device=cuda)
+    sky = torch.tensor([0.1, 0.2, 0.4, 0.97], device=cuda)
+    tile = dict(tile_h=tile_h, tile_w=tile_w)
+    for w, h in ((1700, 900), (333, 222)):
+        ext = dict(height=h, width_pad=-(-w // tile_w) * tile_w,
+                   height_pad=-(-h // tile_h) * tile_h)
+        for got, want in (
+                (background.gradient(d1, d2, **ext, **tile),
+                 background.gradient_plain(d1, d2, **ext)),
+                (background.sky(sky, **ext, **tile), background.sky_plain(sky, **ext)),
+                (background.grid_gradient(width=w, device=cuda, **ext, **tile),
+                 background.grid_gradient_plain(width=w, device=cuda, **ext))):
+            torch.cuda.synchronize()
+            assert got.shape == (4, ext["height_pad"], ext["width_pad"])
+            assert _same(got, want), (w, h, tile_h, tile_w)
+
+
+def test_a_tile_outside_the_set_raises_on_the_card(cuda):
+    """No kernel takes a tile outside raster.TILES, and none falls back to
+    its plain version: the wrappers raise, naming the set."""
+    rows, bins, counts = _rows(cuda)
+    before = raster.fused_counter.launches
+    with pytest.raises(ValueError, match="8x64, 8x128"):
+        raster.rasterize_fused(rows, bins[:1], counts[:1], tiles_x=1, tiles_y=1,
+                               tile_w=256, tile_h=64)
+    ok = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="8x64, 8x128"):
+        background.gradient(ok, ok, height=64, width_pad=256, height_pad=64, tile_h=64,
+                            tile_w=256)
+    assert raster.fused_counter.launches == before
+
+
+@pytest.mark.parametrize("kind", ["bench", "textured-glass", "deferred"])
+def test_graphed_frames_at_every_tile_equal_the_default_tile(cuda, tmp_path, kind):
+    """Engine(RendererConfig(tile_h, tile_w)) on the card, graphed, at each
+    tile of the set: the frame equals the 32x128 frame byte for byte, and
+    the path's kernels launched."""
+    from tpu_renderer_torch.config import RendererConfig
+    from tpu_renderer_torch.engine import Engine
+    from tpu_renderer_torch.scene import load_scene
+    from tpu_renderer_torch.utils.bench_frame import texture_the_glass
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    counter = {"bench": raster.accum_counter, "textured-glass": raster.peel_fused_counter,
+               "deferred": raster.peel_counter}[kind]
+    frames = {}
+    for tile_h, tile_w in raster.TILES:
+        eng = Engine(RendererConfig(width=333, height=222, tile_h=tile_h, tile_w=tile_w,
+                                    camera_position=(0.0, 6.0, 8.0),
+                                    dense_bin_max_chunks=1 if kind == "deferred" else 8192),
+                     device=cuda)
+        eng.camera.pitch = np.float32(-0.18)
+        s = load_scene(path)
+        eng.init(scene=s if kind == "bench" else texture_the_glass(s))
+        eng.draw()
+        counter.reset()
+        frames[(tile_h, tile_w)] = eng.draw()     # a replay
+        assert counter.total() > 0 and len(eng.frame_graphs) >= 1, (tile_h, tile_w)
+    for tile, frame in frames.items():
+        np.testing.assert_array_equal(frame, frames[(32, 128)], err_msg=str(tile))

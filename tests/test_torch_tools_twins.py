@@ -3,7 +3,7 @@ through its main(): tools/profile_binwidth.py, sweep_tiles.py,
 bench_gather.py and make_gallery.py. A check of each tool's plumbing and
 printed lines; no number here is a device time. Also sweep_tiles's
 constant rewrite: the copy imports the point's values and the shipped
-sources keep every byte."""
+sources keep every byte; a tile point runs the shipped tree."""
 
 import glob
 import os
@@ -83,43 +83,50 @@ def test_sweep_points_start_at_the_shipped_point():
 def test_sweep_rewrite_reads_the_point_and_leaves_the_shipped_tree(tmp_path):
     before = _shipped_bytes()
     point = {"tile_h": 16, "tile_w": 64, "group": 16, "ahead": 3}
+    assert sweep_tiles.in_copy(point) and not sweep_tiles.in_copy(
+        dict(sweep_tiles.shipped_point(), tile_h=16, tile_w=64))
     root = sweep_tiles.make_variant(point, str(tmp_path))
     assert _shipped_bytes() == before
     copy = os.path.join(root, "tpu_renderer_torch")
-    assert sweep_tiles.point_of(copy) == point
+    assert sweep_tiles.point_of(copy) == {"group": 16, "ahead": 3}
     cuh = open(os.path.join(copy, "kernels", "csrc", "raster_common.cuh")).read()
-    for name, value in (("TILE_H", 16), ("TILE_W", 64), ("GROUP", 16), ("AHEAD", 3)):
+    for name, value in (("GROUP", 16), ("AHEAD", 3)):
         assert f"\nconstexpr int {name} = {value};" in cuh
-    # 16x64 tiles: 2.1's merge buffer (2 * 1024 floats) is smaller than
-    # the ring (5 slots of 1536): the shared array takes the ring's size
+    # the tile is no constant of the sources: the kernels take it at launch
+    assert "constexpr int TILE_H" not in cuh and "with_tile" in cuh
+    # 2.1's shared array is the larger of its merge buffer and the ring
+    # (at 16x64 and AHEAD 3, the ring's 5 slots of 1536 floats): no rewrite
     fused = open(os.path.join(copy, "kernels", "csrc", "raster_fused.cu")).read()
-    assert sweep_tiles.RING_ARRAY in fused and sweep_tiles.MERGE_ARRAY not in fused
+    assert "smem[MERGE > RING ? MERGE : RING]" in fused
+    assert fused == open(os.path.join(PACKAGE, "kernels", "csrc", "raster_fused.cu")).read()
     assert not os.path.exists(os.path.join(copy, "kernels", "build"))
     # what a process importing the copy sees
     out = subprocess.run(
         [sys.executable, "-c", "from tpu_renderer_torch.kernels import raster; "
          "print(raster.__file__, raster.TILE_H, raster.TILE_W, raster.GROUP, "
-         "raster.ACCUM_SPLIT)"], cwd=root, env=dict(os.environ, PYTHONPATH=root),
-        capture_output=True, text=True, timeout=120)
+         "raster.accum_split(64), (16, 64) in raster.TILES)"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     path, *values = out.stdout.split()
-    assert path.startswith(root) and values == ["16", "64", "16", "2"]
+    assert path.startswith(root) and values == ["32", "128", "16", "2", "True"]
 
 
 def test_sweep_tiles_runs_each_point_in_its_copy(capsys):
+    """Tile points in the shipped tree, a GROUP point in its copy."""
     before = _shipped_bytes()
-    assert sweep_tiles.main([*SMALL, "--axes", "tile_h"]) == 0
+    assert sweep_tiles.main([*SMALL, "--axes", "tile_h,group"]) == 0
     assert _shipped_bytes() == before
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(":")[0] for ln in lines[:-1]] == [
         "[sweep] tile 32x128 group 8 ahead 2", "[sweep] tile 8x128 group 8 ahead 2",
-        "[sweep] tile 16x128 group 8 ahead 2"]
+        "[sweep] tile 16x128 group 8 ahead 2", "[sweep] tile 32x128 group 16 ahead 2",
+        "[sweep] tile 32x128 group 32 ahead 2"]
     import json
 
     rows = json.loads(lines[-1])["sweep"]
-    assert [r["tiles"] for r in rows] == [2 * 2, 2 * 8, 2 * 4]
-    assert rows[0]["module"].startswith(PACKAGE)
-    assert all(not r["module"].startswith(PACKAGE) for r in rows[1:])
-    # the planes do not depend on the tile shape
+    assert [r["tiles"] for r in rows] == [2 * 2, 2 * 8, 2 * 4, 2 * 2, 2 * 2]
+    assert all(r["module"].startswith(PACKAGE) for r in rows[:3])
+    assert all(not r["module"].startswith(PACKAGE) for r in rows[3:])
+    # the planes depend on neither the tile nor GROUP
     assert all(r["opaque_same"] and r["transparent_same"] for r in rows)
     assert not sweep_tiles.failed(rows)

@@ -29,8 +29,9 @@ replayed after, the peel loop inside the graph; frame_graphs keeps a few.
 The CPU, a mesh and pipeline.eager() (utils.profiling.debug_mode) draw op by
 op.
 
-What the port does not have yet raises NotImplementedError naming the
-ROADMAP.md item: the tile, chunk, ring-depth and sort knobs.
+What the port does not take raises NotImplementedError naming the
+ROADMAP.md item: a tile outside raster.TILES (the kernels' set), and the
+chunk, ring-depth and sort knobs.
 """
 
 from __future__ import annotations
@@ -81,20 +82,19 @@ def _not_ported(what: str, item: str):
 def _check_config(cfg: RendererConfig) -> None:
     """Raise on every config value the port does not implement."""
     default = RendererConfig()
-    if (cfg.tile_h, cfg.tile_w) != (raster.TILE_H, raster.TILE_W):
-        raise _not_ported(f"tile {cfg.tile_h}x{cfg.tile_w} (the kernels take "
-                          f"{raster.TILE_H}x{raster.TILE_W})",
-                          "Queue 1 item 16 (the tile tools/sweep_tiles.py measured)")
+    if (cfg.tile_h, cfg.tile_w) not in raster.TILES:
+        tiles = ", ".join(f"{h}x{w}" for h, w in raster.TILES)
+        raise _not_ported(f"tile {cfg.tile_h}x{cfg.tile_w} (the kernels are built for "
+                          f"{tiles})", "Queue 1 item 17 (the tile set and why)")
     if (cfg.raster_chunk, cfg.raster_group) != (raster.CHUNK, raster.GROUP):
         raise _not_ported(f"raster_chunk={cfg.raster_chunk}, raster_group="
-                          f"{cfg.raster_group} (the port owns CHUNK="
-                          f"{raster.CHUNK}, GROUP={raster.GROUP})",
-                          "Queue 1 item 16 (CHUNK is fixed by the walk; GROUP "
-                          "measured by tools/sweep_tiles.py)")
+                          f"{cfg.raster_group} (the TPU kernels' schedule; the port "
+                          f"owns CHUNK={raster.CHUNK}, GROUP={raster.GROUP})",
+                          "Queue 1 item 18 (no output depends on them)")
     if cfg.raster_nbuf != default.raster_nbuf:
         raise _not_ported("raster_nbuf (a TPU DMA-ring depth; the CUDA ring's "
                           "depth is AHEAD in csrc/raster_common.cuh)",
-                          "Queue 1 item 16")
+                          "Queue 1 item 18 (no output depends on it)")
     if cfg.raster_sort != "hilbert":
         raise _not_ported(f"raster_sort={cfg.raster_sort!r}", "Queue 1 item 12")
 

@@ -121,23 +121,26 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build(verbose=verbose))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.raster_fused_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+        # every raster launcher takes tiles_x, tiles_y, tile_h, tile_w after
+        # its bins (t4); a tile outside the library's set returns an error
+        t4 = [i, i, i, i]
+        lib.raster_fused_launch.argtypes = [p, p, p, i, i, *t4, p, p, p, p, p]
         lib.raster_fused_launch.restype = i
-        lib.raster_accum_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+        lib.raster_accum_launch.argtypes = [p, p, p, i, i, *t4, p, p, p, p, p]
         lib.raster_accum_launch.restype = i
-        lib.raster_peel_fused_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p]
+        lib.raster_peel_fused_launch.argtypes = [p, p, p, i, i, *t4, p, p, p, p, p, p]
         lib.raster_peel_fused_launch.restype = i
-        lib.raster_deferred_launch.argtypes = [p, i, p, p, i, i, i, p, p, p]
+        lib.raster_deferred_launch.argtypes = [p, i, p, p, i, *t4, p, p, p]
         lib.raster_deferred_launch.restype = i
-        lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p]
+        lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, *t4, p, p, p, p]
         lib.raster_peel_deferred_launch.restype = i
-        # rows, n_tris, bins, counts, bin_width, tiles_x, tiles_y, then the
-        # pass's own planes and the stream
-        lib.raster_fused_gathered_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p]
+        # rows, n_tris, bins, counts, bin_width, the tiles, then the pass's
+        # own planes and the stream
+        lib.raster_fused_gathered_launch.argtypes = [p, i, p, p, i, *t4, p, p, p, p, p]
         lib.raster_fused_gathered_launch.restype = i
-        lib.raster_accum_gathered_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p]
+        lib.raster_accum_gathered_launch.argtypes = [p, i, p, p, i, *t4, p, p, p, p, p]
         lib.raster_accum_gathered_launch.restype = i
-        lib.raster_peel_gathered_launch.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
+        lib.raster_peel_gathered_launch.argtypes = [p, i, p, p, i, *t4, p, p, p, p, p, p]
         lib.raster_peel_gathered_launch.restype = i
         lib.background_gradient_launch.argtypes = [p, p, i, i, i, p, p]
         lib.background_gradient_launch.restype = i

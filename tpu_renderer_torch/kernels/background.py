@@ -11,10 +11,11 @@ PyTorch version.
   by its engine, vk_engine.cpp:935, nor by this one).
 
 Each returns the planar (4, height_pad, width_pad) f32 framebuffer, padding
-included (rows run to height_pad and divide by the unpadded height). On a
-CPU tensor (or device="cpu") the public function checks its arguments and
-runs the plain version; on CUDA it checks the tile shape and hands the
-rest to the kernel's launcher, which checks every argument once, launches
+included (rows run to height_pad and divide by the unpadded height), the
+padded extent whole tile_h x tile_w raster tiles. On a CPU tensor (or
+device="cpu") the public function checks its arguments and runs the plain
+version, at any tile; on CUDA it hands them to the kernel's launcher, which
+checks every argument once (the tile one of raster.TILES), launches
 through the library's entry point (looked up once), and raises if it
 cannot; inside utils.profiling.debug_mode its output is checked for NaN.
 
@@ -38,7 +39,7 @@ import torch
 
 from tpu_renderer_torch.kernels.common import fma
 from tpu_renderer_torch.kernels.raster import (TILE_H, TILE_W, _check, _Counter, _launch,
-                                               _raw_stream)
+                                               _raw_stream, check_tile)
 from tpu_renderer_torch.utils.profiling import checked
 
 GRID_CELL = 16  # gradient.comp's 16x16 workgroup
@@ -119,12 +120,6 @@ def _sky_lattice(hp: int, wp: int, device):
     return torch.cat([cx0, cx1[-1:]]), torch.cat([cy0, cy1[-1:]])
 
 
-def _check_tile(tile_h: int, tile_w: int):
-    if (tile_h, tile_w) != (TILE_H, TILE_W):
-        raise ValueError(f"the CUDA background kernels take {TILE_H}x{TILE_W} "
-                         f"tiles, got {tile_h}x{tile_w}")
-
-
 def _check_extent(height: int, width_pad: int, height_pad: int, tile_h: int,
                   tile_w: int, device):
     if device.type not in ("cpu", "cuda"):
@@ -153,15 +148,23 @@ def gradient_plain(data1, data2, *, height: int, width_pad: int, height_pad: int
                              device=data1.device)
 
 
+def _check_launch(height: int, width_pad: int, height_pad: int, tile_h: int, tile_w: int,
+                  device):
+    """A launcher's checks of the extent: a tile the kernels are built for,
+    and whole tiles of it."""
+    check_tile(tile_h, tile_w, "background kernels")
+    _check_extent(height, width_pad, height_pad, tile_h, tile_w, device)
+
+
 @checked
 def background_gradient_kernel(data1, data2, *, height: int, width_pad: int,
-                               height_pad: int):
+                               height_pad: int, tile_h: int = TILE_H, tile_w: int = TILE_W):
     """Launch the gradient CUDA kernel on CUDA tensors, every argument
     checked here."""
     dev = data1.device
     if dev.type != "cuda":
         raise ValueError(f"background_gradient_kernel takes CUDA tensors, got {dev}")
-    _check_extent(height, width_pad, height_pad, TILE_H, TILE_W, dev)
+    _check_launch(height, width_pad, height_pad, tile_h, tile_w, dev)
     _check_params("data1", data1, dev)
     _check_params("data2", data2, dev)
     out = torch.empty((4, height_pad, width_pad), dtype=torch.float32, device=dev)
@@ -180,8 +183,8 @@ def gradient(data1, data2, *, height: int, width_pad: int, height_pad: int,
     dev = data1.device
     extent = dict(height=height, width_pad=width_pad, height_pad=height_pad)
     if dev.type == "cuda":
-        _check_tile(tile_h, tile_w)
-        return background_gradient_kernel(data1, data2, **extent)
+        return background_gradient_kernel(data1, data2, tile_h=tile_h, tile_w=tile_w,
+                                          **extent)
     _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
     _check_params("data1", data1, dev)
     _check_params("data2", data2, dev)
@@ -227,7 +230,8 @@ def sky_plain(data1, *, height: int, width_pad: int, height_pad: int):
 
 
 @checked
-def background_sky_kernel(data1, *, height: int, width_pad: int, height_pad: int):
+def background_sky_kernel(data1, *, height: int, width_pad: int, height_pad: int,
+                          tile_h: int = TILE_H, tile_w: int = TILE_W):
     """Launch the sky CUDA kernel on a CUDA tensor, every argument checked
     here. The per-pixel work runs on the card; the lattice's cosines
     (width_pad + 1 and height_pad + 1 floats, _sky_lattice) come from the
@@ -235,7 +239,7 @@ def background_sky_kernel(data1, *, height: int, width_pad: int, height_pad: int
     dev = data1.device
     if dev.type != "cuda":
         raise ValueError(f"background_sky_kernel takes CUDA tensors, got {dev}")
-    _check_extent(height, width_pad, height_pad, TILE_H, TILE_W, dev)
+    _check_launch(height, width_pad, height_pad, tile_h, tile_w, dev)
     _check_params("data1", data1, dev)
     lat_x, lat_y = _sky_lattice(height_pad, width_pad, dev)
     out = torch.empty((4, height_pad, width_pad), dtype=torch.float32, device=dev)
@@ -254,8 +258,7 @@ def sky(data1, *, height: int, width_pad: int, height_pad: int,
     dev = data1.device
     extent = dict(height=height, width_pad=width_pad, height_pad=height_pad)
     if dev.type == "cuda":
-        _check_tile(tile_h, tile_w)
-        return background_sky_kernel(data1, **extent)
+        return background_sky_kernel(data1, tile_h=tile_h, tile_w=tile_w, **extent)
     _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
     _check_params("data1", data1, dev)
     return sky_plain(data1, **extent)
@@ -283,13 +286,14 @@ def grid_gradient_plain(*, height: int, width: int, width_pad: int, height_pad: 
 
 @checked
 def background_grid_kernel(*, height: int, width: int, width_pad: int,
-                           height_pad: int, device="cuda"):
+                           height_pad: int, tile_h: int = TILE_H, tile_w: int = TILE_W,
+                           device="cuda"):
     """Launch the grid-gradient CUDA kernel on a CUDA device, every argument
     checked here."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"background_grid_kernel takes a CUDA device, got {dev}")
-    _check_extent(height, width_pad, height_pad, TILE_H, TILE_W, dev)
+    _check_launch(height, width_pad, height_pad, tile_h, tile_w, dev)
     if width < 1:
         raise ValueError(f"width must be positive, got {width}")
     out = torch.empty((4, height_pad, width_pad), dtype=torch.float32, device=dev)
@@ -307,8 +311,7 @@ def grid_gradient(*, height: int, width: int, width_pad: int, height_pad: int,
     dev = torch.device(device)
     extent = dict(height=height, width=width, width_pad=width_pad, height_pad=height_pad)
     if dev.type == "cuda":
-        _check_tile(tile_h, tile_w)
-        return background_grid_kernel(device=dev, **extent)
+        return background_grid_kernel(device=dev, tile_h=tile_h, tile_w=tile_w, **extent)
     _check_extent(height, width_pad, height_pad, tile_h, tile_w, dev)
     if width < 1:
         raise ValueError(f"width must be positive, got {width}")

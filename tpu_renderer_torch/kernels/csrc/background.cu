@@ -19,7 +19,9 @@
 // each of the 4 planes with one 16-byte store, a warp covering one
 // 128-pixel row segment, 512 contiguous bytes a plane; no shared memory,
 // no intermediate plane ever reaches device memory (the plain PyTorch
-// version writes some forty).
+// version writes some forty). The padded width is whole raster tiles, 64
+// or 128 pixels wide: a row's last segment may be half of one (1700 pads
+// to 1728 at 64-pixel tiles), whose lanes past the width store nothing.
 //
 // 2.9 and 2.10 give each warp one 128-pixel row segment (the warps of a
 // block take neighbouring segments of a row, then the next row's) and store
@@ -42,16 +44,12 @@
 
 namespace {
 
-constexpr int TILE_H = 32;     // the frame's raster tile: the padded extent
-constexpr int TILE_W = 128;    // is whole tiles
 constexpr int VEC = 4;         // pixels a lane, one float4 store a plane
-constexpr int BLOCK_X = TILE_W / VEC;   // 32 lanes: one 128-pixel row segment
+constexpr int BLOCK_X = 32;    // lanes: a warp a row segment
+constexpr int SEGMENT = BLOCK_X * VEC;  // 128 pixels
 constexpr int BLOCK_Y = 8;              // 2.11: rows a block
 constexpr int SEGMENT_WARPS = 8;        // 2.9, 2.10: warps (row segments) a block
 constexpr int GRID_CELL = 16;           // gradient.comp's workgroup edge
-static_assert(TILE_H % BLOCK_Y == 0, "a block's rows divide the tile height");
-static_assert(BLOCK_X == 32, "a row segment is one warp");
-static_assert(TILE_H % SEGMENT_WARPS == 0, "2.9, 2.10: the row segments are whole blocks");
 
 __device__ __forceinline__ float recip(int n) {
   return __fdiv_rn(1.0f, static_cast<float>(n));
@@ -72,22 +70,26 @@ __device__ __forceinline__ void stream4(float* plane, size_t p, float a, float b
   __stcs(reinterpret_cast<float4*>(plane + p), make_float4(a, b, c, d));
 }
 
-// 2.11: the first pixel of this thread and its offset in a plane.
-__device__ __forceinline__ void thread_pixel(int wp, int* x, int* y, size_t* p) {
+// 2.11: the first pixel of this thread and its offset in a plane; false
+// for a thread past the extent.
+__device__ __forceinline__ bool thread_pixel(int wp, int hp, int* x, int* y, size_t* p) {
   *x = (blockIdx.x * BLOCK_X + threadIdx.x) * VEC;
   *y = blockIdx.y * BLOCK_Y + threadIdx.y;
   *p = static_cast<size_t>(*y) * wp + *x;
+  return *x < wp && *y < hp;
 }
 
 // 2.9, 2.10: this lane's first pixel. Warp g of the launch takes the row
-// segment g % segs of row g / segs; the padded extent's segments are whole
-// blocks of SEGMENT_WARPS warps.
-__device__ __forceinline__ void segment_pixel(int wp, int* x, int* y, size_t* p) {
-  const int segs = wp / TILE_W;
+// segment g % segs of row g / segs, segs = ceil(wp / SEGMENT); false for a
+// lane past the width (the half segment of an odd multiple of 64) or a
+// warp past the last row.
+__device__ __forceinline__ bool segment_pixel(int wp, int hp, int* x, int* y, size_t* p) {
+  const int segs = (wp + SEGMENT - 1) / SEGMENT;
   const int g = blockIdx.x * SEGMENT_WARPS + threadIdx.x / BLOCK_X;
   *y = g / segs;
-  *x = (g - *y * segs) * TILE_W + (threadIdx.x % BLOCK_X) * VEC;
+  *x = (g - *y * segs) * SEGMENT + (threadIdx.x % BLOCK_X) * VEC;
   *p = static_cast<size_t>(*y) * wp + *x;
+  return *x < wp && *y < hp;
 }
 
 __global__ void __launch_bounds__(BLOCK_X * SEGMENT_WARPS)
@@ -96,7 +98,7 @@ background_gradient_kernel(const float* __restrict__ data1,
                            float* __restrict__ out) {
   int x, y;
   size_t p;
-  segment_pixel(wp, &x, &y, &p);
+  if (!segment_pixel(wp, hp, &x, &y, &p)) return;
   const size_t plane = static_cast<size_t>(hp) * wp;
   const float blend = __fmul_rn(static_cast<float>(y), recip(height));
   const float rest = __fsub_rn(1.0f, blend);
@@ -129,7 +131,7 @@ background_sky_kernel(const float* __restrict__ data1, const float* __restrict__
                       float* __restrict__ out) {
   int x, y;
   size_t p;
-  segment_pixel(wp, &x, &y, &p);
+  if (!segment_pixel(wp, hp, &x, &y, &p)) return;
   const size_t plane = static_cast<size_t>(hp) * wp;
   const float threshold = data1[3];
   const float span = __fsub_rn(1.0f, threshold);
@@ -173,7 +175,7 @@ __global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
 background_grid_kernel(int height, int width, int wp, int hp, float* __restrict__ out) {
   int x, y;
   size_t p;
-  thread_pixel(wp, &x, &y, &p);
+  if (!thread_pixel(wp, hp, &x, &y, &p)) return;
   const size_t plane = static_cast<size_t>(hp) * wp;
   const bool row_on = y % GRID_CELL != 0;
   const float g = row_on ? __fmul_rn(static_cast<float>(y), recip(height)) : 0.0f;
@@ -192,19 +194,23 @@ background_grid_kernel(int height, int width, int wp, int hp, float* __restrict_
   store4(out + 3 * plane, p, 1.0f, 1.0f, 1.0f, 1.0f);
 }
 
-// 2.11's launch grid over a padded extent, or false when the extent is not
-// whole tiles (the kernels have no edge masks).
+// The kernels take any padded extent of whole 4-pixel steps a row (a
+// lane's float4 stores); the wrappers hold it to whole raster tiles.
+bool extent_ok(int wp, int hp) { return wp > 0 && hp > 0 && wp % VEC == 0; }
+
+// 2.11's launch grid over a padded extent, or false for an extent it does
+// not take.
 bool launch_grid(int wp, int hp, dim3* grid) {
-  if (wp <= 0 || hp <= 0 || wp % TILE_W != 0 || hp % TILE_H != 0) return false;
-  *grid = dim3(wp / TILE_W, hp / BLOCK_Y);
+  if (!extent_ok(wp, hp)) return false;
+  *grid = dim3((wp + SEGMENT - 1) / SEGMENT, (hp + BLOCK_Y - 1) / BLOCK_Y);
   return true;
 }
 
-// 2.9 and 2.10's: one warp a row segment, SEGMENT_WARPS a block; false
-// when the extent is not whole tiles.
+// 2.9 and 2.10's: one warp a row segment, SEGMENT_WARPS a block.
 bool segment_grid(int wp, int hp, dim3* grid) {
-  if (!launch_grid(wp, hp, grid)) return false;
-  *grid = dim3(static_cast<unsigned>(wp / TILE_W * (hp / SEGMENT_WARPS)));
+  if (!extent_ok(wp, hp)) return false;
+  const long long warps = static_cast<long long>((wp + SEGMENT - 1) / SEGMENT) * hp;
+  *grid = dim3(static_cast<unsigned>((warps + SEGMENT_WARPS - 1) / SEGMENT_WARPS));
   return true;
 }
 

@@ -4,7 +4,7 @@
 // (tpu_renderer/kernels/raster.py, launched by _accum_slab_call from
 // rasterize_accum_slabs). mesh.frag writes alpha = 1, so the reference's
 // additive blend reduces to a sum over every transparent fragment that
-// passes the depth test against the opaque z. Per 32x128 tile the kernel
+// passes the depth test against the opaque z. Per tile the kernel
 // walks the tile's bin entries in bin order, skips groups whose gmask bit
 // is 0, and for every covered fragment with z >= z_base adds
 // rgb * (max(light, 0.1) * power + ambient) and counts it. Float addition is
@@ -41,32 +41,37 @@ namespace {
 
 using namespace tr;
 
-constexpr int SPLIT = TILE_W / REGION_W;                 // 4 strips a tile
-constexpr int A_THREADS = (TILE_H / REGION_H) * 32;      // 128: 4 regions a strip
+// T::REGIONS_X blocks a tile, one a 32-column strip (4 at 32x128 tiles),
+// each a warp a 32x8 region of its strip (128 threads at 32x128).
+template <class T>
+struct Strip {
+  static constexpr int THREADS = (T::H / REGION_H) * 32;
+};
 
-__global__ void __launch_bounds__(A_THREADS)
+template <class T>
+__global__ void __launch_bounds__(Strip<T>::THREADS)
 raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
                     int tiles_x, const float* __restrict__ z_base, const float* __restrict__ light,
                     float* __restrict__ acc_out, int* __restrict__ cnt_out, int hp,
                     int wp) {
   __shared__ __align__(16) float ring[RING_SLOTS * CHUNK_FLOATS];
-  const int tile = blockIdx.x / SPLIT;
-  const int strip = blockIdx.x % SPLIT;
+  const int tile = blockIdx.x / T::REGIONS_X;
+  const int strip = blockIdx.x % T::REGIONS_X;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int py0 = ty * TILE_H + warp * REGION_H;
-  const Region region(tx * TILE_W + strip * REGION_W, py0);
+  const int py0 = ty * T::H + warp * REGION_H;
+  const Region region(tx * T::W + strip * REGION_W, py0);
   AccumPixels<false> s;   // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
-  s.load(z_base, light, tx * TILE_W + strip * REGION_W + lane, py0, wp);
+  s.load(z_base, light, tx * T::W + strip * REGION_W + lane, py0, wp);
 
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
   const int n = max(0, min(counts[tile], bin_width));
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  walk_entries<A_THREADS>(rows, tbins, 0, n, n_chunks, ring,
+  walk_entries<Strip<T>::THREADS>(rows, tbins, 0, n, n_chunks, ring,
                           [&](const float* slot, int, int gmask) {
     s.add_slice(slot, (gmask >> (lane / GROUP)) & 1, region);
   });
@@ -77,12 +82,15 @@ raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins
 
 extern "C" int raster_accum_launch(const float* rows, const int* bins,
                                    const int* counts, int bin_width, int n_chunks,
-                                   int tiles_x, int tiles_y,
+                                   int tiles_x, int tiles_y, int tile_h, int tile_w,
                                    const float* z_base, const float* light,
                                    float* acc, int* cnt, void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_accum_kernel<<<n_tiles * SPLIT, A_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, light, acc, cnt,
-      tiles_y * TILE_H, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    raster_accum_kernel<T><<<tiles_x * tiles_y * T::REGIONS_X, Strip<T>::THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, light, acc, cnt,
+        tiles_y * T::H, tiles_x * T::W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

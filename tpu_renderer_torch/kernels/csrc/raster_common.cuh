@@ -15,8 +15,6 @@
 
 namespace tr {
 
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 128;
 constexpr int ROW_COLS = 48;                           // fat-row width
 // Binning constants of kernels/raster.py (CHUNK, GROUP, entry_shift): a bin
 // entry is cid << ENTRY_SHIFT | gmask, one gmask bit per GROUP triangles.
@@ -29,6 +27,38 @@ static_assert(N_GROUPS <= 4, "ENTRY_SHIFT holds at most 4 gmask bits");
 constexpr int ID_INF = 0x7FFFFFF;   // the peels' "no fragment" marker
 constexpr int N_NUMS = 4;           // numerator planes: light_num, r, g, b
 constexpr int N_METAS = 15;         // constant planes (META_COLS)
+constexpr int REGION_W = 32;        // a warp's pixels: 32 columns
+constexpr int REGION_H = 8;         //   x 8 rows, one column a lane
+
+// The raster tile, H x W pixels: whole 32x8 warp regions. Every raster
+// kernel is a template on it, its blocks a warp a region (THREADS), and
+// the library holds each kernel at every tile of with_tile's set.
+template <int TH, int TW>
+struct Tile {
+  static constexpr int H = TH;
+  static constexpr int W = TW;
+  static constexpr int PIX = H * W;
+  static constexpr int REGIONS_X = W / REGION_W;   // regions across a tile
+  static constexpr int THREADS = REGIONS_X * (H / REGION_H) * 32;
+  static_assert(W % REGION_W == 0 && H % REGION_H == 0, "regions tile a tile");
+};
+
+// launch(Tile<H, W>{}) for the tile tile_h x tile_w, one of the set the
+// library is built for (kernels/raster.py TILES); cudaErrorInvalidValue
+// for any other. Another tile of whole regions and at most 4,096 pixels is
+// one more line here; a larger one would need blocks above 512 threads
+// (__launch_bounds__(T::THREADS, 2)) and, for 2.1, 2.4 and 2.6, more than
+// the 48 KB of static shared memory a block has without opt-in.
+template <typename Launch>
+int with_tile(int tile_h, int tile_w, Launch&& launch) {
+  if (tile_h == 32 && tile_w == 128) return launch(Tile<32, 128>{});
+  if (tile_h == 32 && tile_w == 64) return launch(Tile<32, 64>{});
+  if (tile_h == 16 && tile_w == 128) return launch(Tile<16, 128>{});
+  if (tile_h == 16 && tile_w == 64) return launch(Tile<16, 64>{});
+  if (tile_h == 8 && tile_w == 128) return launch(Tile<8, 128>{});
+  if (tile_h == 8 && tile_w == 64) return launch(Tile<8, 64>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 __device__ __forceinline__ float plane(float a, float b, float c, float x,
                                        float y) {
@@ -124,11 +154,8 @@ __device__ __forceinline__ void add_fragment(const float* num, int stride,
 constexpr int CHUNK_FLOATS = CHUNK * ROW_COLS;   // 6,144 B of fat rows
 constexpr int AHEAD = 2;                         // chunks copied ahead of the raster
 constexpr int RING_SLOTS = AHEAD + 2;            // shared-memory chunk slots
-constexpr int REGION_W = 32;                     // a warp's pixels: 32 columns
-constexpr int REGION_H = 8;                      //   x 8 rows, one column a lane
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 static_assert(CHUNK == 32, "one lane tests one triangle of a chunk for its warp");
-static_assert(TILE_W % REGION_W == 0 && TILE_H % REGION_H == 0, "regions tile a tile");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -390,9 +417,6 @@ struct AccumPixels {
 // ---------------------------------------------------------------------------
 
 constexpr int PEEL_SPLIT = 8;   // blocks a tile: the cluster (portable maximum)
-constexpr int PEEL_THREADS = (TILE_W / REGION_W) * (TILE_H / REGION_H) * 32;   // 512
-constexpr int TILE_PIX = TILE_H * TILE_W;
-static_assert(TILE_PIX == PEEL_SPLIT * PEEL_THREADS, "the merge gives each thread one pixel");
 
 // Entries [*e0, *e1) of segment `rank` of a tile's n entries: one segment
 // for every seg_min entries, at least 1 and at most split (segment q of s
@@ -409,10 +433,12 @@ __device__ __forceinline__ int tile_segment(int n, int split, int seg_min, int r
 // Do the keys of bin entries [e0, e1) strictly ascend (key = entry >>
 // shift: the chunk id of a dense entry, the id itself of a triangle
 // entry)? Then a pixel that holds a layer in this segment keeps it: every
-// later triangle's id is larger. Block-wide; every thread must call it.
+// later triangle's id is larger. Block-wide over NTHREADS threads; every
+// thread must call it.
+template <int NTHREADS>
 __device__ __forceinline__ bool keys_ascend(const int* tbins, int e0, int e1, int shift) {
   int asc = 1;
-  for (int e = e0 + static_cast<int>(threadIdx.x); e + 1 < e1; e += PEEL_THREADS)
+  for (int e = e0 + static_cast<int>(threadIdx.x); e + 1 < e1; e += NTHREADS)
     asc &= (tbins[e] >> shift) < (tbins[e + 1] >> shift);
   return __syncthreads_and(asc) != 0;
 }
@@ -479,24 +505,25 @@ struct PeelPixels {
 };
 
 // The merge: each block of the cluster that walked a segment puts its best
-// ids (the tile's 4,096 pixels, pixel (r, c) at r * TILE_W + c) in buf,
-// in its own shared memory; then every block takes, for its 1/PEEL_SPLIT
-// of the tile's pixels (one a thread), the min over the segs segments
+// ids (the tile's T::PIX pixels, pixel (r, c) at r * T::W + c) in buf, in
+// its own shared memory; then every block takes, for its 1/PEEL_SPLIT of
+// the tile's pixels (one a thread), the min over the segs segments
 // through distributed shared memory. A min has no order, and each
 // segment's best is the min of its own entries, so the result is the
-// whole walk's. Returns the merged id of pixel rank * PEEL_THREADS +
+// whole walk's. Returns the merged id of pixel rank * T::THREADS +
 // threadIdx.x; no block leaves while another may read its buf.
-template <bool NONNEG_Z>
+template <class T, bool NONNEG_Z>
 __device__ __forceinline__ int merge_min(cooperative_groups::cluster_group& cluster, int* buf,
                                          const PeelPixels<NONNEG_Z>& s, int rx0, int ry0,
                                          int rank, int segs) {
+  static_assert(T::PIX == PEEL_SPLIT * T::THREADS, "the merge gives each thread one pixel");
   if (rank < segs) {
     const int lane = static_cast<int>(threadIdx.x) % 32;
 #pragma unroll
-    for (int i = 0; i < REGION_H; ++i) buf[(ry0 + i) * TILE_W + rx0 + lane] = s.best[i];
+    for (int i = 0; i < REGION_H; ++i) buf[(ry0 + i) * T::W + rx0 + lane] = s.best[i];
   }
   cluster.sync();
-  const int p = rank * PEEL_THREADS + static_cast<int>(threadIdx.x);
+  const int p = rank * T::THREADS + static_cast<int>(threadIdx.x);
   int best = ID_INF;
   for (int q = 0; q < segs; ++q) best = min(best, cluster.map_shared_rank(buf, q)[p]);
   cluster.sync();
@@ -523,17 +550,14 @@ __device__ __forceinline__ void store_layer(const float* __restrict__ rows, int 
 // folded in walk order.
 // ---------------------------------------------------------------------------
 
+// A block is T::THREADS threads, a warp a 32x8 region of the tile, and
+// stages T::THREADS entries a pass (one a thread); its fold takes
+// T::PIX / VIS_SPLIT of the tile's pixels.
 constexpr int VIS_SPLIT = 8;      // blocks a tile: the cluster (portable maximum)
 constexpr int VIS_SEG_MIN = 32;   // a segment for every VIS_SEG_MIN entries
-constexpr int VIS_THREADS = PEEL_THREADS;   // 16 warps, one 32x8 region each
-constexpr int VIS_BATCH = VIS_THREADS;      // entries staged a pass, one a thread
-constexpr int VIS_PIX = TILE_PIX / VIS_SPLIT;   // the fold's pixels a block
 constexpr int PLANE_COLS = 12;               // edge and depth coefficients of a row
 constexpr int COEF_STRIDE = PLANE_COLS + 1;  // lane t's row t: 32 distinct banks
 constexpr int PORTABLE_CLUSTER = 8;
-static_assert(TILE_PIX % VIS_SPLIT == 0 && VIS_PIX <= VIS_THREADS,
-              "the fold gives each thread at most one pixel");
-static_assert(VIS_BATCH * COEF_STRIDE <= 2 * TILE_PIX, "the batch fits the fold buffer");
 
 // Stage entries [base, base + blockDim.x) of a tile's bin, one a thread:
 // sid the id (-1 at or past e1, or for an entry that is no row of the
@@ -566,18 +590,19 @@ struct VisPixels {
 // winning an equal z. Lane t of each warp tests entry t of a 32-entry
 // slice against the warp's region (cover_rows); the warp walks the entries
 // its ballot keeps, in entry order, on the rows they may cover. Nothing
-// ends a walk early. Every thread of the block must call it.
-template <int ROW_STRIDE>
+// ends a walk early. Every thread of the block (BATCH of them, one an
+// entry of a staged batch) must call it.
+template <int ROW_STRIDE, int BATCH>
 __device__ __forceinline__ void vis_walk(const float* __restrict__ table, int n_tris,
                                          const int* tbins, int e0, int e1, const Region& g,
                                          float x, int py0, float* scoef, int* sid,
                                          VisPixels& s) {
   const int lane = static_cast<int>(threadIdx.x) % 32;
-  for (int base = e0; base < e1; base += VIS_BATCH) {
+  for (int base = e0; base < e1; base += BATCH) {
     __syncthreads();   // the previous batch is consumed
     stage_planes<ROW_STRIDE>(scoef, sid, table, n_tris, tbins, base, e1);
     __syncthreads();
-    const int m = min(VIS_BATCH, e1 - base);
+    const int m = min(BATCH, e1 - base);
     for (int j0 = 0; j0 < m; j0 += 32) {
       const int j = j0 + lane;
       const unsigned rows_of =
@@ -617,14 +642,18 @@ __device__ __forceinline__ void vis_walk(const float* __restrict__ table, int n_
 // store(row, col, z, tid) for each of the block's 1/VIS_SPLIT of the
 // tile's pixels. A tile of one segment is the first block's alone: no
 // fold, no cluster barrier, store for all its pixels.
-template <int ROW_STRIDE, typename Store>
+template <class T, int ROW_STRIDE, typename Store>
 __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_tris,
                                          const int* __restrict__ bins,
                                          const int* __restrict__ counts, int bin_width,
                                          int tiles_x, Store&& store) {
+  constexpr int VIS_PIX = T::PIX / VIS_SPLIT;   // the fold's pixels a block
+  static_assert(T::PIX % VIS_SPLIT == 0 && VIS_PIX <= T::THREADS,
+                "the fold gives each thread at most one pixel");
+  static_assert(T::THREADS * COEF_STRIDE <= 2 * T::PIX, "the batch fits the fold buffer");
   // the batch's planes, then the segment's (z, tid) for the fold
-  __shared__ float smem[2 * TILE_PIX];
-  __shared__ int sid[VIS_BATCH];
+  __shared__ float smem[2 * T::PIX];
+  __shared__ int sid[T::THREADS];
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / VIS_SPLIT;
@@ -632,10 +661,10 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
-  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
-  const int px = tx * TILE_W + rx0 + lane;
-  const int py0 = ty * TILE_H + ry0;
+  const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
+  const int ry0 = (warp / T::REGIONS_X) * REGION_H;
+  const int px = tx * T::W + rx0 + lane;
+  const int py0 = ty * T::H + ry0;
   // bins and counts come from the caller: never walk past the bin row
   const int n = max(0, min(counts[tile], bin_width));
   int e0, e1;
@@ -649,9 +678,10 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
     s.tid[i] = -1;
   }
   if (rank < segs)   // uniform across the block
-    vis_walk<ROW_STRIDE>(table, n_tris, bins + static_cast<size_t>(tile) * bin_width, e0, e1,
-                         Region(tx * TILE_W + rx0, py0), static_cast<float>(px) + 0.5f, py0,
-                         smem, sid, s);
+    vis_walk<ROW_STRIDE, T::THREADS>(table, n_tris,
+                                     bins + static_cast<size_t>(tile) * bin_width, e0, e1,
+                                     Region(tx * T::W + rx0, py0),
+                                     static_cast<float>(px) + 0.5f, py0, smem, sid, s);
   if (segs == 1) {
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i) store(py0 + i, px, s.z[i], s.tid[i]);
@@ -660,11 +690,11 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
 
   __syncthreads();   // the batch buffer is free for the fold
   float* zs = smem;
-  int* ts = reinterpret_cast<int*>(smem + TILE_PIX);
+  int* ts = reinterpret_cast<int*>(smem + T::PIX);
   if (rank < segs) {
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i) {
-      const int p = (ry0 + i) * TILE_W + rx0 + lane;
+      const int p = (ry0 + i) * T::W + rx0 + lane;
       zs[p] = s.z[i];
       ts[p] = s.tid[i];
     }
@@ -684,7 +714,7 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
     }
   }
   cluster.sync();   // no block leaves while another reads its shared memory
-  if (threadIdx.x < VIS_PIX) store(ty * TILE_H + p / TILE_W, tx * TILE_W + p % TILE_W, zw, tw);
+  if (threadIdx.x < VIS_PIX) store(ty * T::H + p / T::W, tx * T::W + p % T::W, zw, tw);
 }
 
 // ---------------------------------------------------------------------------
@@ -692,15 +722,13 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
 // ---------------------------------------------------------------------------
 
 constexpr int DEFERRED_SEG_MIN = 32;            // a segment for every 32 entries
-constexpr int DEFERRED_BATCH = PEEL_THREADS;    // entries staged a pass, one a thread
-static_assert(TILE_PIX <= DEFERRED_BATCH * COEF_STRIDE, "the merge buffer fits the batch");
 
 // A tile of kernel 2.5 or 2.8, one block of its cluster of PEEL_SPLIT: 2.3's
 // design (raster_peel.cu) over per-triangle bins of a table ROW_STRIDE
 // floats a row (16: packed setup rows; 48: fat rows). The tile's n =
 // clamp(count, 0, bin_width) entries are cut into segments, one for every
 // DEFERRED_SEG_MIN entries (tile_segment), a block each. Each block
-// stages its segment's entries DEFERRED_BATCH at a time (stage_planes:
+// stages its segment's entries T::THREADS at a time (stage_planes:
 // id and 12 plane coefficients a thread); lane t of each warp tests entry
 // t of a 32-entry slice against its warp's region (cover_rows) and skips
 // it where its id is <= the region's smallest `last`, and the warp walks
@@ -713,15 +741,17 @@ static_assert(TILE_PIX <= DEFERRED_BATCH * COEF_STRIDE, "the merge buffer fits t
 // best) for each of the block's 1/PEEL_SPLIT of the tile's pixels. A tile
 // of one segment is block 0's alone: no merge, no cluster barrier, emit
 // for all its pixels. Every thread of the block must call it.
-template <int ROW_STRIDE, typename Emit>
+template <class T, int ROW_STRIDE, typename Emit>
 __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n_tris,
                                           const int* __restrict__ bins,
                                           const int* __restrict__ counts, int bin_width,
                                           int tiles_x, const float* __restrict__ z_base,
                                           const int* __restrict__ last, int wp, Emit&& emit) {
+  constexpr int BATCH = T::THREADS;   // entries staged a pass, one a thread
+  static_assert(T::PIX <= BATCH * COEF_STRIDE, "the merge buffer fits the batch");
   // the batch's plane coefficients, then the segment's layer ids for the merge
-  __shared__ float scoef[DEFERRED_BATCH * COEF_STRIDE];
-  __shared__ int sid[DEFERRED_BATCH];
+  __shared__ float scoef[BATCH * COEF_STRIDE];
+  __shared__ int sid[BATCH];
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / PEEL_SPLIT;
@@ -729,9 +759,9 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
-  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
-  const Region region(tx * TILE_W + rx0, ty * TILE_H + ry0);
+  const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
+  const int ry0 = (warp / T::REGIONS_X) * REGION_H;
+  const Region region(tx * T::W + rx0, ty * T::H + ry0);
   // bins and counts come from the caller: never walk past the bin row
   const int n = max(0, min(counts[tile], bin_width));
   int e0, e1;
@@ -740,15 +770,15 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
 
   PeelPixels<true> s;
   if (rank < segs) {   // uniform across the block
-    s.load(z_base, last, tx * TILE_W + rx0 + lane, ty * TILE_H + ry0, wp, n_tris - 1);
+    s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp, n_tris - 1);
     const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-    s.ascending = keys_ascend(tbins, e0, e1, 0);
-    for (int base = e0; base < e1; base += DEFERRED_BATCH) {
+    s.ascending = keys_ascend<T::THREADS>(tbins, e0, e1, 0);
+    for (int base = e0; base < e1; base += BATCH) {
       // the barrier before restaging: the previous batch is consumed
       if (__syncthreads_and(s.settled())) break;   // every pixel of the block is settled
       stage_planes<ROW_STRIDE>(scoef, sid, table, n_tris, tbins, base, e1);
       __syncthreads();
-      const int m = min(DEFERRED_BATCH, e1 - base);
+      const int m = min(BATCH, e1 - base);
       for (int j0 = 0; j0 < m; j0 += 32) {
         if (__all_sync(FULL_WARP, s.settled())) break;   // uniform across the warp
         const int j = j0 + lane;
@@ -769,26 +799,27 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
   if (segs == 1) {
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i)
-      emit(ty * TILE_H + ry0 + i, tx * TILE_W + rx0 + lane, s.best[i]);
+      emit(ty * T::H + ry0 + i, tx * T::W + rx0 + lane, s.best[i]);
     return;
   }
   __syncthreads();   // the batch buffer is free for the merge
 
-  const int best = merge_min(cluster, reinterpret_cast<int*>(scoef), s, rx0, ry0, rank, segs);
-  const int p = rank * PEEL_THREADS + threadIdx.x;
-  emit(ty * TILE_H + p / TILE_W, tx * TILE_W + p % TILE_W, best);
+  const int best =
+      merge_min<T>(cluster, reinterpret_cast<int*>(scoef), s, rx0, ry0, rank, segs);
+  const int p = rank * T::THREADS + threadIdx.x;
+  emit(ty * T::H + p / T::W, tx * T::W + p % T::W, best);
 }
 
 // Launch a kernel of vis_tile's shape: n_tiles clusters of VIS_SPLIT
-// blocks of VIS_THREADS. The cluster is a launch attribute, so a split
+// blocks of T::THREADS. The cluster is a launch attribute, so a split
 // above the portable 8 needs only its constant: the kernel is then allowed
 // a non-portable cluster, and the launch is refused (cudaErrorInvalidConfiguration)
 // where no such cluster fits on the card. Returns the CUDA error.
-template <typename Kernel, typename... Args>
+template <class T, typename Kernel, typename... Args>
 int launch_vis(Kernel kernel, int n_tiles, void* stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_tiles * VIS_SPLIT);
-  cfg.blockDim = dim3(VIS_THREADS);
+  cfg.blockDim = dim3(T::THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];

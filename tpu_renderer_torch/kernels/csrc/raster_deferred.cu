@@ -14,8 +14,8 @@
 // material. The JAX wrappers gather each tile's rows into a
 // (n_tiles, cap, 16) block first; at an escalated cap of 16384 that block
 // is 535 MB. Here each block reads the rows by id straight from the table,
-// a batch of 512 entries at a time, one entry's 12 plane coefficients a
-// thread, into shared memory.
+// a batch of one entry a thread at a time (512 at 32x128 tiles), one
+// entry's 12 plane coefficients a thread, into shared memory.
 //
 // What bounds them on the H100: per-pixel ALU work, the 4 planes (~16
 // float operations) of a binned triangle at a pixel, against 48 B of table
@@ -57,12 +57,13 @@ constexpr int SETUP_COLS = 16;  // packed setup-row width
 
 // Kernel 2.4 (vis_tile in raster_common.cuh): z and tid for the block's
 // pixels.
-__global__ void __launch_bounds__(VIS_THREADS, 2)
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 2)
 raster_deferred_kernel(const float* __restrict__ packed, int n_tris,
                        const int* __restrict__ bins, const int* __restrict__ counts,
                        int bin_width, int tiles_x, float* __restrict__ z_out,
                        int* __restrict__ tid_out, int wp) {
-  vis_tile<SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x,
+  vis_tile<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x,
                        [&](int row, int col, float z, int tid) {
                          const size_t gp = static_cast<size_t>(row) * wp + col;
                          z_out[gp] = z;
@@ -72,13 +73,14 @@ raster_deferred_kernel(const float* __restrict__ packed, int n_tris,
 
 // Kernel 2.5: peel_tile (raster_common.cuh, kernel 2.8's walk too) over the
 // packed setup rows; out comes the layer id.
-__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(PEEL_THREADS, 2)
+template <class T>
+__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
                             const int* __restrict__ bins, const int* __restrict__ counts,
                             int bin_width, int tiles_x, const float* __restrict__ z_base,
                             const int* __restrict__ last, int* __restrict__ layer_out,
                             int wp) {
-  peel_tile<SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
+  peel_tile<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
                         [&](int row, int col, int best) {
                           layer_out[static_cast<size_t>(row) * wp + col] = best;
                         });
@@ -88,20 +90,26 @@ raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
 
 extern "C" int raster_deferred_launch(const float* packed, int n_tris, const int* bins,
                                       const int* counts, int bin_width, int tiles_x,
-                                      int tiles_y, float* z, int* tid, void* stream) {
-  return launch_vis(raster_deferred_kernel, tiles_x * tiles_y, stream, packed, n_tris, bins,
-                    counts, bin_width, tiles_x, z, tid, tiles_x * TILE_W);
+                                      int tiles_y, int tile_h, int tile_w, float* z, int* tid,
+                                      void* stream) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    return launch_vis<T>(raster_deferred_kernel<T>, tiles_x * tiles_y, stream, packed,
+                         n_tris, bins, counts, bin_width, tiles_x, z, tid, tiles_x * T::W);
+  });
 }
 
 extern "C" int raster_peel_deferred_launch(const float* packed, int n_tris,
                                            const int* bins, const int* counts,
                                            int bin_width, int tiles_x, int tiles_y,
-                                           const float* z_base, const int* last,
-                                           int* layer, void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_peel_deferred_kernel<<<n_tiles * PEEL_SPLIT, PEEL_THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
-      tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+                                           int tile_h, int tile_w, const float* z_base,
+                                           const int* last, int* layer, void* stream) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    raster_peel_deferred_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
+        tiles_x * T::W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel raster._chunks_stream_loop of the JAX package
 // (tpu_renderer/kernels/raster.py, launched as _raster_chunks_fresh_kernel /
-// _raster_chunks_state_kernel from rasterize_fused_slabs). Per 32x128 tile it
+// _raster_chunks_state_kernel from rasterize_fused_slabs). Per tile it
 // walks the tile's bin entries (cid << ENTRY_SHIFT | gmask) in bin order;
 // for each group whose gmask bit is set it tests every triangle's 3 edge
 // planes (top-left fill rule) and depth plane at each pixel center, keeping
@@ -60,20 +60,22 @@ using namespace tr;
 
 constexpr int SPLIT = 8;       // blocks a tile: the cluster (portable maximum)
 constexpr int SEG_MIN = 4;     // a segment for every SEG_MIN entries
-constexpr int F_THREADS = (TILE_W / REGION_W) * (TILE_H / REGION_H) * 32;   // 512
-constexpr int F_PIX = REGION_H;                                             // 8 a thread
-constexpr int TILE_PIX = TILE_H * TILE_W;
-static_assert(TILE_PIX == SPLIT * F_THREADS, "the epilogue gives each thread one pixel");
-static_assert(RING_SLOTS * CHUNK_FLOATS <= 2 * TILE_PIX, "the ring fits the merge buffer");
+constexpr int F_PIX = REGION_H;   // 8 pixels a thread
 
-__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(F_THREADS, 2)
+// T::THREADS threads a block (512 at 32x128 tiles), a warp a 32x8 region.
+template <class T>
+__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
                     int tiles_x, float* __restrict__ z_out,
                     int* __restrict__ tid_out, float* __restrict__ nums_out,
                     float* __restrict__ metas_out, int hp, int wp) {
-  // the walk's chunk ring, then the segment's (z, tid) for the merge
-  __shared__ __align__(16) float smem[2 * TILE_PIX];
+  static_assert(T::PIX == SPLIT * T::THREADS, "the epilogue gives each thread one pixel");
+  // the walk's chunk ring, then the segment's (z, tid) for the merge: one
+  // array of the larger (the merge's at 32x128 tiles, the ring's below)
+  constexpr int MERGE = 2 * T::PIX;
+  constexpr int RING = RING_SLOTS * CHUNK_FLOATS;
+  __shared__ __align__(16) float smem[MERGE > RING ? MERGE : RING];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / SPLIT;
@@ -81,12 +83,12 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
-  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
-  const int px = tx * TILE_W + rx0 + lane;
-  const int py0 = ty * TILE_H + ry0;
+  const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
+  const int ry0 = (warp / T::REGIONS_X) * REGION_H;
+  const int px = tx * T::W + rx0 + lane;
+  const int py0 = ty * T::H + ry0;
   const float x = static_cast<float>(px) + 0.5f;
-  const Region region(tx * TILE_W + rx0, py0);
+  const Region region(tx * T::W + rx0, py0);
 
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
@@ -102,7 +104,7 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
     tid[i] = -1;
   }
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  walk_entries<F_THREADS>(rows, tbins, e0, e1, n_chunks, smem,
+  walk_entries<T::THREADS>(rows, tbins, e0, e1, n_chunks, smem,
                           [&](const float* slot, int cid, int gmask) {
     const unsigned rows_of = lane_rows(slot, gmask, region);
     unsigned m = __ballot_sync(FULL_WARP, rows_of != 0);
@@ -128,17 +130,17 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
 
   // the merge: segment winners in segment order, the walk's own rule
   float* zs = smem;
-  int* ts = reinterpret_cast<int*>(smem + TILE_PIX);
+  int* ts = reinterpret_cast<int*>(smem + T::PIX);
   if (rank < segs) {
 #pragma unroll
     for (int i = 0; i < F_PIX; ++i) {
-      const int p = (ry0 + i) * TILE_W + rx0 + lane;
+      const int p = (ry0 + i) * T::W + rx0 + lane;
       zs[p] = z[i];
       ts[p] = tid[i];
     }
   }
   cluster.sync();
-  const int p = rank * F_THREADS + threadIdx.x;
+  const int p = rank * T::THREADS + threadIdx.x;
   float zw = 0.0f;
   int tw = -1;
   for (int q = 0; q < segs; ++q) {
@@ -151,8 +153,8 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   }
   cluster.sync();   // no block leaves while another reads its shared memory
 
-  const int row = ty * TILE_H + p / TILE_W;
-  const int col = tx * TILE_W + p % TILE_W;
+  const int row = ty * T::H + p / T::W;
+  const int col = tx * T::W + p % T::W;
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
   const size_t gp = static_cast<size_t>(row) * wp + col;
   z_out[gp] = zw;
@@ -165,14 +167,17 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
 
 extern "C" int raster_fused_launch(const float* rows, const int* bins,
                                    const int* counts, int bin_width, int n_chunks,
-                                   int tiles_x, int tiles_y,
+                                   int tiles_x, int tiles_y, int tile_h, int tile_w,
                                    float* z, int* tid, float* nums, float* metas,
                                    void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_fused_kernel<<<n_tiles * SPLIT, F_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, bins, counts, bin_width, n_chunks, tiles_x, z, tid, nums, metas,
-      tiles_y * TILE_H, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    raster_fused_kernel<T><<<tiles_x * tiles_y * SPLIT, T::THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        rows, bins, counts, bin_width, n_chunks, tiles_x, z, tid, nums, metas,
+        tiles_y * T::H, tiles_x * T::W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" const char* raster_error_string(int err) {

@@ -24,8 +24,8 @@
 // The JAX wrappers gather fat_rows[bins] into an (n_tiles, cap, 48) block
 // first (802 MB at the deferred bench caps). Here a block reads rows by id
 // from the table: 2.6 and 2.8 stage only the 12 edge and depth
-// coefficients every pixel test reads (stage_planes, 512 entries a batch),
-// and read the winner's other columns once a pixel after the walk
+// coefficients every pixel test reads (stage_planes, an entry a thread a
+// batch), and read the winner's other columns once a pixel after the walk
 // (store_winner), which equals the JAX kernels' select-at-take because the
 // planes are a pure function of (row, pixel); 2.7 gathers each entry's
 // whole fat row (12 pieces of 16 B), since a taken fragment reads its
@@ -80,14 +80,15 @@ using namespace tr;
 // Kernel 2.6: kernel 2.4's walk and fold (vis_tile in raster_common.cuh)
 // over the fat rows' first 12 columns, then the winner's planes for the
 // block's pixels (store_winner, as 2.1's epilogue).
-__global__ void __launch_bounds__(VIS_THREADS, 2)
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 2)
 raster_fused_gathered_kernel(const float* __restrict__ rows, int n_tris,
                              const int* __restrict__ bins, const int* __restrict__ counts,
                              int bin_width, int tiles_x, float* __restrict__ z_out,
                              int* __restrict__ tid_out, float* __restrict__ nums_out,
                              float* __restrict__ metas_out, int hp, int wp) {
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-  vis_tile<ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x,
+  vis_tile<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x,
                      [&](int row, int col, float z, int tid) {
                        const size_t gp = static_cast<size_t>(row) * wp + col;
                        z_out[gp] = z;
@@ -101,18 +102,24 @@ raster_fused_gathered_kernel(const float* __restrict__ rows, int n_tris,
 // Kernel 2.7: kernel 2.2's split of the pixels (raster_accum.cu) over
 // gathered slices. GATHERED_ACCUM_WARPS warps a block, each a 32x8 region
 // of the tile: region q = block * GATHERED_ACCUM_WARPS + warp of the
-// tile's 16 is 32 columns wide at strip q / 4, its rows at q % 4 (4 warps
-// would be a block a strip, 2.2's layout; 1, a block a region, measured
-// faster on phase 11's inputs, PERF.md). A slice is the next CHUNK entries
+// tile's 16 (at 32x128) is 32 columns wide at strip q / 4, its rows at
+// q % 4 (4 warps would be a block a strip, 2.2's layout; 1, a block a
+// region, measured faster on phase 11's inputs, PERF.md). A slice is the next CHUNK entries
 // of the bin in slot order; their fat rows are gathered by id into a ring
 // slot (stage_slice_async, AHEAD slices ahead) and the warp runs 2.2's
 // body on it (AccumPixels<true>, lane t live where entry t of the slice is
 // a row).
 constexpr int GATHERED_ACCUM_WARPS = 1;
 constexpr int GATHERED_ACCUM_THREADS = GATHERED_ACCUM_WARPS * 32;
-constexpr int GATHERED_ACCUM_BLOCKS =   // blocks a tile
-    (TILE_W / REGION_W) * (TILE_H / REGION_H) / GATHERED_ACCUM_WARPS;
 
+// Kernel 2.7's blocks a tile.
+template <class T>
+struct GatheredAccum {
+  static constexpr int ROWS = T::H / REGION_H;   // regions down a tile
+  static constexpr int BLOCKS = T::REGIONS_X * ROWS / GATHERED_ACCUM_WARPS;
+};
+
+template <class T>
 __global__ void __launch_bounds__(GATHERED_ACCUM_THREADS)
 raster_accum_gathered_kernel(const float* __restrict__ rows, int n_tris,
                              const int* __restrict__ bins, const int* __restrict__ counts,
@@ -120,13 +127,14 @@ raster_accum_gathered_kernel(const float* __restrict__ rows, int n_tris,
                              const float* __restrict__ light, float* __restrict__ acc_out,
                              int* __restrict__ cnt_out, int hp, int wp) {
   __shared__ __align__(16) float ring[RING_SLOTS * CHUNK_FLOATS];
-  const int tile = blockIdx.x / GATHERED_ACCUM_BLOCKS;
+  using G = GatheredAccum<T>;
+  const int tile = blockIdx.x / G::BLOCKS;
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x;
   const int lane = threadIdx.x % 32;
-  const int q = (blockIdx.x % GATHERED_ACCUM_BLOCKS) * GATHERED_ACCUM_WARPS + threadIdx.x / 32;
-  const int rx = tx * TILE_W + (q / (TILE_H / REGION_H)) * REGION_W;
-  const int py0 = ty * TILE_H + (q % (TILE_H / REGION_H)) * REGION_H;
+  const int q = (blockIdx.x % G::BLOCKS) * GATHERED_ACCUM_WARPS + threadIdx.x / 32;
+  const int rx = tx * T::W + (q / G::ROWS) * REGION_W;
+  const int py0 = ty * T::H + (q % G::ROWS) * REGION_H;
   const Region region(rx, py0);
   AccumPixels<true> s;    // the caller's z_base may be negative: keep zv >= 0
   s.load(z_base, light, rx + lane, py0, wp);
@@ -148,7 +156,8 @@ raster_accum_gathered_kernel(const float* __restrict__ rows, int n_tris,
 // Kernel 2.8: kernel 2.5's walk (peel_tile in raster_common.cuh) over the
 // fat rows' first 12 columns, then 2.3's epilogue (store_layer) for the
 // block's pixels.
-__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(PEEL_THREADS, 2)
+template <class T>
+__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_gathered_kernel(const float* __restrict__ rows, int n_tris,
                             const int* __restrict__ bins, const int* __restrict__ counts,
                             int bin_width, int tiles_x, const float* __restrict__ z_base,
@@ -156,7 +165,7 @@ raster_peel_gathered_kernel(const float* __restrict__ rows, int n_tris,
                             float* __restrict__ nums_out, float* __restrict__ metas_out,
                             int hp, int wp) {
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-  peel_tile<ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
+  peel_tile<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
                       [&](int row, int col, int best) {
                         store_layer(rows, best, row, col, wp, plane_stride, best_out,
                                     nums_out, metas_out);
@@ -167,35 +176,44 @@ raster_peel_gathered_kernel(const float* __restrict__ rows, int n_tris,
 
 extern "C" int raster_fused_gathered_launch(const float* rows, int n_tris, const int* bins,
                                             const int* counts, int bin_width, int tiles_x,
-                                            int tiles_y, float* z, int* tid, float* nums,
-                                            float* metas, void* stream) {
-  return launch_vis(raster_fused_gathered_kernel, tiles_x * tiles_y, stream, rows, n_tris, bins,
-                    counts, bin_width, tiles_x, z, tid, nums, metas, tiles_y * TILE_H,
-                    tiles_x * TILE_W);
+                                            int tiles_y, int tile_h, int tile_w, float* z,
+                                            int* tid, float* nums, float* metas,
+                                            void* stream) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    return launch_vis<T>(raster_fused_gathered_kernel<T>, tiles_x * tiles_y, stream, rows,
+                         n_tris, bins, counts, bin_width, tiles_x, z, tid, nums, metas,
+                         tiles_y * T::H, tiles_x * T::W);
+  });
 }
 
 extern "C" int raster_accum_gathered_launch(const float* rows, int n_tris, const int* bins,
                                             const int* counts, int bin_width, int tiles_x,
-                                            int tiles_y, const float* z_base,
-                                            const float* light, float* acc, int* cnt,
-                                            void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_accum_gathered_kernel<<<n_tiles * GATHERED_ACCUM_BLOCKS, GATHERED_ACCUM_THREADS, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      rows, n_tris, bins, counts, bin_width, tiles_x, z_base, light, acc, cnt,
-      tiles_y * TILE_H, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+                                            int tiles_y, int tile_h, int tile_w,
+                                            const float* z_base, const float* light,
+                                            float* acc, int* cnt, void* stream) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    raster_accum_gathered_kernel<T><<<tiles_x * tiles_y * GatheredAccum<T>::BLOCKS,
+                                      GATHERED_ACCUM_THREADS, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        rows, n_tris, bins, counts, bin_width, tiles_x, z_base, light, acc, cnt,
+        tiles_y * T::H, tiles_x * T::W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int raster_peel_gathered_launch(const float* rows, int n_tris, const int* bins,
                                            const int* counts, int bin_width, int tiles_x,
-                                           int tiles_y, const float* z_base, const int* last,
-                                           int* best, float* nums, float* metas,
-                                           void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_peel_gathered_kernel<<<n_tiles * PEEL_SPLIT, PEEL_THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, best, nums, metas,
-      tiles_y * TILE_H, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+                                           int tiles_y, int tile_h, int tile_w,
+                                           const float* z_base, const int* last, int* best,
+                                           float* nums, float* metas, void* stream) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    raster_peel_gathered_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, best, nums, metas,
+        tiles_y * T::H, tiles_x * T::W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -59,16 +59,18 @@ namespace {
 using namespace tr;
 
 constexpr int PEEL_SEG_MIN = 4;   // a segment for every PEEL_SEG_MIN entries
-static_assert(TILE_PIX * sizeof(int) <= RING_SLOTS * CHUNK_FLOATS * sizeof(float),
-              "the merge buffer fits the ring");
 
-__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(PEEL_THREADS, 2)
+// T::THREADS threads a block (512 at 32x128 tiles), a warp a 32x8 region.
+template <class T>
+__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                          const int* __restrict__ counts, int bin_width, int n_chunks,
                          int tiles_x, const float* __restrict__ z_base,
                          const int* __restrict__ last, int* __restrict__ best_out,
                          float* __restrict__ nums_out, float* __restrict__ metas_out,
                          int hp, int wp) {
+  static_assert(T::PIX * sizeof(int) <= RING_SLOTS * CHUNK_FLOATS * sizeof(float),
+                "the merge buffer fits the ring");
   // the walk's chunk ring, then the segment's layer ids for the merge
   __shared__ __align__(16) float smem[RING_SLOTS * CHUNK_FLOATS];
   cg::cluster_group cluster = cg::this_cluster();
@@ -78,9 +80,9 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int rx0 = (warp % (TILE_W / REGION_W)) * REGION_W;   // region in the tile
-  const int ry0 = (warp / (TILE_W / REGION_W)) * REGION_H;
-  const Region region(tx * TILE_W + rx0, ty * TILE_H + ry0);
+  const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
+  const int ry0 = (warp / T::REGIONS_X) * REGION_H;
+  const Region region(tx * T::W + rx0, ty * T::H + ry0);
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
   const int n = max(0, min(counts[tile], bin_width));
@@ -95,11 +97,11 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
 
   PeelPixels<false> s;
   if (rank < segs) {   // uniform across the block
-    s.load(z_base, last, tx * TILE_W + rx0 + lane, ty * TILE_H + ry0, wp,
+    s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp,
            n_chunks * CHUNK - 1);
     const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-    s.ascending = keys_ascend(tbins, e0, e1, ENTRY_SHIFT);
-    walk_entries<PEEL_THREADS>(rows, tbins, e0, e1, n_chunks, smem,
+    s.ascending = keys_ascend<T::THREADS>(tbins, e0, e1, ENTRY_SHIFT);
+    walk_entries<T::THREADS>(rows, tbins, e0, e1, n_chunks, smem,
                                [&](const float* slot, int cid, int gmask) {
       const int base = cid * CHUNK;
       // uniform across the warp: no id of the chunk passes id > last, or
@@ -119,25 +121,28 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
   if (segs == 1) {
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i)
-      emit(ty * TILE_H + ry0 + i, tx * TILE_W + rx0 + lane, s.best[i]);
+      emit(ty * T::H + ry0 + i, tx * T::W + rx0 + lane, s.best[i]);
     return;
   }
-  const int best = merge_min(cluster, reinterpret_cast<int*>(smem), s, rx0, ry0, rank, segs);
-  const int p = rank * PEEL_THREADS + threadIdx.x;
-  emit(ty * TILE_H + p / TILE_W, tx * TILE_W + p % TILE_W, best);
+  const int best =
+      merge_min<T>(cluster, reinterpret_cast<int*>(smem), s, rx0, ry0, rank, segs);
+  const int p = rank * T::THREADS + threadIdx.x;
+  emit(ty * T::H + p / T::W, tx * T::W + p % T::W, best);
 }
 
 }  // namespace
 
 extern "C" int raster_peel_fused_launch(const float* rows, const int* bins,
                                         const int* counts, int bin_width, int n_chunks,
-                                        int tiles_x, int tiles_y, const float* z_base,
-                                        const int* last, int* best, float* nums,
-                                        float* metas, void* stream) {
-  const int n_tiles = tiles_x * tiles_y;
-  raster_peel_fused_kernel<<<n_tiles * PEEL_SPLIT, PEEL_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, last, best, nums, metas,
-      tiles_y * TILE_H, tiles_x * TILE_W);
-  return static_cast<int>(cudaGetLastError());
+                                        int tiles_x, int tiles_y, int tile_h, int tile_w,
+                                        const float* z_base, const int* last, int* best,
+                                        float* nums, float* metas, void* stream) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    raster_peel_fused_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, last, best, nums, metas,
+        tiles_y * T::H, tiles_x * T::W);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -3,7 +3,7 @@ frame, each a hand-written CUDA kernel beside its plain PyTorch twin.
 
 Fused path (dense chunk bins, 48-column fat rows):
 
-* ``rasterize_fused``: the opaque pass. Per 32x128 tile, walk the tile's
+* ``rasterize_fused``: the opaque pass. Per tile, walk the tile's
   binned CHUNK-triangle chunks in ascending chunk id; for each live
   GROUP-triangle group (the entry's gmask bit) evaluate the 3 edge planes
   with the top-left fill rule and the depth plane; reversed-Z ``>=`` with
@@ -47,11 +47,12 @@ Names, this module <-> tpu_renderer/kernels/raster.py of the JAX package
     rasterize_peel_gathered    <-> rasterize_peel_fused     (kernel 2.8)
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
-launches the kernel (and raises if it cannot). The plain versions loop over
-bin slots, vectorised across tiles, and evaluate triangles in the same
-per-pixel order as the kernels, so both agree bit for bit. Inside
-utils.profiling.debug_mode each kernel launcher's float outputs are checked
-for NaN (``checked``), as torch's own operations are.
+launches the kernel (and raises if it cannot). The kernels take every tile
+of TILES, chosen at launch; the plain versions take any tile. The plain
+versions loop over bin slots, vectorised across tiles, and evaluate
+triangles in the same per-pixel order as the kernels, so both agree bit
+for bit. Inside utils.profiling.debug_mode each kernel launcher's float
+outputs are checked for NaN (``checked``), as torch's own operations are.
 
 ``pad_for_raster`` and ``full_bins`` are the JAX package's helpers for
 small scenes and tests: inert padding rows to a chunk multiple, and bins
@@ -82,7 +83,11 @@ ID_INF = 0x7FFFFFF  # the peels' "no fragment" marker (> any triangle id)
 # The plain versions also take other values (the JAX tests bin at CHUNK=8).
 CHUNK = 32
 GROUP = 8
-TILE_H, TILE_W = 32, 128  # the kernels' tile
+TILE_H, TILE_W = 32, 128  # the default tile (RendererConfig's)
+# Every (tile_h, tile_w) the kernels are built for (with_tile in
+# csrc/raster_common.cuh): a warp a 32x8 region, so at most 512 threads a
+# block; ROADMAP.md Queue 1 item 17 says why no larger tile.
+TILES = ((8, 64), (8, 128), (16, 64), (16, 128), (32, 64), (32, 128))
 ROW_COLS = 48        # fat-row width (shade.py layout)
 SETUP_COLS = 16      # packed setup-row width (vertex.triangle_setup_c)
 _EMPTY_AABB = (-1.0, -1.0, -2.0, -2.0)
@@ -98,23 +103,21 @@ N_NUMS = 4   # interpolated numerator planes: light_num, r, g, b
 # cuts a tile's entries into contiguous segments, one for every
 # FUSED_SEG_MIN entries and at most FUSED_SPLIT, one a block of the tile's
 # thread-block cluster, and folds the segments' winners in order
-# (fused_segments); 2.2 keeps the walk whole and gives each of ACCUM_SPLIT
-# blocks a 32-column strip of the tile.
+# (fused_segments); 2.2 keeps the walk whole and gives each of
+# accum_split(tile_w) blocks a 32-column strip of the tile.
 REGION_W, REGION_H = 32, 8
 FUSED_SPLIT = 8
 FUSED_SEG_MIN = 4
-ACCUM_SPLIT = TILE_W // REGION_W
 # The peels 2.3, 2.5 and 2.8 (csrc/raster_peel.cu, raster_deferred.cu,
 # raster_gathered.cu, raster_common.cuh) cut a tile's entries the same way,
 # into at most PEEL_SPLIT segments of a cluster, one for every PEEL_SEG_MIN
 # chunk entries (2.3) or DEFERRED_SEG_MIN triangle entries (2.5, 2.8), and
 # merge the segments' layers by a min (peel_segments). 2.7 splits the
-# pixels as 2.2 does, finer: GATHERED_ACCUM_BLOCKS blocks a tile, one a
-# region, each walking the tile's whole per-triangle list.
+# pixels as 2.2 does, finer: gathered_accum_blocks(tile_h, tile_w) blocks a
+# tile, one a region, each walking the tile's whole per-triangle list.
 PEEL_SPLIT = 8
 PEEL_SEG_MIN = 4
 DEFERRED_SEG_MIN = 32
-GATHERED_ACCUM_BLOCKS = (TILE_W // REGION_W) * (TILE_H // REGION_H)
 # The visibility walks 2.4 and 2.6 (vis_tile in csrc/raster_common.cuh)
 # cut a tile's per-triangle entries into at most VIS_SPLIT segments of a
 # cluster, one for every VIS_SEG_MIN entries, and fold the segments'
@@ -125,6 +128,23 @@ VIS_SEG_MIN = 32
 # column 47, exact below 2^24; the port's take the bin entry itself and
 # refuse larger tables, so the two cannot diverge silently.
 MAX_GATHERED_TRIS = 1 << 24
+
+
+def accum_split(tile_w: int) -> int:
+    """Kernel 2.2's blocks a tile: one a 32-column strip."""
+    return tile_w // REGION_W
+
+
+def gathered_accum_blocks(tile_h: int, tile_w: int) -> int:
+    """Kernel 2.7's blocks a tile: one a 32x8 region."""
+    return (tile_w // REGION_W) * (tile_h // REGION_H)
+
+
+def check_tile(tile_h: int, tile_w: int, what: str = "raster kernels") -> None:
+    """Raise ValueError unless the CUDA kernels are built for the tile."""
+    if (tile_h, tile_w) not in TILES:
+        raise ValueError(f"the CUDA {what} take the tiles "
+                         f"{', '.join(f'{h}x{w}' for h, w in TILES)}; got {tile_h}x{tile_w}")
 
 
 def entry_shift(n_groups: int) -> int:
@@ -543,9 +563,7 @@ def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no raster for device type {dev.type}")
     if dev.type == "cuda":
-        if (tile_h, tile_w) != (TILE_H, TILE_W):
-            raise ValueError(f"the CUDA raster kernels take {TILE_H}x{TILE_W} "
-                             f"tiles, got {tile_h}x{tile_w}")
+        check_tile(tile_h, tile_w)
         if chunked and (chunk, group) != (CHUNK, GROUP):
             raise ValueError(f"the CUDA raster kernels are built for chunk="
                              f"{CHUNK}, group={GROUP}; got chunk={chunk}, "
@@ -582,6 +600,12 @@ def _launch(fn_name, *args):
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _tile_args(tiles_x, tiles_y, tile_h, tile_w):
+    """The tile grid and the tile, as every raster launcher takes them."""
+    return (ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), ctypes.c_int(tile_h),
+            ctypes.c_int(tile_w))
 
 
 def _raw_stream(device) -> int:
@@ -708,7 +732,7 @@ def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
-            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
             _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev))
     fused_counter.launches += 1
     return z, tid, nums, metas
@@ -790,8 +814,8 @@ def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
                         tiles_y: int, tile_w: int, tile_h: int):
     """Launch the raster_accum CUDA kernel (csrc/raster_accum.cu) on CUDA
     tensors: the same (acc, cnt) as rasterize_accum_plain at CHUNK/GROUP.
-    One launch of n_tiles x ACCUM_SPLIT blocks, with no wait on the
-    device."""
+    One launch of n_tiles x accum_split(tile_w) blocks, with no wait on
+    the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_accum_kernel takes CUDA tensors, got {dev}")
@@ -803,7 +827,7 @@ def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
     cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_accum_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
-            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
             _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev))
     accum_counter.launches += 1
     return acc, cnt
@@ -919,7 +943,7 @@ def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_peel_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
-            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(z_base),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), _ptr(z_base),
             _ptr(last), _ptr(best), _ptr(nums), _ptr(metas), _stream(dev))
     peel_fused_counter.launches += 1
     return best, nums, metas
@@ -1109,7 +1133,7 @@ def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
     tid = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_deferred_launch", _ptr(packed), ctypes.c_int(packed.shape[0]),
             _ptr(bins), _ptr(counts), ctypes.c_int(bins.shape[1]),
-            ctypes.c_int(tiles_x), ctypes.c_int(tiles_y), _ptr(z), _ptr(tid),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), _ptr(z), _ptr(tid),
             _stream(dev))
     deferred_counter.launches += 1
     return z, tid
@@ -1166,9 +1190,8 @@ def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
     layer = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_peel_deferred_launch", _ptr(packed),
             ctypes.c_int(packed.shape[0]), _ptr(bins), _ptr(counts),
-            ctypes.c_int(bins.shape[1]), ctypes.c_int(tiles_x),
-            ctypes.c_int(tiles_y), _ptr(z_base), _ptr(last), _ptr(layer),
-            _stream(dev))
+            ctypes.c_int(bins.shape[1]), *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
+            _ptr(z_base), _ptr(last), _ptr(layer), _stream(dev))
     peel_counter.launches += 1
     return layer
 
@@ -1230,9 +1253,9 @@ def rasterize_fused_gathered_plain(rows, bins, counts, *, tiles_x: int,
     return f(z), f(tid), f(nums), f(metas)
 
 
-def _gathered_launch_args(rows, bins, counts, tiles_x, tiles_y):
+def _gathered_launch_args(rows, bins, counts, tiles):
     return (_ptr(rows), ctypes.c_int(rows.shape[0]), _ptr(bins), _ptr(counts),
-            ctypes.c_int(bins.shape[1]), ctypes.c_int(tiles_x), ctypes.c_int(tiles_y))
+            ctypes.c_int(bins.shape[1]), *_tile_args(**tiles))
 
 
 @checked
@@ -1253,7 +1276,7 @@ def raster_fused_gathered_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: i
     nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_fused_gathered_launch",
-            *_gathered_launch_args(rows, bins, counts, tiles_x, tiles_y),
+            *_gathered_launch_args(rows, bins, counts, tiles),
             _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev))
     fused_gathered_counter.launches += 1
     return z, tid, nums, metas
@@ -1308,7 +1331,7 @@ def raster_accum_gathered_kernel(rows, bins, counts, z_base, light, *,
                                  tile_h: int):
     """Launch the raster_accum_gathered CUDA kernel (csrc/raster_gathered.cu)
     on CUDA tensors: the same (acc, cnt) as rasterize_accum_gathered_plain.
-    One launch of GATHERED_ACCUM_BLOCKS blocks a tile, one a 32x8 region,
+    One launch of gathered_accum_blocks blocks a tile, one a 32x8 region,
     each walking the tile's entries in slot order, their rows gathered by
     id; no wait on the device."""
     dev = rows.device
@@ -1321,7 +1344,7 @@ def raster_accum_gathered_kernel(rows, bins, counts, z_base, light, *,
     acc = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
     cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_accum_gathered_launch",
-            *_gathered_launch_args(rows, bins, counts, tiles_x, tiles_y),
+            *_gathered_launch_args(rows, bins, counts, tiles),
             _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev))
     accum_gathered_counter.launches += 1
     return acc, cnt
@@ -1385,7 +1408,7 @@ def raster_peel_gathered_kernel(rows, bins, counts, z_base, last, *,
     nums = torch.empty((N_NUMS, hp, wp), dtype=torch.float32, device=dev)
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_peel_gathered_launch",
-            *_gathered_launch_args(rows, bins, counts, tiles_x, tiles_y),
+            *_gathered_launch_args(rows, bins, counts, tiles),
             _ptr(z_base), _ptr(last), _ptr(best), _ptr(nums), _ptr(metas),
             _stream(dev))
     peel_gathered_counter.launches += 1

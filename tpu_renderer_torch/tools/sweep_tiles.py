@@ -1,16 +1,17 @@
-"""Sweep the raster's compile-time shape on the bench frame, the twin of the
-JAX package's tools/sweep_tiles.py (which sweeps tile_h at width 128),
-extended to every constant the kernels fix at compile time that can move.
+"""Sweep the raster's shape on the bench frame, the twin of the JAX
+package's tools/sweep_tiles.py (which sweeps tile_h at width 128),
+extended to the tile's width and to every constant the kernels fix at
+compile time that can move.
 
     python3 -m tpu_renderer_torch.tools.sweep_tiles [--axes tile_h,tile_w,group,ahead]
         [--grid 64] [--width 1920] [--height 1080] [--device cuda]
 
 One axis at a time from the shipped point (32x128 tiles, GROUP 8, AHEAD 2):
 
-* tile_h in {8, 16, 32} and tile_w in {64, 128}: the raster tile
-  (raster.TILE_H / TILE_W, csrc/raster_common.cuh TILE_H / TILE_W). The
-  block is tied to it: a warp a 32x8 region, so 2.1 runs tile_h / 8 *
-  tile_w / 32 warps a block and 2.2 tile_h / 8 a strip;
+* tile_h in {8, 16, 32} and tile_w in {64, 128}: the raster tile, a
+  parameter of the shipped kernels (raster.TILES; csrc/raster_common.cuh
+  with_tile). The block is tied to it: a warp a 32x8 region, so 2.1 runs
+  tile_h / 8 * tile_w / 32 warps a block and 2.2 tile_h / 8 a strip;
 * group in {8, 16, 32}: triangles a gmask bit (raster.GROUP, GROUP);
 * ahead in {1, 2, 3}: chunks copied ahead of the raster into the cp.async
   ring of RING_SLOTS = AHEAD + 2 slots (AHEAD).
@@ -19,19 +20,19 @@ CHUNK is not swept: a lane tests one triangle of a chunk for its warp
 (static_assert(CHUNK == 32) in raster_common.cuh), so another CHUNK needs
 another walk, not another constant.
 
-Nothing shipped changes. For each point the tool copies tpu_renderer_torch/
-into a temporary directory, rewrites the constants there (rewrite(); where
-2.1's merge buffer is smaller than the ring, its shared array takes the
-ring's size), builds the copy's kernel library into the copy's kernels/build
-(all points at once, kernels/_build.build_from), and measures in a
-subprocess that imports the copy (--measure). The shipped point runs the
-shipped tree. Each point prints: the tiles, the opaque entries and the most
+Nothing shipped changes. A tile point runs the shipped tree at that tile
+(--tile). For a GROUP or AHEAD point the tool copies tpu_renderer_torch/
+into a temporary directory, rewrites the constants there (rewrite()),
+builds the copy's kernel library into the copy's kernels/build (every
+copy and the shipped library at once, kernels/_build.build_from). Each
+point is measured in a subprocess that imports its tree (--measure).
+Each point prints: the tiles, the opaque entries and the most
 a tile (bin_triangles_full on the bench frame's sorted opaque set), the
 transparent ones, bin_triangles_full's ms a call (CUDA events around one
 call, utils/timing.event_ms), kernels 2.1's and 2.2's device ms a call (a
 CUDA graph of 20 calls, utils/timing.device_ms) on the frame's inputs, the
-nvcc seconds of its build, and its checks: 2.1 and 2.2 equal their plain
-versions at that point (every output), and the opaque z / tid and the
+nvcc seconds of its tree's build, and its checks: 2.1 and 2.2 equal their
+plain versions at that point (every output), and the opaque z / tid and the
 transparent sum / count, cropped to the frame, equal the shipped point's
 (a digest of each), as none of them depends on the shape. A last JSON line
 holds every point. Exits 1 if a check fails or without a card; --device
@@ -63,22 +64,13 @@ from tpu_renderer_torch.utils import bench_frame, timing
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AXES = {"tile_h": (8, 16, 32), "tile_w": (64, 128), "group": (8, 16, 32),
         "ahead": (1, 2, 3)}
-# (file under the package, pattern, point key): the constants rewrite() sets;
-# each pattern must match exactly once
+# (file under the package, pattern, point key): the compile-time constants
+# rewrite() sets in a copy; each pattern must match exactly once
 CONSTANTS = (
-    ("kernels/raster.py", r"^TILE_H, TILE_W = (\d+), (\d+)", ("tile_h", "tile_w")),
     ("kernels/raster.py", r"^GROUP = (\d+)$", ("group",)),
-    ("kernels/csrc/raster_common.cuh", r"^constexpr int TILE_H = (\d+);", ("tile_h",)),
-    ("kernels/csrc/raster_common.cuh", r"^constexpr int TILE_W = (\d+);", ("tile_w",)),
     ("kernels/csrc/raster_common.cuh", r"^constexpr int GROUP = (\d+);", ("group",)),
     ("kernels/csrc/raster_common.cuh", r"^constexpr int AHEAD = (\d+);", ("ahead",)),
 )
-# 2.1 shares one shared array between the chunk ring and the merge's (z,
-# tid); at a smaller tile the ring is the larger, and the array takes its size
-MERGE_ASSERT = ('static_assert(RING_SLOTS * CHUNK_FLOATS <= 2 * TILE_PIX, '
-                '"the ring fits the merge buffer");\n')
-MERGE_ARRAY = "__shared__ __align__(16) float smem[2 * TILE_PIX];"
-RING_ARRAY = "__shared__ __align__(16) float smem[RING_SLOTS * CHUNK_FLOATS];"
 
 
 def _read(pkg: str, rel: str) -> str:
@@ -87,8 +79,9 @@ def _read(pkg: str, rel: str) -> str:
 
 
 def point_of(pkg: str = PACKAGE) -> dict:
-    """The point a package tree is built for, read from its sources; raises
-    if a constant is not found exactly once or its two files disagree."""
+    """The compile-time constants (group, ahead) a package tree is built
+    for, read from its sources; raises if a constant is not found exactly
+    once or its two files disagree."""
     point = {}
     for rel, pattern, keys in CONSTANTS:
         found = re.findall(pattern, _read(pkg, rel), flags=re.M)
@@ -101,18 +94,31 @@ def point_of(pkg: str = PACKAGE) -> dict:
     return point
 
 
+def shipped_point() -> dict:
+    """The shipped point: the default tile (RendererConfig's) and the
+    shipped sources' constants."""
+    return dict(tile_h=raster.TILE_H, tile_w=raster.TILE_W, **point_of())
+
+
 def points(axes) -> list:
     """The shipped point, then each named axis's other values, one axis at
     a time from it."""
-    shipped = point_of()
+    shipped = shipped_point()
     out = [shipped]
     for axis in axes:
         out += [dict(shipped, **{axis: v}) for v in AXES[axis] if v != shipped[axis]]
     return out
 
 
+def in_copy(point: dict) -> bool:
+    """Does the point need a rewritten copy (a compile-time constant off the
+    shipped sources), or does the shipped tree run it (a tile)?"""
+    return any(point[k] != v for k, v in point_of().items())
+
+
 def rewrite(pkg: str, point: dict) -> None:
-    """Set the constants of the package tree at pkg to point's values."""
+    """Set the compile-time constants of the package tree at pkg to point's
+    values (its tile is an argument of the kernels, not a constant)."""
     for rel, pattern, keys in CONSTANTS:
         path = os.path.join(pkg, rel)
         text = _read(pkg, rel)
@@ -126,19 +132,12 @@ def rewrite(pkg: str, point: dict) -> None:
             new = new[:a] + str(point[keys[i]]) + new[b:]
         with open(path, "w") as f:
             f.write(text[:m[0].start()] + new + text[m[0].end():])
-    ring = (point["ahead"] + 2) * raster.CHUNK * raster.ROW_COLS   # RING_SLOTS chunks
-    if ring > 2 * point["tile_h"] * point["tile_w"]:
-        rel = "kernels/csrc/raster_fused.cu"
-        text = _read(pkg, rel)
-        if text.count(MERGE_ASSERT) != 1 or text.count(MERGE_ARRAY) != 1:
-            raise ValueError(f"{rel}: the merge buffer's declaration moved")
-        with open(os.path.join(pkg, rel), "w") as f:
-            f.write(text.replace(MERGE_ASSERT, "").replace(MERGE_ARRAY, RING_ARRAY))
 
 
 def make_variant(point: dict, dest: str) -> str:
-    """A copy of tpu_renderer_torch/ under dest with point's constants
-    (no build output, no caches); returns dest, the root to import it from."""
+    """A copy of tpu_renderer_torch/ under dest with point's compile-time
+    constants (no build output, no caches); returns dest, the root to
+    import it from."""
     pkg = os.path.join(dest, "tpu_renderer_torch")
     shutil.copytree(PACKAGE, pkg, ignore=shutil.ignore_patterns("build", "__pycache__"))
     rewrite(pkg, point)
@@ -164,15 +163,14 @@ def _exact(got, want) -> bool:
 
 
 @torch.no_grad()
-def measure(inputs: str, device) -> dict:
+def measure(inputs: str, device, tile_h: int, tile_w: int) -> dict:
     """Bin, rasterize (2.1, then 2.2 over its z) and time the bench frame's
-    inputs at this package's constants."""
+    inputs at this tile and this package's constants."""
     dev = torch.device(device)
     d = torch.load(inputs)
     width, height = d["width"], d["height"]
-    wp, hp = pad_extent(width, height, raster.TILE_H, raster.TILE_W)
-    tiles = dict(tiles_x=wp // raster.TILE_W, tiles_y=hp // raster.TILE_H,
-                 tile_w=raster.TILE_W, tile_h=raster.TILE_H)
+    wp, hp = pad_extent(width, height, tile_h, tile_w)
+    tiles = dict(tiles_x=wp // tile_w, tiles_y=hp // tile_h, tile_w=tile_w, tile_h=tile_h)
     sets = {}
     for k in ("opaque", "transparent"):
         aabb, valid, rows = raster.spatial_sort(*(d[k][n].to(dev) for n in ("aabb", "valid", "rows")))
@@ -212,7 +210,7 @@ def measure(inputs: str, device) -> dict:
             ms["cpu_" + key] = (time.perf_counter() - t0) * 1000.0
     z, tid = out_f[0][:height, :width], out_f[1][:height, :width]
     acc, cnt = out_a[0][:, :height, :width], out_a[1][:height, :width]
-    return dict(point=point_of(), module=raster.__file__, tiles=int(o["counts"].shape[0]),
+    return dict(point=dict(tile_h=tile_h, tile_w=tile_w, **point_of()), module=raster.__file__, tiles=int(o["counts"].shape[0]),
                 entries=int(o["counts"].sum()), max_a_tile=int(o["counts"].max()),
                 transparent_entries=int(t["counts"].sum()),
                 transparent_max=int(t["counts"].max()), **ms,
@@ -252,12 +250,14 @@ def capture_inputs(eng, path: str) -> None:
                     width=eng.config.width, height=eng.config.height), path)
 
 
-def _run_point(root: str, inputs: str, device: str, timeout: float) -> dict:
-    """--measure in a subprocess importing the tree at root; its JSON line."""
+def _run_point(root: str, point: dict, inputs: str, device: str, timeout: float) -> dict:
+    """--measure at point's tile in a subprocess importing the tree at root;
+    its JSON line."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     out = subprocess.run([sys.executable, "-m", "tpu_renderer_torch.tools.sweep_tiles",
-                          "--measure", inputs, "--device", device],
+                          "--measure", inputs, "--device", device,
+                          "--tile", f"{point['tile_h']}x{point['tile_w']}"],
                          cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
     if out.returncode != 0:
         raise RuntimeError(f"sweep point under {root} exited {out.returncode}:\n"
@@ -280,21 +280,24 @@ def sweep(eng, axes, device: str, timeout: float = 900.0) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
         capture_inputs(eng, inputs)
-        roots = [repo] + [make_variant(p, os.path.join(tmp, f"point{i}"))
-                          for i, p in enumerate(pts[1:], 1)]
-        build_s = [None] * len(pts)
+        roots = [make_variant(p, os.path.join(tmp, f"point{i}")) if in_copy(p) else repo
+                 for i, p in enumerate(pts)]
+        build_s = {}
         if device == "cuda":
-            # every point's library at once, each one nvcc a source
-            with concurrent.futures.ThreadPoolExecutor(len(pts)) as ex:
+            # every tree's library at once, each one nvcc a source
+            trees = list(dict.fromkeys(roots))
+            with concurrent.futures.ThreadPoolExecutor(len(trees)) as ex:
                 futures = [ex.submit(_build.build_from, *(
-                    (_build.CSRC_DIR, _build.BUILD_DIR) if i == 0 else
+                    (_build.CSRC_DIR, _build.BUILD_DIR) if r == repo else
                     (os.path.join(r, "tpu_renderer_torch", "kernels", "csrc"),
                      os.path.join(r, "tpu_renderer_torch", "kernels", "build"))))
-                    for i, r in enumerate(roots)]
-                build_s = [f.result()[1] for f in futures]
+                    for r in trees]
+                build_s = {r: f.result()[1] for r, f in zip(trees, futures)}
         rows = []
-        for point, root, secs in zip(pts, roots, build_s):
-            r = _run_point(root, inputs, device, timeout)
+        for point, root in zip(pts, roots):
+            secs = build_s.get(root)
+            build_s[root] = None   # a tree's build is reported at its first point
+            r = _run_point(root, point, inputs, device, timeout)
             if r["point"] != point:
                 raise RuntimeError(f"the copy for {point} reads {r['point']}")
             shipped = rows[0] if rows else r
@@ -332,14 +335,17 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--measure", default=None, metavar="INPUTS",
-                    help="(run by the sweep in each copy) measure this tree's point "
+                    help="(run by the sweep for each point) measure this tree's point "
                          "on the saved inputs and print it as JSON")
+    ap.add_argument("--tile", default=f"{raster.TILE_H}x{raster.TILE_W}",
+                    help="the tile --measure runs at, HxW")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("sweep_tiles: no CUDA device", file=sys.stderr)
         return 1
     if args.measure:
-        print(json.dumps(measure(args.measure, args.device)))
+        tile_h, tile_w = (int(v) for v in args.tile.split("x"))
+        print(json.dumps(measure(args.measure, args.device, tile_h, tile_w)))
         return 0
     axes = [a for a in args.axes.split(",") if a]
     unknown = set(axes) - set(AXES)
