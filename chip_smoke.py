@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives tpu_renderer_torch's paths on the card and checks them:
+Drives tpu_renderer_torch's paths on the card and checks them, in this
+order but for two: phase 17 runs right after phase 6, and phase 5b right
+after phase 11, so that the first torch.profiler session of the process
+(5b's), after which its eager launches are slower, comes after phase 17's
+long plain-version loops:
 
 1. without CUDA exits 1 before doing anything else; prints the card's name
    and power limit (nvidia-smi, which must succeed);
@@ -47,7 +51,7 @@ Drives tpu_renderer_torch's paths on the card and checks them:
 5b. how 2.1, 2.2 (the bench frame's call), 2.3, 2.5 (the first peel's),
    2.4 and 2.6 (the deferred frame's bins), 2.7 and 2.8 (phase 11's
    inputs: 2.2's and 2.3's first calls, the chunk bins expanded), and 2.4
-   on phase 6's grid=320 frame (phase 6 runs before this one) spread their
+   on phase 6's grid=320 frame (phases 6-11 run before this one) spread their
    work, one [split] line each: the wrapper's launches and the device's
    kernels for one call (one torch.profiler session), the blocks and
    clusters, the busiest tile's entries and live groups (per-triangle
@@ -116,8 +120,9 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    the frame without it byte for byte, and its ms is printed;
    tools.profile_binwidth, tools.bench_gather and tools.make_gallery (into
    chiprun_out/smoke/gallery) in-process, their lines echoed; and
-   tools.sweep_tiles over the tile_h axis only (SWEEP_AXES; the tool's
-   default sweeps every axis), whose every check must pass;
+   tools.sweep_tiles at the shipped point of the tile_h axis (SWEEP_ARGS;
+   the tool's default sweeps every axis, and phase 17 runs every tile),
+   whose every check must pass;
 16. the graphed frame (tpu_renderer_torch/frame_graph.py: each key of
    statics captured as a CUDA graph at its first frame, the peel loop a
    WHILE node inside it, then replayed) against the same frames drawn
@@ -132,17 +137,24 @@ Drives tpu_renderer_torch's paths on the card and checks them:
    the eager frame's syncs; then draw_pipelined() on the graphed bench
    engine against eager draws, a lag of 2;
 17. the raster tile: Engine(RendererConfig(tile_h, tile_w)) at every tile
-   of raster.TILES, the default (32x128) first, on the bench,
-   textured-glass and deferred frames at 1920x1080: kernels 2.1-2.5 on the
-   inputs each frame gives them at that tile, and 2.6-2.8 on inputs made
-   from them as phases 5 and 11 make them, each against its plain version
-   bit for bit (at the default tile phases 3-11 hold them) with its device
-   ms and bound; the path's graphed frames counted (20 at the default
-   tile, 10 at the others; the path's kernels must launch), each image
-   byte for byte the default tile's, and their median ms; 2.9-2.11 against
-   their plain versions at 1920x1080 and 1700x900 padded to the tile
-   (1728 wide at 64-pixel tiles, a half row segment), device ms at
-   1920x1080; a {"tiles": [...]} line collects them;
+   of raster.TILES, the default (32x128) first, then at NEW_TILES (8x32,
+   16x32, 64x128, 8x256, 32x256, 128x128: tiles the shipped library does
+   not hold, each built into a library of its own at the phase's start,
+   all at once, its nvcc seconds printed), on the bench, textured-glass
+   and deferred frames at 1920x1080: kernels 2.1-2.5 on the inputs each
+   frame gives them at that tile, and 2.6-2.8 on inputs made from them as
+   phases 5 and 11 make them, each timed (device ms) with its bound, and
+   held to its plain version bit for bit on those same inputs (at the
+   default tile phases 3-11 hold them); the path's graphed frames counted
+   (20 at the default tile, 3 at the other shipped tiles, 10 at the new
+   ones; the path's kernels must launch), each image byte for byte the
+   default tile's, and their median ms; 2.9-2.11 against their plain versions at 1920x1080 and 1700x900
+   padded to the tile (1728 wide at 64-pixel tiles, a half row segment),
+   device ms at 1920x1080; at a tile walked in passes the clusters
+   cudaOccupancyMaxActiveClusters found room for; then REFUSED_TILES
+   (12x128: not whole 32x8 regions; 128x256: past the shared memory a
+   block can opt into) must raise before any build or launch, in the
+   wrapper and the Engine; a {"tiles": [...]} line collects them;
 18. prints each phase's seconds as it ends ([time] lines), then a JSON
    line of per-kernel results (launches on its path, max_abs_err against
    the plain version, ms and plain ms, the bound from this run's inputs,
@@ -1634,10 +1646,11 @@ def multichip_phase(scene_path, lines):
 
 
 # Phase 15: the viewer over a mesh on a terminal, debug_mode on the card,
-# the tool twins; the sweep's axes in the smoke (the tool's default sweeps
-# every axis, tools/sweep_tiles.py)
+# the tool twins; the sweep's arguments in the smoke: the tile_h axis at
+# the shipped point alone (the tool's default sweeps every axis,
+# tools/sweep_tiles.py; phase 17 runs 2.1 and 2.2 at every tile)
 VIEW_KEYS = ("w", "w", "d", "\x1b[C", "s")
-SWEEP_AXES = "tile_h"
+SWEEP_ARGS = ("--axes", "tile_h", "--tile_hs", "32")
 
 
 def view_on_terminal(argv, keys, timeout=300.0):
@@ -1705,7 +1718,7 @@ def surface_phase(scene_path):
     rank); debug_mode around bench frames (a first frame, so 2.9 too, and
     a warm one: each passes and equals the frame without it byte for byte;
     the cost printed); profile_binwidth, bench_gather and make_gallery
-    in-process; sweep_tiles over SWEEP_AXES (every check must pass)."""
+    in-process; sweep_tiles with SWEEP_ARGS (every check must pass)."""
     import torch
     from tpu_renderer_torch.tools import bench_gather, make_gallery, profile_binwidth, sweep_tiles
     from tpu_renderer_torch.utils.bench_frame import bench_engine
@@ -1752,10 +1765,10 @@ def surface_phase(scene_path):
     run_tool(make_gallery, ["--out", gallery])
     assert sorted(os.listdir(gallery)) == sorted(make_gallery.NAMES), os.listdir(gallery)
     t = time.perf_counter()
-    text = run_tool(sweep_tiles, ["--axes", SWEEP_AXES])
+    text = run_tool(sweep_tiles, list(SWEEP_ARGS))
     rows = json.loads(text.strip().splitlines()[-1])["sweep"]
-    assert len(rows) == 3 and not sweep_tiles.failed(rows), rows
-    print(f"[sweep] the {SWEEP_AXES} axis only (the tool sweeps every axis by default): "
+    assert len(rows) == 1 and not sweep_tiles.failed(rows), rows
+    print(f"[sweep] {' '.join(SWEEP_ARGS)} (the tool sweeps every axis by default): "
           f"{len(rows)} points in {time.perf_counter() - t:.1f} s", flush=True)
 
 
@@ -1888,14 +1901,23 @@ def graphed_phase(scene_path):
 
 
 # Phase 17: the raster tile. Every tile of raster.TILES, the default
-# first: the paths each tile renders and the kernels each path's frame
+# first, then NEW_TILES (built at the phase's start, each into a library of
+# its own): the paths each tile renders and the kernels each path's frame
 # gives its inputs to, the background extents, and the graphed frames a
-# path (the default tile's as many as phase 3's)
+# path (the default tile's as many as phase 3's, OLD_TILE_FRAMES at the
+# other shipped tiles, whose instances phase 17 has held since they
+# shipped). At every tile but the default the kernels are timed and held
+# to their plain versions on the 1080p frames' own inputs (at the default
+# tile phases 3-11 hold them). REFUSED_TILES must raise before any build
+# or launch.
 TILE_PATHS = {"bench": ("raster_fused_kernel", "raster_accum_kernel"),
               "textured-glass": ("raster_peel_fused_kernel",),
               "deferred": ("raster_deferred_kernel", "raster_peel_kernel")}
 TILE_BACKGROUND_EXTENTS = ((1920, 1080), (1700, 900))
 TILE_FRAMES = 10
+OLD_TILE_FRAMES = 3
+NEW_TILES = ((8, 32), (16, 32), (64, 128), (8, 256), (32, 256), (128, 128))
+REFUSED_TILES = ((12, 128), (128, 256))
 
 
 def tile_calls(eng, path):
@@ -1935,8 +1957,9 @@ def tile_background_calls(w, h, tile_h, tile_w, device):
 
 def hold_at_tile(name, call, tile, check: bool) -> dict:
     """Kernel `name` on one call at the tile: bit for bit against its plain
-    version (when check), its device ms (utils/timing.device_ms) and its
-    bound from these inputs."""
+    version on the same call (when check; plain_s, the seconds that took),
+    its device ms (utils/timing.device_ms) and its bound from these
+    inputs."""
     import torch
 
     from tpu_renderer_torch.utils.timing import device_ms
@@ -1946,31 +1969,91 @@ def hold_at_tile(name, call, tile, check: bool) -> dict:
     if name in BACKGROUND_KERNELS:
         kwargs = dict(kwargs, tile_h=tile[0], tile_w=tile[1])
     out = kernel(*args, **kwargs)
-    err = None
+    err = plain_s = None
     if check:
+        t0 = time.perf_counter()
         want = plain(*args, **kwargs)
         torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         err = max_abs_err(out, want)
     bound_ms, bound_by = (background_bound(name, args, out) if name in BACKGROUND_KERNELS
                           else bound(name, args, kwargs, out))
-    return dict(max_abs_err=err, device_ms=device_ms(lambda: kernel(*args, **kwargs)),
+    return dict(max_abs_err=err, plain_s=plain_s,
+                device_ms=device_ms(lambda: kernel(*args, **kwargs)),
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def build_new_tiles() -> dict:
+    """Each new tile's library, all built at once (one thread a tile, one
+    nvcc a source): tile -> nvcc seconds (None: found built)."""
+    import concurrent.futures
+
+    from tpu_renderer_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(NEW_TILES)) as ex:
+        futures = {t: ex.submit(_build.build_tile, *t) for t in NEW_TILES}
+        seconds = {t: f.result()[1] for t, f in futures.items()}
+    for t, secs in seconds.items():
+        print(f"[build] tile {t[0]}x{t[1]}: "
+              + ("cached library reused" if secs is None else f"nvcc {secs:.2f} s"), flush=True)
+    print(f"[build] the {len(NEW_TILES)} new tiles' libraries in "
+          f"{time.perf_counter() - t0:.2f} s (built at once)", flush=True)
+    return seconds
+
+
+def refused_tiles() -> list:
+    """Each of REFUSED_TILES raises before anything runs: the wrapper
+    ValueError naming the rule or the bytes, the Engine NotImplementedError
+    naming ROADMAP Queue 1 item 17; no launch, no library built."""
+    import torch
+
+    from tpu_renderer_torch.config import RendererConfig
+    from tpu_renderer_torch.engine import Engine
+    from tpu_renderer_torch.kernels import _build, raster
+
+    out = []
+    dev = torch.device("cuda")
+    rows = torch.zeros((raster.CHUNK, raster.ROW_COLS), dtype=torch.float32, device=dev)
+    bins = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    counts = torch.zeros((1,), dtype=torch.int32, device=dev)
+    for tile in REFUSED_TILES:
+        reset_counters()
+        why = raster.tile_rule(*tile)
+        assert why is not None, tile
+        try:
+            raster.rasterize_fused(rows, bins, counts, tiles_x=1, tiles_y=1,
+                                   tile_h=tile[0], tile_w=tile[1])
+            raise AssertionError(f"tile {tile} launched")
+        except ValueError as e:
+            wrapper = str(e)
+        try:
+            Engine(RendererConfig(tile_h=tile[0], tile_w=tile[1]))
+            raise AssertionError(f"the Engine took tile {tile}")
+        except NotImplementedError as e:
+            engine = str(e)
+        assert why in wrapper and "Queue 1 item 17" in engine, (wrapper, engine)
+        assert not any(read_counters().values()) and tile not in _build._tile_libs
+        print(f"[tile] {tile[0]}x{tile[1]} refused before any build or launch: {wrapper}; "
+              f"Engine: {engine}", flush=True)
+        out.append(dict(tile=f"{tile[0]}x{tile[1]}", refused=why))
+    return out
 
 
 def tile_phase(scene_path, lines):
     """Phase 17: RendererConfig(tile_h, tile_w) at every tile of
-    raster.TILES, the default first. For each tile, on the bench,
-    textured-glass and deferred frames at 1920x1080: each kernel the frame
-    runs (2.1-2.5) and the oracles on inputs made from them (2.6-2.8)
-    against its plain version on that tile's inputs, bit for bit (at the
-    default tile phases 3-11 hold them; here they are timed only), with its
-    device ms and bound; then the path's graphed frames counted
-    (counted_frames: counters to 0, a draw, the timed frames, counters
-    read; the path's kernels must launch), each image byte for byte the
-    default tile's; the background kernels 2.9-2.11 against their plain
-    versions at 1920x1080 and 1700x900 padded to that tile's whole tiles
-    (1728 wide at 64-pixel tiles: a half row segment). Appends a line a
-    tile to `lines`."""
+    raster.TILES, the default first, then at NEW_TILES (their libraries
+    built first, at once). For each tile, on the bench, textured-glass and
+    deferred frames at 1920x1080: each kernel the frame runs (2.1-2.5) and
+    the oracles on inputs made from them (2.6-2.8), timed on those inputs
+    with its bound, and held to its plain version bit for bit on the same
+    inputs (at the default tile phases 3-11 hold them); then the path's
+    graphed frames counted (counted_frames: counters to 0, a draw, the
+    timed frames, counters read; the path's kernels must launch), each
+    image byte for byte the default tile's; the background kernels
+    2.9-2.11 against their plain versions at 1920x1080 and 1700x900 padded
+    to that tile's whole tiles (1728 wide at 64-pixel tiles: a half row
+    segment). Then REFUSED_TILES. Appends a line a tile to `lines`."""
     import gc
 
     import torch
@@ -1978,28 +2061,38 @@ def tile_phase(scene_path, lines):
     from tpu_renderer_torch.kernels import raster
 
     default = (raster.TILE_H, raster.TILE_W)
+    built = build_new_tiles()
     images = {}
-    for tile in [default] + [t for t in raster.TILES if t != default]:
+    for tile in [default] + [t for t in raster.TILES if t != default] + list(NEW_TILES):
         t0 = time.perf_counter()
         label = f"{tile[0]}x{tile[1]}"
         check = tile != default
-        entry = dict(tile=label, frame_ms={}, launches={}, kernels={})
+        warps, passes = raster.tile_blocks(*tile)
+        entry = dict(tile=label, warps=warps, passes=passes,
+                     smem_bytes=max(raster.tile_smem(*tile).values()),
+                     nvcc_s=built.get(tile), frame_ms={}, launches={}, kernels={})
+        plain_s = frames_s = 0.0
         for path, names in TILE_PATHS.items():
             eng = mesh_engine(path, scene_path, tile_h=tile[0], tile_w=tile[1])
             if path == "deferred":
                 eng.draw()          # escalates the caps (a capture a step)
             for name, call in tile_calls(eng, path).items():
                 r = entry["kernels"][name] = hold_at_tile(name, call, tile, check)
+                plain_s += r["plain_s"] or 0.0
                 bins, counts = call[0][1], call[0][2]
                 print(f"[tile] {label} {name} ({path} frame): bins {tuple(bins.shape)}, "
                       f"entries {int(counts.clamp(max=bins.shape[1]).sum())}, max/tile "
                       f"{int(counts.max())}; "
-                      + ("exact vs plain (max_abs_err {})".format(r["max_abs_err"]) if check
+                      + (f"exact vs plain (max_abs_err {r['max_abs_err']}; plain "
+                         f"{r['plain_s']:.1f} s)" if check
                          else "held to its plain version in phases 3-11")
                       + f"; device {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
                       f"{r['bound_by']}", flush=True)
-            n = 2 * TILE_FRAMES if tile == default else TILE_FRAMES
+            n = (2 * TILE_FRAMES if tile == default
+                 else OLD_TILE_FRAMES if tile in raster.TILES else TILE_FRAMES)
+            t = time.perf_counter()
             ms, image, layers, _, launches = counted_frames(eng, n, f"{path} at {label}", names)
+            frames_s += time.perf_counter() - t
             if tile == default:
                 images[path] = image
             assert np.array_equal(image, images[path]), \
@@ -2019,11 +2112,22 @@ def tile_phase(scene_path, lines):
                       f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
                 if (w, h) == TILE_BACKGROUND_EXTENTS[0]:
                     entry["kernels"][name] = r
-        print(f"[tile] {label}: the bench, textured-glass and deferred frames equal the "
-              f"{default[0]}x{default[1]} frames byte for byte; graphed frame ms (median) "
-              + ", ".join(f"{p} {v:.3f}" for p, v in entry["frame_ms"].items())
-              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+        smem = raster.block_smem(*tile)
+        assert smem == raster.tile_smem(*tile), (label, smem, raster.tile_smem(*tile))
+        if passes > 1:
+            entry["clusters"] = raster.max_clusters(*tile)
+        entry["seconds"] = time.perf_counter() - t0
+        print(f"[tile] {label} ({warps} warps a block, {passes} pass(es), "
+              f"{entry['smem_bytes']} B of shared memory a block at most, each kernel's as "
+              f"the compiler laid it out"
+              + (f", clusters of 8 that fit at once {entry['clusters']}" if passes > 1 else "")
+              + f"): the bench, textured-glass and deferred frames equal the "
+              f"{default[0]}x{default[1]} frames byte for byte; graphed frame ms (median of "
+              f"{n}) " + ", ".join(f"{p} {v:.3f}" for p, v in entry["frame_ms"].items())
+              + f"; {entry['seconds']:.1f} s (2.1-2.8's plain versions {plain_s:.1f} s, the "
+              f"graphed frames {frames_s:.1f} s)", flush=True)
         lines.append(entry)
+    lines.extend(refused_tiles())
 
 
 def main() -> int:
@@ -2065,12 +2169,18 @@ def main() -> int:
     phase(textured_glass_path, scene_path, results, inputs)
     phase(deferred_path, scene_path, results, inputs)
     phase(past_the_guard, inputs)
-    phase(split_phase, inputs)
+    # phase 17, whose plain versions loop longest, before the first
+    # torch.profiler session (phase 5b's, moved after phase 11): after one,
+    # the process's eager launches are slower, and phase 17's plain versions
+    # took 39% longer run last
+    tile_lines = []
+    phase(tile_phase, scene_path, tile_lines)
     phase(structure_goldens)
     phase(background_phase, results)
     phase(cli_phase, results)
     phase(scale_and_pipeline_phase, scene_path)
     phase(gathered_phase, results, inputs)
+    phase(split_phase, inputs)
     del inputs
     phase(profile_tool_phase, results)
     phase(bench_phase)
@@ -2078,8 +2188,6 @@ def main() -> int:
     phase(multichip_phase, scene_path, multichip_lines)
     phase(surface_phase, scene_path)
     phase(graphed_phase, scene_path)
-    tile_lines = []
-    phase(tile_phase, scene_path, tile_lines)
     print(f"[smoke] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"multichip": multichip_lines}))

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_renderer_torch.kernels import background, raster, vertex
+from tpu_renderer_torch.kernels import _build, background, raster, vertex
 
 pytestmark = pytest.mark.cuda
 
@@ -149,9 +149,9 @@ def test_wrapper_rejects_bad_tensors_on_card(cuda):
     rows, bins, counts = _rows(cuda)
     with pytest.raises(ValueError):
         raster.rasterize_fused(rows, bins, counts.cpu(), **TILES)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="whole 32x8 warp regions"):
         raster.rasterize_fused(rows, bins, counts, tiles_x=1, tiles_y=4,
-                               tile_w=256, tile_h=16)
+                               tile_w=48, tile_h=16)
     # CHUNK and GROUP are compile-time constants of the kernels
     with pytest.raises(ValueError, match="chunk"):
         raster.rasterize_fused(rows, bins, counts, chunk=8, group=8, **TILES)
@@ -723,8 +723,8 @@ def test_background_launchers_refuse_malformed_arguments(cuda):
             background.background_sky_kernel(ok, **bad)
         with pytest.raises(ValueError, match="whole"):
             background.grid_gradient(width=200, device=cuda, **bad)
-    with pytest.raises(ValueError, match="tiles"):             # the kernels' own tile
-        background.gradient(ok, ok, tile_h=16, tile_w=256, **ext)
+    with pytest.raises(ValueError, match="whole 32x8 warp regions"):   # the raster's rule
+        background.gradient(ok, ok, tile_h=12, tile_w=128, **ext)
     with pytest.raises(ValueError, match="CUDA"):
         background.background_gradient_kernel(torch.ones(4), torch.ones(4), **ext)
     assert before == (background.gradient_counter.launches, background.sky_counter.launches,
@@ -1127,20 +1127,28 @@ def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
         assert eng.draw().shape == (H, W, 4)
 
 
-# -- every tile of the kernels' set (raster.TILES) ----------------------------
+# -- every tile of the kernels' set (raster.TILES), and tiles past it --------
+
+# tiles raster.tile_rule takes outside the shipped set, each built into a
+# library of its own at its first launch: a warp a block (8x32), two, and
+# tiles walked in 2 and 4 passes of 16 warps (64x128, 32x256, 128x128)
+NEW_TILES = ((8, 32), (16, 32), (64, 128), (8, 256), (32, 256), (128, 128))
 
 
 def _tiles(tile_h, tile_w):
-    return dict(tiles_x=W // tile_w, tiles_y=H // tile_h, tile_w=tile_w, tile_h=tile_h)
+    """The grid of whole tiles over W x H padded to the tile."""
+    return dict(tiles_x=-(-W // tile_w), tiles_y=-(-H // tile_h), tile_w=tile_w,
+                tile_h=tile_h)
 
 
-@pytest.mark.parametrize("tile_h,tile_w", raster.TILES)
-def test_raster_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
-    """Kernels 2.1-2.8 at each tile of the set against their plain
-    versions, bit for bit, on random triangles binned at that tile: 2.1 and
-    2.2 on sorted rows, 2.3 and 2.5 over two peels (`last` fed back), 2.4
-    on refined bins, 2.6-2.8 over per-triangle bins of the same rows."""
+def _kernels_match_plain(cuda, tile_h, tile_w):
+    """Kernels 2.1-2.8 at the tile against their plain versions, bit for
+    bit, on random triangles over W x H binned at that tile (the frame
+    padded to whole tiles): 2.1 and 2.2 on sorted rows, 2.3 and 2.5 over two
+    peels (`last` fed back), 2.4 on refined bins, 2.6-2.8 over per-triangle
+    bins of the same rows."""
     tiles = _tiles(tile_h, tile_w)
+    hp, wp = tiles["tiles_y"] * tile_h, tiles["tiles_x"] * tile_w
     rows, aabb, valid = vertex.triangle_setup_rows(
         _corners(cuda, 192, 7), *_setup_args(cuda, 192),
         sun_dir=torch.tensor(SUN, device=cuda))
@@ -1159,7 +1167,7 @@ def test_raster_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
     light = torch.tensor(LIGHT, device=cuda)
     z = raster.raster_fused_kernel(rows, *dense, **tiles)[0].clone()
     z[:, 128:] = 0.0
-    last = torch.full((H, W), -1, dtype=torch.int32, device=cuda)
+    last = torch.full((hp, wp), -1, dtype=torch.int32, device=cuda)
     calls = [("raster_fused_kernel", "rasterize_fused_plain", (rows, *dense)),
              ("raster_accum_kernel", "rasterize_accum_plain", (rows, *dense, z, light)),
              ("raster_deferred_kernel", "rasterize_plain", (setup.packed, pbins, pcounts)),
@@ -1190,6 +1198,82 @@ def test_raster_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
 
 
 @pytest.mark.parametrize("tile_h,tile_w", raster.TILES)
+def test_raster_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
+    """Kernels 2.1-2.8 at each tile of the set against their plain
+    versions (_kernels_match_plain)."""
+    _kernels_match_plain(cuda, tile_h, tile_w)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", NEW_TILES)
+def test_raster_kernels_match_plain_at_every_new_tile(cuda, tile_h, tile_w):
+    """Kernels 2.1-2.8 at each new tile, from the library built for it,
+    against their plain versions (_kernels_match_plain); the clusters of a
+    tile walked in passes were checked to fit before their first launch."""
+    _kernels_match_plain(cuda, tile_h, tile_w)
+    clusters = raster.max_clusters(tile_h, tile_w)
+    if raster.tile_blocks(tile_h, tile_w)[1] > 1:
+        assert all(n >= 1 for n in clusters.values()), clusters
+
+
+# tiles walked in 2 and 4 passes of 16 warps, whose triangle kernels
+# (2.4-2.6, 2.8) stage a segment's entries 512 (a block's threads) a batch
+PASSES_TILES = ((64, 128), (128, 128))
+
+
+@pytest.mark.parametrize("tile_h,tile_w", PASSES_TILES)
+def test_triangle_kernels_restage_every_segment_at_a_tile_of_passes(cuda, tile_h, tile_w):
+    """One tile of more than VIS_SPLIT x 512 per-triangle entries
+    (utils/hazards.py's rows, 160 chunks), so that every segment of the
+    cluster stages its entries in more than one batch in every pass: 2.4
+    and 2.6 (vis_tile_passes) and, over two peels with `last` fed back,
+    2.5 and 2.8 (peel_tile_passes) bit-exact against their plain
+    versions."""
+    from tpu_renderer_torch.utils import hazards
+
+    n_chunks = 160
+    tiles = dict(tiles_x=1, tiles_y=1, tile_w=tile_w, tile_h=tile_h)
+    warps, passes = raster.tile_blocks(tile_h, tile_w)
+    batch = 32 * warps
+    assert passes > 1
+    rows = hazards.hazard_vis_rows(n_chunks, tile_w, tile_h, seed=n_chunks)
+    box, valid = (torch.from_numpy(a).to(cuda) for a in hazards.hazard_boxes(rows))
+    bins, counts, _ = raster.bin_triangles(box, valid, bin_cap=rows.shape[0], **tiles)
+    assert int(counts[0]) // raster.VIS_SPLIT > batch
+    assert int(raster.vis_segments(counts, bins.shape[1])[0]) == raster.VIS_SPLIT
+    for kind in VIS_KINDS:
+        kernel, plain, _ = _vis(kind)
+        table = _vis_table(cuda, kind, rows)
+        got, want = kernel(table, bins, counts, **tiles), plain(table, bins, counts, **tiles)
+        torch.cuda.synchronize()
+        assert all(_same(g, w) for g, w in zip(got, want)), (kind, tile_h, tile_w)
+        assert int((got[1] >= 0).sum()) > 0
+    for kind, kernel, plain in (
+            ("deferred", raster.raster_peel_kernel, raster.rasterize_peel_plain),
+            ("gathered", raster.raster_peel_gathered_kernel,
+             raster.rasterize_peel_gathered_plain)):
+        table, bins, counts, z_base = _peel_hazards(cuda, kind, n_chunks, tiles, seed=n_chunks)
+        assert int(counts[0]) // raster.PEEL_SPLIT > batch, (kind, int(counts[0]))
+        last = torch.full(z_base.shape, -1, dtype=torch.int32, device=cuda)
+        for peel in range(2):
+            got = kernel(table, bins, counts, z_base, last, **tiles)
+            want = plain(table, bins, counts, z_base, last, **tiles)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(_same(g, w) for g, w in zip(got, want)), (kind, peel, tile_h, tile_w)
+            assert int((got[0] < raster.ID_INF).sum()) > 0, (kind, peel)
+            last = torch.where(got[0] < raster.ID_INF, got[0], raster.ID_INF)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", raster.TILES + NEW_TILES)
+def test_block_shared_memory_is_what_the_rule_counts(cuda, tile_h, tile_w):
+    """The shared memory a block of each kernel 2.1-2.8 takes at the tile,
+    as the compiler laid its instance out (raster.block_smem), equals
+    raster.tile_smem, the model tile_rule reads before any build."""
+    assert raster.block_smem(tile_h, tile_w) == raster.tile_smem(tile_h, tile_w)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", raster.TILES + NEW_TILES)
 def test_background_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
     """Kernels 2.9-2.11 at each tile's padded extent: 1700x900 pads to
     1728 at 64-pixel tiles, an odd multiple of 64 (a half row segment)."""
@@ -1212,24 +1296,30 @@ def test_background_kernels_match_plain_at_every_tile(cuda, tile_h, tile_w):
 
 
 def test_a_tile_outside_the_set_raises_on_the_card(cuda):
-    """No kernel takes a tile outside raster.TILES, and none falls back to
-    its plain version: the wrappers raise, naming the set."""
+    """No kernel takes a tile outside raster.tile_rule, and none falls back
+    to its plain version or another tile: the wrappers raise, naming the
+    rule (off the 32x8 regions) or the bytes (past the shared memory a
+    block can opt into), before any build or launch."""
     rows, bins, counts = _rows(cuda)
-    before = raster.fused_counter.launches
-    with pytest.raises(ValueError, match="8x64, 8x128"):
-        raster.rasterize_fused(rows, bins[:1], counts[:1], tiles_x=1, tiles_y=1,
-                               tile_w=256, tile_h=64)
+    before = (raster.fused_counter.launches, background.gradient_counter.launches)
     ok = torch.ones(4, device=cuda)
-    with pytest.raises(ValueError, match="8x64, 8x128"):
-        background.gradient(ok, ok, height=64, width_pad=256, height_pad=64, tile_h=64,
-                            tile_w=256)
-    assert raster.fused_counter.launches == before
+    for tile_h, tile_w, match in ((12, 128, "whole 32x8 warp regions"),
+                                  (128, 256, "290,816 bytes of shared memory")):
+        with pytest.raises(ValueError, match=match):
+            raster.rasterize_fused(rows, bins[:1], counts[:1], tiles_x=1, tiles_y=1,
+                                   tile_w=tile_w, tile_h=tile_h)
+        with pytest.raises(ValueError, match=match):
+            background.gradient(ok, ok, height=64, width_pad=256, height_pad=tile_h * 2,
+                                tile_h=tile_h, tile_w=tile_w)
+        assert (tile_h, tile_w) not in _build._tile_libs
+    assert (raster.fused_counter.launches, background.gradient_counter.launches) == before
 
 
 @pytest.mark.parametrize("kind", ["bench", "textured-glass", "deferred"])
 def test_graphed_frames_at_every_tile_equal_the_default_tile(cuda, tmp_path, kind):
     """Engine(RendererConfig(tile_h, tile_w)) on the card, graphed, at each
-    tile of the set: the frame equals the 32x128 frame byte for byte, and
+    tile of the set and each new tile (NEW_TILES, built at its first frame,
+    before the capture): the frame equals the 32x128 frame byte for byte, and
     the path's kernels launched."""
     from tpu_renderer_torch.config import RendererConfig
     from tpu_renderer_torch.engine import Engine
@@ -1242,7 +1332,7 @@ def test_graphed_frames_at_every_tile_equal_the_default_tile(cuda, tmp_path, kin
     counter = {"bench": raster.accum_counter, "textured-glass": raster.peel_fused_counter,
                "deferred": raster.peel_counter}[kind]
     frames = {}
-    for tile_h, tile_w in raster.TILES:
+    for tile_h, tile_w in raster.TILES + NEW_TILES:
         eng = Engine(RendererConfig(width=333, height=222, tile_h=tile_h, tile_w=tile_w,
                                     camera_position=(0.0, 6.0, 8.0),
                                     dense_bin_max_chunks=1 if kind == "deferred" else 8192),

@@ -141,7 +141,7 @@ def test_structure_480p_golden(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("raster_nbuf", 2), ("raster_group", 4),
-    ("tile_w", 256), ("raster_chunk", 8),
+    ("tile_w", 48), ("raster_chunk", 8),
     ("raster_sort", "morton")])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

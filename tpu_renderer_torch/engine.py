@@ -30,8 +30,10 @@ The CPU, a mesh and pipeline.eager() (utils.profiling.debug_mode) draw op by
 op.
 
 What the port does not take raises NotImplementedError naming the
-ROADMAP.md item: a tile outside raster.TILES (the kernels' set), and the
-chunk, ring-depth and sort knobs.
+ROADMAP.md item: a tile outside raster.tile_rule (not whole 32x8 warp
+regions, or past the shared memory an H100 block can opt into; a tile
+the rule takes outside raster.TILES builds its kernels at its first
+frame), and the chunk, ring-depth and sort knobs.
 """
 
 from __future__ import annotations
@@ -82,10 +84,10 @@ def _not_ported(what: str, item: str):
 def _check_config(cfg: RendererConfig) -> None:
     """Raise on every config value the port does not implement."""
     default = RendererConfig()
-    if (cfg.tile_h, cfg.tile_w) not in raster.TILES:
-        tiles = ", ".join(f"{h}x{w}" for h, w in raster.TILES)
-        raise _not_ported(f"tile {cfg.tile_h}x{cfg.tile_w} (the kernels are built for "
-                          f"{tiles})", "Queue 1 item 17 (the tile set and why)")
+    why = raster.tile_rule(cfg.tile_h, cfg.tile_w)
+    if why is not None:
+        raise _not_ported(f"tile {cfg.tile_h}x{cfg.tile_w} ({why})",
+                          "Queue 1 item 17 (the tile rule)")
     if (cfg.raster_chunk, cfg.raster_group) != (raster.CHUNK, raster.GROUP):
         raise _not_ported(f"raster_chunk={cfg.raster_chunk}, raster_group="
                           f"{cfg.raster_group} (the TPU kernels' schedule; the port "

@@ -15,7 +15,7 @@ included (rows run to height_pad and divide by the unpadded height), the
 padded extent whole tile_h x tile_w raster tiles. On a CPU tensor (or
 device="cpu") the public function checks its arguments and runs the plain
 version, at any tile; on CUDA it hands them to the kernel's launcher, which
-checks every argument once (the tile one of raster.TILES), launches
+checks every argument once (the tile one raster.tile_rule takes), launches
 through the library's entry point (looked up once), and raises if it
 cannot; inside utils.profiling.debug_mode its output is checked for NaN.
 

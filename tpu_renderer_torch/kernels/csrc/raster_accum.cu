@@ -42,10 +42,15 @@ namespace {
 using namespace tr;
 
 // T::REGIONS_X blocks a tile, one a 32-column strip (4 at 32x128 tiles),
-// each a warp a 32x8 region of its strip (128 threads at 32x128).
+// each a warp a 32x8 region of its strip (128 threads at 32x128). A strip
+// of more than MAX_WARPS regions (tile_h above 128) is walked in PASSES
+// passes of WARPS regions, as Tile's are.
 template <class T>
 struct Strip {
-  static constexpr int THREADS = (T::H / REGION_H) * 32;
+  static constexpr int ROWS = T::H / REGION_H;   // regions down a strip
+  static constexpr int WARPS = largest_divisor(ROWS, MAX_WARPS);
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int PASSES = ROWS / WARPS;
 };
 
 template <class T>
@@ -62,23 +67,33 @@ raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   const int ty = tile / tiles_x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int py0 = ty * T::H + warp * REGION_H;
-  const Region region(tx * T::W + strip * REGION_W, py0);
-  AccumPixels<false> s;   // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
-  s.load(z_base, light, tx * T::W + strip * REGION_W + lane, py0, wp);
-
   // bins and counts come from the caller: never walk past the bin row
   // or read a chunk that is not there
   const int n = max(0, min(counts[tile], bin_width));
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-  walk_entries<Strip<T>::THREADS>(rows, tbins, 0, n, n_chunks, ring,
-                          [&](const float* slot, int, int gmask) {
-    s.add_slice(slot, (gmask >> (lane / GROUP)) & 1, region);
-  });
-  s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp, wp);
+  for (int pass = 0; pass < Strip<T>::PASSES; ++pass) {
+    const int py0 = ty * T::H + (pass * Strip<T>::WARPS + warp) * REGION_H;
+    const Region region(tx * T::W + strip * REGION_W, py0);
+    AccumPixels<false> s;   // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
+    s.load(z_base, light, tx * T::W + strip * REGION_W + lane, py0, wp);
+    walk_entries<Strip<T>::THREADS>(rows, tbins, 0, n, n_chunks, ring,
+                            [&](const float* slot, int, int gmask) {
+      s.add_slice(slot, (gmask >> (lane / GROUP)) & 1, region);
+    });
+    s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp, wp);
+  }
 }
 
 }  // namespace
+
+// Kernel 2.2 at the tile: the shared memory a block takes into *bytes
+// (block_smem; raster_fused_setup says who runs it).
+extern "C" int raster_accum_setup(int tile_h, int tile_w, int* bytes) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    return block_smem(raster_accum_kernel<T>, 0, bytes);
+  });
+}
 
 extern "C" int raster_accum_launch(const float* rows, const int* bins,
                                    const int* counts, int bin_width, int n_chunks,

@@ -13,6 +13,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace tr {
 
 constexpr int ROW_COLS = 48;                           // fat-row width
@@ -30,34 +32,154 @@ constexpr int N_METAS = 15;         // constant planes (META_COLS)
 constexpr int REGION_W = 32;        // a warp's pixels: 32 columns
 constexpr int REGION_H = 8;         //   x 8 rows, one column a lane
 
+// A block's warps at most: 512 threads, which __launch_bounds__(T::THREADS,
+// 2) holds to 64 registers a thread.
+constexpr int MAX_WARPS = 16;
+
+// The largest divisor of n that is at most cap.
+constexpr int largest_divisor(int n, int cap) {
+  int d = cap < n ? cap : n;
+  while (n % d != 0) --d;
+  return d;
+}
+
 // The raster tile, H x W pixels: whole 32x8 warp regions. Every raster
-// kernel is a template on it, its blocks a warp a region (THREADS), and
-// the library holds each kernel at every tile of with_tile's set.
+// kernel is a template on it. A block is WARPS warps, a warp a region at a
+// time. A tile of at most MAX_WARPS regions (4,096 pixels: every tile of
+// kernels/raster.py TILES) is one pass, a warp its region: each kernel's
+// one-pass form, the code the shipped tiles were built with. A larger one
+// is walked in PASSES passes of WARPS regions (region q = pass * WARPS +
+// warp, WARPS the largest divisor of the regions up to MAX_WARPS, so that
+// every pass is whole) by each kernel's *_passes form: each pass walks the
+// tile's entries again, so a thread holds one region's pixels at a time,
+// and the tile's merge buffer lives in dynamic shared memory beside the
+// walk's buffer (past the 48 KB of static shared memory).
 template <int TH, int TW>
 struct Tile {
   static constexpr int H = TH;
   static constexpr int W = TW;
   static constexpr int PIX = H * W;
   static constexpr int REGIONS_X = W / REGION_W;   // regions across a tile
-  static constexpr int THREADS = REGIONS_X * (H / REGION_H) * 32;
+  static constexpr int REGIONS = REGIONS_X * (H / REGION_H);
+  static constexpr int WARPS = largest_divisor(REGIONS, MAX_WARPS);
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int PASSES = REGIONS / WARPS;
   static_assert(W % REGION_W == 0 && H % REGION_H == 0, "regions tile a tile");
 };
 
-// launch(Tile<H, W>{}) for the tile tile_h x tile_w, one of the set the
-// library is built for (kernels/raster.py TILES); cudaErrorInvalidValue
-// for any other. Another tile of whole regions and at most 4,096 pixels is
-// one more line here; a larger one would need blocks above 512 threads
-// (__launch_bounds__(T::THREADS, 2)) and, for 2.1, 2.4 and 2.6, more than
-// the 48 KB of static shared memory a block has without opt-in.
+// Region q of a tile: its first column and row in the tile.
+template <class T>
+__device__ __forceinline__ int region_x0(int q) {
+  return (q % T::REGIONS_X) * REGION_W;
+}
+template <class T>
+__device__ __forceinline__ int region_y0(int q) {
+  return (q / T::REGIONS_X) * REGION_H;
+}
+
+// Pixel j * T::THREADS + threadIdx.x of block `rank`'s 1/split of a
+// tile's pixels (pixel (r, c) at r * T::W + c): the pixels a block merges
+// and stores after the walk, T::PASSES a thread.
+template <class T, int SPLIT>
+__device__ __forceinline__ int merged_pixel(int rank, int j) {
+  static_assert(T::PIX == SPLIT * T::THREADS * T::PASSES, "PASSES pixels a thread");
+  return rank * (T::PIX / SPLIT) + j * T::THREADS + static_cast<int>(threadIdx.x);
+}
+
+// launch(Tile<H, W>{}) for the tile tile_h x tile_w; cudaErrorInvalidValue
+// for any other. The main library holds every tile of kernels/raster.py
+// TILES; a library built for one tile (kernels/_build.py build_tile, with
+// -DTR_TILE_H and -DTR_TILE_W) holds that tile alone. Which tiles may be
+// built is raster.tile_rule's question: the shared memory of every block
+// within the 227 KB an H100 block can opt into. Whether its clusters can be
+// scheduled is the card's: each kernel's raster_*_setup runs prepare_launch
+// when a tile's library is loaded, before any launch.
 template <typename Launch>
 int with_tile(int tile_h, int tile_w, Launch&& launch) {
+#if defined(TR_TILE_H) && defined(TR_TILE_W)
+  if (tile_h == TR_TILE_H && tile_w == TR_TILE_W) return launch(Tile<TR_TILE_H, TR_TILE_W>{});
+#else
   if (tile_h == 32 && tile_w == 128) return launch(Tile<32, 128>{});
   if (tile_h == 32 && tile_w == 64) return launch(Tile<32, 64>{});
   if (tile_h == 16 && tile_w == 128) return launch(Tile<16, 128>{});
   if (tile_h == 16 && tile_w == 64) return launch(Tile<16, 64>{});
   if (tile_h == 8 && tile_w == 128) return launch(Tile<8, 128>{});
   if (tile_h == 8 && tile_w == 64) return launch(Tile<8, 64>{});
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Shared memory a block has without opting in.
+constexpr int STATIC_SMEM_BYTES = 48 * 1024;
+
+// The dynamic shared memory of a block of a *_passes kernel, which its
+// launch sizes: the kernel's buffers side by side, 16-B aligned.
+__device__ __forceinline__ float* dynamic_smem() {
+  extern __shared__ __align__(16) float tr_dynamic_smem[];
+  return tr_dynamic_smem;
+}
+
+// The devices a *_passes kernel instance was set up on, a bit a device
+// (prepare_launch).
+struct Prepared {
+  std::atomic<unsigned long long> devices{0};
+};
+
+// cudaOccupancyMaxActiveClusters of this library's *_passes instance of
+// kernel 2.k (slot k) as prepare_launch last found it; 0 where none was
+// set up (a tile of one pass, or no setup yet). raster_max_clusters
+// reads it.
+inline std::atomic<int> max_clusters[9];
+
+// Set up a *_passes kernel instance, once a device, for blocks of
+// `threads` threads with `bytes` of dynamic shared memory in clusters of
+// `cluster`: the opt-in to `bytes` where that is above the 48 KB a block
+// has without it, then cudaOccupancyMaxActiveClusters, which must find
+// room for a cluster (cudaErrorInvalidConfiguration where it finds none:
+// nothing launches), kept in max_clusters[slot]. Returns the CUDA error.
+template <typename Kernel>
+int prepare_launch(Prepared& ready, Kernel kernel, int threads, int bytes, int cluster,
+                   int slot) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = 1ull << (dev % 64);
+  if (ready.devices.load() & bit) return 0;
+  if (bytes > STATIC_SMEM_BYTES) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  max_clusters[slot].store(clusters);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  ready.devices.fetch_or(bit);
+  return 0;
+}
+
+// The shared memory a block of `kernel` takes, into *bytes: its static
+// shared memory as the compiler laid it out (cudaFuncGetAttributes) and
+// `dynamic`. Each kernel's raster_*_setup entry reports it, which
+// kernels/raster.py's tile_smem must equal. Returns the CUDA error.
+template <typename Kernel>
+int block_smem(Kernel kernel, int dynamic, int* bytes) {
+  cudaFuncAttributes attr = {};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *bytes = static_cast<int>(attr.sharedSizeBytes) + dynamic;
+  return 0;
 }
 
 __device__ __forceinline__ float plane(float a, float b, float c, float x,
@@ -530,6 +652,37 @@ __device__ __forceinline__ int merge_min(cooperative_groups::cluster_group& clus
   return best;
 }
 
+// merge_min for a tile of several passes, in two steps. park_best, after
+// each pass: a block that walked a segment puts its best ids of region
+// (rx0, ry0) in buf, as merge_min does the tile's. merge_min_passes, after
+// the last pass: each block takes the min over the segments for its
+// 1/PEEL_SPLIT of the tile's pixels, T::PASSES a thread (merged_pixel);
+// best[j] is pixel merged_pixel(rank, j)'s. No block leaves while another
+// may read its buf.
+template <class T, bool NONNEG_Z>
+__device__ __forceinline__ void park_best(int* buf, const PeelPixels<NONNEG_Z>& s, int rx0,
+                                          int ry0, int rank, int segs) {
+  if (rank < segs) {
+    const int lane = static_cast<int>(threadIdx.x) % 32;
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) buf[(ry0 + i) * T::W + rx0 + lane] = s.best[i];
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void merge_min_passes(cooperative_groups::cluster_group& cluster,
+                                                 int* buf, int rank, int segs,
+                                                 int (&best)[T::PASSES]) {
+  cluster.sync();
+#pragma unroll
+  for (int j = 0; j < T::PASSES; ++j) {
+    const int p = merged_pixel<T, PEEL_SPLIT>(rank, j);
+    best[j] = ID_INF;
+    for (int q = 0; q < segs; ++q) best[j] = min(best[j], cluster.map_shared_rank(buf, q)[p]);
+  }
+  cluster.sync();
+}
+
 // The epilogue of the peels 2.3 and 2.8 at pixel (row, col): the layer id
 // (ID_INF: none) and its triangle's planes (store_winner; zeros where
 // there is none).
@@ -717,11 +870,145 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
   if (threadIdx.x < VIS_PIX) store(ty * T::H + p / T::W, tx * T::W + p % T::W, zw, tw);
 }
 
+// vis_tile_passes' dynamic shared memory, in floats: a batch's plane
+// coefficients, the tile's (z, tid) for the fold (kept from pass to pass),
+// then the batch's ids.
+template <class T>
+struct VisSmem {
+  static constexpr int BATCH = T::THREADS * COEF_STRIDE;
+  static constexpr int FOLD = 2 * T::PIX;
+  static constexpr int BYTES = (BATCH + FOLD + T::THREADS) * 4;
+};
+
+// vis_tile for a tile of several passes: each pass's warps walk their
+// regions over the block's segment (vis_walk), and park their (z, tid) in
+// the fold buffer; after the last pass the fold and the stores run for
+// the block's 1/VIS_SPLIT of the tile's pixels, T::PASSES a thread.
+template <class T, int ROW_STRIDE, typename Store>
+__device__ __forceinline__ void vis_tile_passes(const float* __restrict__ table, int n_tris,
+                                                const int* __restrict__ bins,
+                                                const int* __restrict__ counts, int bin_width,
+                                                int tiles_x, Store&& store) {
+  using S = VisSmem<T>;
+  static_assert(T::PASSES > 1, "a tile of one pass takes vis_tile");
+  float* scoef = dynamic_smem();
+  float* zs = scoef + S::BATCH;
+  int* ts = reinterpret_cast<int*>(zs + T::PIX);
+  int* sid = reinterpret_cast<int*>(zs + S::FOLD);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / VIS_SPLIT;
+  const int tx = tile % tiles_x;
+  const int ty = tile / tiles_x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // bins and counts come from the caller: never walk past the bin row
+  const int n = max(0, min(counts[tile], bin_width));
+  int e0, e1;
+  const int segs = tile_segment(n, VIS_SPLIT, VIS_SEG_MIN, rank, &e0, &e1);
+  if (segs == 1 && rank > 0) return;
+
+  for (int pass = 0; pass < T::PASSES; ++pass) {
+    const int q = pass * T::WARPS + warp;
+    const int rx0 = region_x0<T>(q);   // region in the tile
+    const int ry0 = region_y0<T>(q);
+    const int px = tx * T::W + rx0 + lane;
+    const int py0 = ty * T::H + ry0;
+    VisPixels s;
+#pragma unroll
+    for (int i = 0; i < REGION_H; ++i) {
+      s.z[i] = 0.0f;   // DEPTH_CLEAR
+      s.tid[i] = -1;
+    }
+    if (rank < segs)   // uniform across the block
+      vis_walk<ROW_STRIDE, T::THREADS>(table, n_tris,
+                                       bins + static_cast<size_t>(tile) * bin_width, e0, e1,
+                                       Region(tx * T::W + rx0, py0),
+                                       static_cast<float>(px) + 0.5f, py0, scoef, sid, s);
+    if (segs == 1) {
+#pragma unroll
+      for (int i = 0; i < REGION_H; ++i) store(py0 + i, px, s.z[i], s.tid[i]);
+    } else if (rank < segs) {
+#pragma unroll
+      for (int i = 0; i < REGION_H; ++i) {
+        const int p = (ry0 + i) * T::W + rx0 + lane;
+        zs[p] = s.z[i];
+        ts[p] = s.tid[i];
+      }
+    }
+  }
+  if (segs == 1) return;
+
+  cluster.sync();
+  float zw[T::PASSES];
+  int tw[T::PASSES];
+#pragma unroll
+  for (int j = 0; j < T::PASSES; ++j) {
+    const int p = merged_pixel<T, VIS_SPLIT>(rank, j);
+    zw[j] = 0.0f;
+    tw[j] = -1;
+    for (int q = 0; q < segs; ++q) {
+      const float zq = cluster.map_shared_rank(zs, q)[p];
+      const int tq = cluster.map_shared_rank(ts, q)[p];
+      if (tq >= 0 && zq >= zw[j]) {
+        zw[j] = zq;
+        tw[j] = tq;
+      }
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its shared memory
+#pragma unroll
+  for (int j = 0; j < T::PASSES; ++j) {
+    const int p = merged_pixel<T, VIS_SPLIT>(rank, j);
+    store(ty * T::H + p / T::W, tx * T::W + p % T::W, zw[j], tw[j]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The peel walk of kernels 2.5 and 2.8 over per-triangle bins.
 // ---------------------------------------------------------------------------
 
 constexpr int DEFERRED_SEG_MIN = 32;            // a segment for every 32 entries
+
+// A warp's walk of entries [e0, e1) of a tile's per-triangle bin over its
+// 32x8 region, into s (loaded with the region's opaque depth and `last`):
+// the block stages the entries BATCH at a time (stage_planes into scoef
+// and sid), lane t of each warp tests entry t of a 32-entry slice (its id
+// past the region's smallest `last`, cover_rows), and the warp takes the
+// entries its ballot keeps; the walk stops where every pixel is settled
+// (keys_ascend says where a layer settles a pixel). Both forms of 2.5 and
+// 2.8 walk a region with it. Every thread of the block (BATCH of them)
+// must call it.
+template <int ROW_STRIDE, int BATCH>
+__device__ __forceinline__ void peel_walk(const float* __restrict__ table, int n_tris,
+                                          const int* tbins, int e0, int e1,
+                                          const Region& region, float* scoef, int* sid,
+                                          PeelPixels<true>& s) {
+  const int lane = threadIdx.x % 32;
+  s.ascending = keys_ascend<BATCH>(tbins, e0, e1, 0);
+  for (int base = e0; base < e1; base += BATCH) {
+    // the barrier before restaging: the previous batch is consumed
+    if (__syncthreads_and(s.settled())) break;   // every pixel of the block is settled
+    stage_planes<ROW_STRIDE>(scoef, sid, table, n_tris, tbins, base, e1);
+    __syncthreads();
+    const int m = min(BATCH, e1 - base);
+    for (int j0 = 0; j0 < m; j0 += 32) {
+      if (__all_sync(FULL_WARP, s.settled())) break;   // uniform across the warp
+      const int j = j0 + lane;
+      const int idj = j < m ? sid[j] : -1;
+      const unsigned rows_of =
+          idj >= 0 && idj > s.lt_min ? cover_rows(scoef + j * COEF_STRIDE, region) : 0u;
+      unsigned b = __ballot_sync(FULL_WARP, rows_of != 0);
+      while (b) {
+        const int t = __ffs(b) - 1;
+        b &= b - 1;
+        Tri tri;
+        tri.load(scoef + (j0 + t) * COEF_STRIDE);
+        s.take(tri, sid[j0 + t], __shfl_sync(FULL_WARP, rows_of, t));
+      }
+    }
+  }
+}
 
 // A tile of kernel 2.5 or 2.8, one block of its cluster of PEEL_SPLIT: 2.3's
 // design (raster_peel.cu) over per-triangle bins of a table ROW_STRIDE
@@ -771,30 +1058,8 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
   PeelPixels<true> s;
   if (rank < segs) {   // uniform across the block
     s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp, n_tris - 1);
-    const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
-    s.ascending = keys_ascend<T::THREADS>(tbins, e0, e1, 0);
-    for (int base = e0; base < e1; base += BATCH) {
-      // the barrier before restaging: the previous batch is consumed
-      if (__syncthreads_and(s.settled())) break;   // every pixel of the block is settled
-      stage_planes<ROW_STRIDE>(scoef, sid, table, n_tris, tbins, base, e1);
-      __syncthreads();
-      const int m = min(BATCH, e1 - base);
-      for (int j0 = 0; j0 < m; j0 += 32) {
-        if (__all_sync(FULL_WARP, s.settled())) break;   // uniform across the warp
-        const int j = j0 + lane;
-        const int idj = j < m ? sid[j] : -1;
-        const unsigned rows_of =
-            idj >= 0 && idj > s.lt_min ? cover_rows(scoef + j * COEF_STRIDE, region) : 0u;
-        unsigned b = __ballot_sync(FULL_WARP, rows_of != 0);
-        while (b) {
-          const int t = __ffs(b) - 1;
-          b &= b - 1;
-          Tri tri;
-          tri.load(scoef + (j0 + t) * COEF_STRIDE);
-          s.take(tri, sid[j0 + t], __shfl_sync(FULL_WARP, rows_of, t));
-        }
-      }
-    }
+    peel_walk<ROW_STRIDE, BATCH>(table, n_tris, bins + static_cast<size_t>(tile) * bin_width,
+                                 e0, e1, region, scoef, sid, s);
   }
   if (segs == 1) {
 #pragma unroll
@@ -810,17 +1075,88 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
   emit(ty * T::H + p / T::W, tx * T::W + p % T::W, best);
 }
 
+// peel_tile_passes' dynamic shared memory, in floats: a batch's plane
+// coefficients and ids, then the tile's layer ids for the merge (kept
+// from pass to pass).
+template <class T>
+struct PeelSmem {
+  static constexpr int BATCH = T::THREADS * COEF_STRIDE;
+  static constexpr int BYTES = (BATCH + T::THREADS + T::PIX) * 4;
+};
+
+// peel_tile for a tile of several passes: each pass's warps walk their
+// regions over the block's segment, with peel_tile's reject and stops,
+// and park their layer ids (park_best); after the last pass the merge
+// (merge_min_passes) and emit run for the block's 1/PEEL_SPLIT of the
+// tile's pixels, T::PASSES a thread.
+template <class T, int ROW_STRIDE, typename Emit>
+__device__ __forceinline__ void peel_tile_passes(const float* __restrict__ table, int n_tris,
+                                                 const int* __restrict__ bins,
+                                                 const int* __restrict__ counts, int bin_width,
+                                                 int tiles_x, const float* __restrict__ z_base,
+                                                 const int* __restrict__ last, int wp,
+                                                 Emit&& emit) {
+  constexpr int BATCH = T::THREADS;   // entries staged a batch, one a thread
+  using S = PeelSmem<T>;
+  static_assert(T::PASSES > 1, "a tile of one pass takes peel_tile");
+  float* scoef = dynamic_smem();
+  int* sid = reinterpret_cast<int*>(scoef + S::BATCH);
+  int* merge = sid + BATCH;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / PEEL_SPLIT;
+  const int tx = tile % tiles_x;
+  const int ty = tile / tiles_x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  // bins and counts come from the caller: never walk past the bin row
+  const int n = max(0, min(counts[tile], bin_width));
+  int e0, e1;
+  const int segs = tile_segment(n, PEEL_SPLIT, DEFERRED_SEG_MIN, rank, &e0, &e1);
+  if (segs == 1 && rank > 0) return;
+  const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
+
+  for (int pass = 0; pass < T::PASSES; ++pass) {
+    const int q = pass * T::WARPS + warp;
+    const int rx0 = region_x0<T>(q);   // region in the tile
+    const int ry0 = region_y0<T>(q);
+    const Region region(tx * T::W + rx0, ty * T::H + ry0);
+    PeelPixels<true> s;
+    if (rank < segs) {   // uniform across the block
+      s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp, n_tris - 1);
+      peel_walk<ROW_STRIDE, BATCH>(table, n_tris, tbins, e0, e1, region, scoef, sid, s);
+    }
+    if (segs == 1) {
+#pragma unroll
+      for (int i = 0; i < REGION_H; ++i)
+        emit(ty * T::H + ry0 + i, tx * T::W + rx0 + lane, s.best[i]);
+    } else {
+      park_best<T>(merge, s, rx0, ry0, rank, segs);
+    }
+  }
+  if (segs == 1) return;
+
+  int best[T::PASSES];
+  merge_min_passes<T>(cluster, merge, rank, segs, best);
+#pragma unroll
+  for (int j = 0; j < T::PASSES; ++j) {
+    const int p = merged_pixel<T, PEEL_SPLIT>(rank, j);
+    emit(ty * T::H + p / T::W, tx * T::W + p % T::W, best[j]);
+  }
+}
+
 // Launch a kernel of vis_tile's shape: n_tiles clusters of VIS_SPLIT
-// blocks of T::THREADS. The cluster is a launch attribute, so a split
+// blocks of T::THREADS, with `bytes` of dynamic shared memory (0 for
+// vis_tile; VisSmem<T>::BYTES for vis_tile_passes). The cluster is a launch attribute, so a split
 // above the portable 8 needs only its constant: the kernel is then allowed
 // a non-portable cluster, and the launch is refused (cudaErrorInvalidConfiguration)
 // where no such cluster fits on the card. Returns the CUDA error.
 template <class T, typename Kernel, typename... Args>
-int launch_vis(Kernel kernel, int n_tiles, void* stream, Args... args) {
+int launch_vis(Kernel kernel, int n_tiles, int bytes, void* stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_tiles * VIS_SPLIT);
   cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

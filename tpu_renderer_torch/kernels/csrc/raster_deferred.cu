@@ -86,7 +86,78 @@ raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
                         });
 }
 
+// Kernels 2.4 and 2.5 at a tile of several passes (Tile): vis_tile_passes
+// and peel_tile_passes, in dynamic shared memory.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 2)
+raster_deferred_passes_kernel(const float* __restrict__ packed, int n_tris,
+                              const int* __restrict__ bins, const int* __restrict__ counts,
+                              int bin_width, int tiles_x, float* __restrict__ z_out,
+                              int* __restrict__ tid_out, int wp) {
+  vis_tile_passes<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x,
+                                 [&](int row, int col, float z, int tid) {
+                                   const size_t gp = static_cast<size_t>(row) * wp + col;
+                                   z_out[gp] = z;
+                                   tid_out[gp] = tid;
+                                 });
+}
+
+template <class T>
+__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
+raster_peel_deferred_passes_kernel(const float* __restrict__ packed, int n_tris,
+                                   const int* __restrict__ bins, const int* __restrict__ counts,
+                                   int bin_width, int tiles_x, const float* __restrict__ z_base,
+                                   const int* __restrict__ last, int* __restrict__ layer_out,
+                                   int wp) {
+  peel_tile_passes<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base,
+                                  last, wp, [&](int row, int col, int best) {
+                                    layer_out[static_cast<size_t>(row) * wp + col] = best;
+                                  });
+}
+
+// Kernels 2.4's and 2.5's *_passes instances set up for this device
+// (prepare_launch).
+template <class T>
+int deferred_prepare() {
+  static Prepared ready;
+  return prepare_launch(ready, raster_deferred_passes_kernel<T>, T::THREADS, VisSmem<T>::BYTES,
+                        VIS_SPLIT, 4);
+}
+
+template <class T>
+int peel_deferred_prepare() {
+  static Prepared ready;
+  return prepare_launch(ready, raster_peel_deferred_passes_kernel<T>, T::THREADS,
+                        PeelSmem<T>::BYTES, PEEL_SPLIT, 5);
+}
+
 }  // namespace
+
+// Kernels 2.4 and 2.5 at the tile, as raster_fused_setup does 2.1.
+extern "C" int raster_deferred_setup(int tile_h, int tile_w, int* bytes) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    if constexpr (T::PASSES == 1) {
+      return block_smem(raster_deferred_kernel<T>, 0, bytes);
+    } else {
+      const int err = block_smem(raster_deferred_passes_kernel<T>, VisSmem<T>::BYTES, bytes);
+      return err != 0 ? err : deferred_prepare<T>();
+    }
+  });
+}
+
+extern "C" int raster_peel_deferred_setup(int tile_h, int tile_w, int* bytes) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    if constexpr (T::PASSES == 1) {
+      return block_smem(raster_peel_deferred_kernel<T>, 0, bytes);
+    } else {
+      const int err =
+          block_smem(raster_peel_deferred_passes_kernel<T>, PeelSmem<T>::BYTES, bytes);
+      return err != 0 ? err : peel_deferred_prepare<T>();
+    }
+  });
+}
 
 extern "C" int raster_deferred_launch(const float* packed, int n_tris, const int* bins,
                                       const int* counts, int bin_width, int tiles_x,
@@ -94,8 +165,17 @@ extern "C" int raster_deferred_launch(const float* packed, int n_tris, const int
                                       void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
-    return launch_vis<T>(raster_deferred_kernel<T>, tiles_x * tiles_y, stream, packed,
-                         n_tris, bins, counts, bin_width, tiles_x, z, tid, tiles_x * T::W);
+    if constexpr (T::PASSES == 1) {
+      return launch_vis<T>(raster_deferred_kernel<T>, tiles_x * tiles_y, 0, stream, packed,
+                           n_tris, bins, counts, bin_width, tiles_x, z, tid, tiles_x * T::W);
+    } else {
+      constexpr int bytes = VisSmem<T>::BYTES;
+      const int err = deferred_prepare<T>();
+      if (err != 0) return err;
+      return launch_vis<T>(raster_deferred_passes_kernel<T>, tiles_x * tiles_y, bytes, stream,
+                           packed, n_tris, bins, counts, bin_width, tiles_x, z, tid,
+                           tiles_x * T::W);
+    }
   });
 }
 
@@ -106,10 +186,20 @@ extern "C" int raster_peel_deferred_launch(const float* packed, int n_tris,
                                            const int* last, int* layer, void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
-    raster_peel_deferred_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
-        tiles_x * T::W);
+    if constexpr (T::PASSES == 1) {
+      raster_peel_deferred_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+          packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
+          tiles_x * T::W);
+    } else {
+      constexpr int bytes = PeelSmem<T>::BYTES;
+      const int err = peel_deferred_prepare<T>();
+      if (err != 0) return err;
+      raster_peel_deferred_passes_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS,
+                                              bytes, static_cast<cudaStream_t>(stream)>>>(
+          packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
+          tiles_x * T::W);
+    }
     return static_cast<int>(cudaGetLastError());
   });
 }

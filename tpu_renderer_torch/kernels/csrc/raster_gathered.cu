@@ -172,7 +172,97 @@ raster_peel_gathered_kernel(const float* __restrict__ rows, int n_tris,
                       });
 }
 
+// Kernels 2.6 and 2.8 at a tile of several passes (Tile): vis_tile_passes
+// and peel_tile_passes, in dynamic shared memory, with the same
+// epilogues.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 2)
+raster_fused_gathered_passes_kernel(const float* __restrict__ rows, int n_tris,
+                                    const int* __restrict__ bins,
+                                    const int* __restrict__ counts, int bin_width, int tiles_x,
+                                    float* __restrict__ z_out, int* __restrict__ tid_out,
+                                    float* __restrict__ nums_out,
+                                    float* __restrict__ metas_out, int hp, int wp) {
+  const size_t plane_stride = static_cast<size_t>(hp) * wp;
+  vis_tile_passes<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x,
+                               [&](int row, int col, float z, int tid) {
+                                 const size_t gp = static_cast<size_t>(row) * wp + col;
+                                 z_out[gp] = z;
+                                 tid_out[gp] = tid;
+                                 store_winner(rows, tid, static_cast<float>(col) + 0.5f,
+                                              static_cast<float>(row) + 0.5f, gp,
+                                              plane_stride, nums_out, metas_out);
+                               });
+}
+
+template <class T>
+__global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
+raster_peel_gathered_passes_kernel(const float* __restrict__ rows, int n_tris,
+                                   const int* __restrict__ bins,
+                                   const int* __restrict__ counts, int bin_width, int tiles_x,
+                                   const float* __restrict__ z_base,
+                                   const int* __restrict__ last, int* __restrict__ best_out,
+                                   float* __restrict__ nums_out,
+                                   float* __restrict__ metas_out, int hp, int wp) {
+  const size_t plane_stride = static_cast<size_t>(hp) * wp;
+  peel_tile_passes<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last,
+                                wp, [&](int row, int col, int best) {
+                                  store_layer(rows, best, row, col, wp, plane_stride, best_out,
+                                              nums_out, metas_out);
+                                });
+}
+
+// Kernels 2.6's and 2.8's *_passes instances set up for this device
+// (prepare_launch).
+template <class T>
+int fused_gathered_prepare() {
+  static Prepared ready;
+  return prepare_launch(ready, raster_fused_gathered_passes_kernel<T>, T::THREADS,
+                        VisSmem<T>::BYTES, VIS_SPLIT, 6);
+}
+
+template <class T>
+int peel_gathered_prepare() {
+  static Prepared ready;
+  return prepare_launch(ready, raster_peel_gathered_passes_kernel<T>, T::THREADS,
+                        PeelSmem<T>::BYTES, PEEL_SPLIT, 8);
+}
+
 }  // namespace
+
+// Kernels 2.6, 2.7 and 2.8 at the tile, as raster_fused_setup does 2.1.
+extern "C" int raster_fused_gathered_setup(int tile_h, int tile_w, int* bytes) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    if constexpr (T::PASSES == 1) {
+      return block_smem(raster_fused_gathered_kernel<T>, 0, bytes);
+    } else {
+      const int err =
+          block_smem(raster_fused_gathered_passes_kernel<T>, VisSmem<T>::BYTES, bytes);
+      return err != 0 ? err : fused_gathered_prepare<T>();
+    }
+  });
+}
+
+extern "C" int raster_accum_gathered_setup(int tile_h, int tile_w, int* bytes) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    return block_smem(raster_accum_gathered_kernel<T>, 0, bytes);
+  });
+}
+
+extern "C" int raster_peel_gathered_setup(int tile_h, int tile_w, int* bytes) {
+  return with_tile(tile_h, tile_w, [&](auto tile) {
+    using T = decltype(tile);
+    if constexpr (T::PASSES == 1) {
+      return block_smem(raster_peel_gathered_kernel<T>, 0, bytes);
+    } else {
+      const int err =
+          block_smem(raster_peel_gathered_passes_kernel<T>, PeelSmem<T>::BYTES, bytes);
+      return err != 0 ? err : peel_gathered_prepare<T>();
+    }
+  });
+}
 
 extern "C" int raster_fused_gathered_launch(const float* rows, int n_tris, const int* bins,
                                             const int* counts, int bin_width, int tiles_x,
@@ -181,9 +271,18 @@ extern "C" int raster_fused_gathered_launch(const float* rows, int n_tris, const
                                             void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
-    return launch_vis<T>(raster_fused_gathered_kernel<T>, tiles_x * tiles_y, stream, rows,
-                         n_tris, bins, counts, bin_width, tiles_x, z, tid, nums, metas,
-                         tiles_y * T::H, tiles_x * T::W);
+    if constexpr (T::PASSES == 1) {
+      return launch_vis<T>(raster_fused_gathered_kernel<T>, tiles_x * tiles_y, 0, stream,
+                           rows, n_tris, bins, counts, bin_width, tiles_x, z, tid, nums,
+                           metas, tiles_y * T::H, tiles_x * T::W);
+    } else {
+      constexpr int bytes = VisSmem<T>::BYTES;
+      const int err = fused_gathered_prepare<T>();
+      if (err != 0) return err;
+      return launch_vis<T>(raster_fused_gathered_passes_kernel<T>, tiles_x * tiles_y, bytes,
+                           stream, rows, n_tris, bins, counts, bin_width, tiles_x, z, tid,
+                           nums, metas, tiles_y * T::H, tiles_x * T::W);
+    }
   });
 }
 
@@ -210,10 +309,20 @@ extern "C" int raster_peel_gathered_launch(const float* rows, int n_tris, const 
                                            float* nums, float* metas, void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
-    raster_peel_gathered_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, best, nums, metas,
-        tiles_y * T::H, tiles_x * T::W);
+    if constexpr (T::PASSES == 1) {
+      raster_peel_gathered_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+          rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, best, nums, metas,
+          tiles_y * T::H, tiles_x * T::W);
+    } else {
+      constexpr int bytes = PeelSmem<T>::BYTES;
+      const int err = peel_gathered_prepare<T>();
+      if (err != 0) return err;
+      raster_peel_gathered_passes_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS,
+                                              bytes, static_cast<cudaStream_t>(stream)>>>(
+          rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, best, nums, metas,
+          tiles_y * T::H, tiles_x * T::W);
+    }
     return static_cast<int>(cudaGetLastError());
   });
 }

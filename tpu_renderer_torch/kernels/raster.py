@@ -48,7 +48,9 @@ Names, this module <-> tpu_renderer/kernels/raster.py of the JAX package
 
 On a CPU tensor each wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (and raises if it cannot). The kernels take every tile
-of TILES, chosen at launch; the plain versions take any tile. The plain
+that tile_rule takes, chosen at launch: those of TILES from the main
+library, any other from a library built for it at its first use
+(_build.load_tile_library); the plain versions take any tile. The plain
 versions loop over bin slots, vectorised across tiles, and evaluate
 triangles in the same per-pixel order as the kernels, so both agree bit
 for bit. Inside utils.profiling.debug_mode each kernel launcher's float
@@ -84,9 +86,9 @@ ID_INF = 0x7FFFFFF  # the peels' "no fragment" marker (> any triangle id)
 CHUNK = 32
 GROUP = 8
 TILE_H, TILE_W = 32, 128  # the default tile (RendererConfig's)
-# Every (tile_h, tile_w) the kernels are built for (with_tile in
-# csrc/raster_common.cuh): a warp a 32x8 region, so at most 512 threads a
-# block; ROADMAP.md Queue 1 item 17 says why no larger tile.
+# The tiles the main kernel library ships built (with_tile in
+# csrc/raster_common.cuh); every other tile tile_rule takes is built on
+# demand, into a library of its own.
 TILES = ((8, 64), (8, 128), (16, 64), (16, 128), (32, 64), (32, 128))
 ROW_COLS = 48        # fat-row width (shade.py layout)
 SETUP_COLS = 16      # packed setup-row width (vertex.triangle_setup_c)
@@ -124,6 +126,15 @@ DEFERRED_SEG_MIN = 32
 # winners in order, as 2.1 does (vis_segments).
 VIS_SPLIT = 8
 VIS_SEG_MIN = 32
+# The blocks' shape and shared memory (Tile, FusedSmem, VisSmem, ... in
+# csrc/): a block is at most MAX_WARPS warps, a warp a 32x8 region a pass;
+# the cp.async ring holds AHEAD + 2 chunks of fat rows; the batches of
+# 2.4-2.6 and 2.8 keep 13 floats an entry (COEF_STRIDE). SMEM_OPT_IN is the
+# shared memory an H100 block can opt into (227 KB).
+MAX_WARPS = 16
+AHEAD = 2
+COEF_STRIDE = 13
+SMEM_OPT_IN = 232_448
 # The JAX package's gathered kernels carry the triangle id as a float in
 # column 47, exact below 2^24; the port's take the bin entry itself and
 # refuse larger tables, so the two cannot diverge silently.
@@ -140,11 +151,72 @@ def gathered_accum_blocks(tile_h: int, tile_w: int) -> int:
     return (tile_w // REGION_W) * (tile_h // REGION_H)
 
 
+def _largest_divisor(n: int, cap: int) -> int:
+    return next(d for d in range(min(n, cap), 0, -1) if n % d == 0)
+
+
+def tile_blocks(tile_h: int, tile_w: int) -> tuple:
+    """(warps, passes) of a kernel block at a tile of whole 32x8 regions
+    (Tile in csrc/raster_common.cuh): a warp a region, at most MAX_WARPS;
+    a tile of more regions is walked in passes of the largest divisor of
+    its regions up to MAX_WARPS."""
+    regions = (tile_h // REGION_H) * (tile_w // REGION_W)
+    warps = _largest_divisor(regions, MAX_WARPS)
+    return warps, regions // warps
+
+
+def tile_smem(tile_h: int, tile_w: int) -> dict:
+    """Bytes of shared memory a block of each raster kernel takes at the
+    tile (the layouts of csrc/): a tile of one pass aliases its walk's
+    buffer and its merge buffer, a tile of several keeps both."""
+    warps, passes = tile_blocks(tile_h, tile_w)
+    pix, threads = tile_h * tile_w, warps * 32
+    ring = (AHEAD + 2) * CHUNK * ROW_COLS
+    batch = threads * COEF_STRIDE
+    one = passes == 1
+    floats = {
+        "2.1": max(ring, 2 * pix) if one else ring + 2 * pix,
+        "2.2": ring,
+        "2.3": ring if one else ring + pix,
+        "2.4": 2 * pix + threads if one else batch + 2 * pix + threads,
+        "2.5": batch + threads if one else batch + threads + pix,
+        "2.7": ring,
+    }
+    floats["2.6"], floats["2.8"] = floats["2.4"], floats["2.5"]
+    return {k: 4 * floats[k] for k in sorted(floats)}
+
+
+def tile_rule(tile_h: int, tile_w: int):
+    """Why the CUDA raster kernels refuse the tile, or None if they take
+    it. The rule: whole 32x8 warp regions (tile_h % 8 == 0, tile_w % 32 ==
+    0), and every kernel's block within the SMEM_OPT_IN bytes of shared
+    memory an H100 block can opt into. Pure and host-side: it reads no
+    device, so it cannot see whether each cluster of 8 blocks (2.1,
+    2.3-2.6, 2.8) can be scheduled. On a whole H100 one can: a block then
+    fits an SM (at most 512 threads, 64 registers a thread) and the 8
+    blocks go on 8 SMs of one GPC, which holds 16 or more. Where the card
+    offers less (a MIG slice, an MPS limit), the card's own check refuses
+    the tile: loading a tile's library runs cudaOccupancyMaxActiveClusters
+    for each clustered kernel (_build.setup_tile), after the tile's build
+    and before any of its kernels launches, and raises ValueError where no
+    cluster fits. A tile of TILES is one pass a block, 24-35 KB, and needs
+    no such check."""
+    if tile_h < REGION_H or tile_w < REGION_W or tile_h % REGION_H or tile_w % REGION_W:
+        return (f"a tile is whole {REGION_W}x{REGION_H} warp regions (tile_h % {REGION_H} "
+                f"== 0, tile_w % {REGION_W} == 0); got {tile_h}x{tile_w}")
+    smem = tile_smem(tile_h, tile_w)
+    worst = max(smem, key=smem.get)
+    if smem[worst] > SMEM_OPT_IN:
+        return (f"tile {tile_h}x{tile_w} needs {smem[worst]:,} bytes of shared memory a "
+                f"block (kernel {worst}), past the {SMEM_OPT_IN:,} an H100 block can opt into")
+    return None
+
+
 def check_tile(tile_h: int, tile_w: int, what: str = "raster kernels") -> None:
-    """Raise ValueError unless the CUDA kernels are built for the tile."""
-    if (tile_h, tile_w) not in TILES:
-        raise ValueError(f"the CUDA {what} take the tiles "
-                         f"{', '.join(f'{h}x{w}' for h, w in TILES)}; got {tile_h}x{tile_w}")
+    """Raise ValueError unless the CUDA kernels take the tile (tile_rule)."""
+    why = tile_rule(tile_h, tile_w)
+    if why is not None:
+        raise ValueError(f"the CUDA {what} refuse the tile: {why}")
 
 
 def entry_shift(n_groups: int) -> int:
@@ -584,18 +656,47 @@ def _check_aligned(rows):
         raise ValueError("rows must start on a 16-byte boundary")
 
 
+def tile_library(tile_h: int, tile_w: int):
+    """The loaded library that holds the raster kernels at the tile: the
+    main one for a tile of TILES, else the tile's own, built at its first
+    use (a failed build raises; no other tile stands in)."""
+    if (tile_h, tile_w) in TILES:
+        return _build.load_library()
+    return _build.load_tile_library(tile_h, tile_w)
+
+
 @functools.cache
-def _entry(fn_name):
-    """The kernel library's C entry point `fn_name`, looked up once (the
-    library is built and loaded at the first lookup)."""
-    return getattr(_build.load_library(), fn_name)
+def _entry(fn_name, tile=None):
+    """The C entry point `fn_name` of the main library, or of the tile's
+    library (tile_library) where a raster tile is given, looked up once
+    (the library is built and loaded at the first lookup)."""
+    return getattr(_build.load_library() if tile is None else tile_library(*tile), fn_name)
 
 
-def _launch(fn_name, *args):
-    """Call one C entry point of the kernel library; raise on a CUDA error."""
-    err = _entry(fn_name)(*args)
+def _launch(fn_name, *args, tile=None):
+    """Call one C entry point (_entry); raise on a CUDA error."""
+    err = _entry(fn_name, tile)(*args)
     if err != 0:
-        raise RuntimeError(f"{fn_name} failed: {_build.error_string(err)}")
+        lib = None if tile is None else tile_library(*tile)
+        raise RuntimeError(f"{fn_name} failed: {_build.error_string(err, lib)}")
+
+
+def block_smem(tile_h: int, tile_w: int) -> dict:
+    """Kernel (2.1-2.8) -> the bytes of shared memory a block of its
+    instance at the tile takes, as the compiler laid the instance out
+    (cudaFuncGetAttributes, and the dynamic bytes its launch asks for;
+    _build.setup_tile). tile_smem, which the rule reads before any build,
+    must equal it."""
+    return _build.setup_tile(tile_library(tile_h, tile_w), tile_h, tile_w)
+
+
+def max_clusters(tile_h: int, tile_w: int) -> dict:
+    """Kernel (2.1, 2.3-2.6, 2.8) -> the clusters of 8 blocks that
+    cudaOccupancyMaxActiveClusters found room for at the tile, as the
+    setup at the load of the tile's library checked it (_build.setup_tile;
+    0 at a tile of one pass, which needs no check)."""
+    lib = tile_library(tile_h, tile_w)
+    return {f"2.{k}": lib.raster_max_clusters(k) for k in (1, 3, 4, 5, 6, 8)}
 
 
 def _ptr(t):
@@ -733,7 +834,7 @@ def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
     _launch("raster_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
             *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
-            _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev))
+            _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev), tile=(tile_h, tile_w))
     fused_counter.launches += 1
     return z, tid, nums, metas
 
@@ -828,7 +929,7 @@ def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
     _launch("raster_accum_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
             *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
-            _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev))
+            _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev), tile=(tile_h, tile_w))
     accum_counter.launches += 1
     return acc, cnt
 
@@ -944,7 +1045,7 @@ def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
     _launch("raster_peel_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
             *_tile_args(tiles_x, tiles_y, tile_h, tile_w), _ptr(z_base),
-            _ptr(last), _ptr(best), _ptr(nums), _ptr(metas), _stream(dev))
+            _ptr(last), _ptr(best), _ptr(nums), _ptr(metas), _stream(dev), tile=(tile_h, tile_w))
     peel_fused_counter.launches += 1
     return best, nums, metas
 
@@ -1134,7 +1235,7 @@ def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
     _launch("raster_deferred_launch", _ptr(packed), ctypes.c_int(packed.shape[0]),
             _ptr(bins), _ptr(counts), ctypes.c_int(bins.shape[1]),
             *_tile_args(tiles_x, tiles_y, tile_h, tile_w), _ptr(z), _ptr(tid),
-            _stream(dev))
+            _stream(dev), tile=(tile_h, tile_w))
     deferred_counter.launches += 1
     return z, tid
 
@@ -1191,7 +1292,7 @@ def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
     _launch("raster_peel_deferred_launch", _ptr(packed),
             ctypes.c_int(packed.shape[0]), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
-            _ptr(z_base), _ptr(last), _ptr(layer), _stream(dev))
+            _ptr(z_base), _ptr(last), _ptr(layer), _stream(dev), tile=(tile_h, tile_w))
     peel_counter.launches += 1
     return layer
 
@@ -1277,7 +1378,7 @@ def raster_fused_gathered_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: i
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_fused_gathered_launch",
             *_gathered_launch_args(rows, bins, counts, tiles),
-            _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev))
+            _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev), tile=(tile_h, tile_w))
     fused_gathered_counter.launches += 1
     return z, tid, nums, metas
 
@@ -1345,7 +1446,7 @@ def raster_accum_gathered_kernel(rows, bins, counts, z_base, light, *,
     cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_accum_gathered_launch",
             *_gathered_launch_args(rows, bins, counts, tiles),
-            _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev))
+            _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev), tile=(tile_h, tile_w))
     accum_gathered_counter.launches += 1
     return acc, cnt
 
@@ -1410,7 +1511,7 @@ def raster_peel_gathered_kernel(rows, bins, counts, z_base, last, *,
     _launch("raster_peel_gathered_launch",
             *_gathered_launch_args(rows, bins, counts, tiles),
             _ptr(z_base), _ptr(last), _ptr(best), _ptr(nums), _ptr(metas),
-            _stream(dev))
+            _stream(dev), tile=(tile_h, tile_w))
     peel_gathered_counter.launches += 1
     return best, nums, metas
 

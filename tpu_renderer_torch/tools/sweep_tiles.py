@@ -4,14 +4,19 @@ extended to the tile's width and to every constant the kernels fix at
 compile time that can move.
 
     python3 -m tpu_renderer_torch.tools.sweep_tiles [--axes tile_h,tile_w,group,ahead]
+        [--tile_hs 8,16,32] [--tile_ws 64,128]
         [--grid 64] [--width 1920] [--height 1080] [--device cuda]
 
 One axis at a time from the shipped point (32x128 tiles, GROUP 8, AHEAD 2):
 
-* tile_h in {8, 16, 32} and tile_w in {64, 128}: the raster tile, a
-  parameter of the shipped kernels (raster.TILES; csrc/raster_common.cuh
-  with_tile). The block is tied to it: a warp a 32x8 region, so 2.1 runs
-  tile_h / 8 * tile_w / 32 warps a block and 2.2 tile_h / 8 a strip;
+* tile_h in --tile_hs (by default {8, 16, 32}) and tile_w in --tile_ws
+  (by default {64, 128}): the raster tile, an argument of the kernels,
+  any tile raster.tile_rule takes (a refused one stops the sweep before
+  anything runs). A tile of raster.TILES is in the shipped library; any
+  other is built into a library of its own (kernels/_build.build_tile),
+  with the copies below. A warp walks a 32x8 region at a time: 2.1 runs
+  min(16, regions) warps a block, 2.2 min(16, tile_h / 8) a strip, and a
+  tile of more regions is walked in passes (csrc/raster_common.cuh Tile);
 * group in {8, 16, 32}: triangles a gmask bit (raster.GROUP, GROUP);
 * ahead in {1, 2, 3}: chunks copied ahead of the raster into the cp.async
   ring of RING_SLOTS = AHEAD + 2 slots (AHEAD).
@@ -24,7 +29,8 @@ Nothing shipped changes. A tile point runs the shipped tree at that tile
 (--tile). For a GROUP or AHEAD point the tool copies tpu_renderer_torch/
 into a temporary directory, rewrites the constants there (rewrite()),
 builds the copy's kernel library into the copy's kernels/build (every
-copy and the shipped library at once, kernels/_build.build_from). Each
+copy, the shipped library and the tiles' libraries at once,
+kernels/_build.build_from and build_tile). Each
 point is measured in a subprocess that imports its tree (--measure).
 Each point prints: the tiles, the opaque entries and the most
 a tile (bin_triangles_full on the bench frame's sorted opaque set), the
@@ -68,6 +74,7 @@ AXES = {"tile_h": (8, 16, 32), "tile_w": (64, 128), "group": (8, 16, 32),
 # rewrite() sets in a copy; each pattern must match exactly once
 CONSTANTS = (
     ("kernels/raster.py", r"^GROUP = (\d+)$", ("group",)),
+    ("kernels/raster.py", r"^AHEAD = (\d+)$", ("ahead",)),
     ("kernels/csrc/raster_common.cuh", r"^constexpr int GROUP = (\d+);", ("group",)),
     ("kernels/csrc/raster_common.cuh", r"^constexpr int AHEAD = (\d+);", ("ahead",)),
 )
@@ -100,13 +107,14 @@ def shipped_point() -> dict:
     return dict(tile_h=raster.TILE_H, tile_w=raster.TILE_W, **point_of())
 
 
-def points(axes) -> list:
-    """The shipped point, then each named axis's other values, one axis at
-    a time from it."""
+def points(axes, values=None) -> list:
+    """The shipped point, then each named axis's other values (values:
+    axis -> its values, AXES by default), one axis at a time from it."""
+    values = {**AXES, **(values or {})}
     shipped = shipped_point()
     out = [shipped]
     for axis in axes:
-        out += [dict(shipped, **{axis: v}) for v in AXES[axis] if v != shipped[axis]]
+        out += [dict(shipped, **{axis: v}) for v in values[axis] if v != shipped[axis]]
     return out
 
 
@@ -273,9 +281,12 @@ def _label(point: dict) -> str:
             f"ahead {point['ahead']}")
 
 
-def sweep(eng, axes, device: str, timeout: float = 900.0) -> list:
-    """Every point of `axes` on eng's frame; one dict a point, printed."""
-    pts = points(axes)
+def sweep(eng, axes, device: str, timeout: float = 900.0, values=None) -> list:
+    """Every point of `axes` (points(axes, values)) on eng's frame; one
+    dict a point, printed."""
+    pts = points(axes, values)
+    for p in pts:
+        raster.check_tile(p["tile_h"], p["tile_w"])
     repo = os.path.dirname(PACKAGE)
     with tempfile.TemporaryDirectory() as tmp:
         inputs = os.path.join(tmp, "inputs.pt")
@@ -284,19 +295,24 @@ def sweep(eng, axes, device: str, timeout: float = 900.0) -> list:
                  for i, p in enumerate(pts)]
         build_s = {}
         if device == "cuda":
-            # every tree's library at once, each one nvcc a source
+            # every tree's library and every tile's outside raster.TILES at
+            # once, each one nvcc a source
             trees = list(dict.fromkeys(roots))
-            with concurrent.futures.ThreadPoolExecutor(len(trees)) as ex:
+            tiles = list(dict.fromkeys((p["tile_h"], p["tile_w"]) for p in pts))
+            tiles = [t for t in tiles if t not in raster.TILES]
+            with concurrent.futures.ThreadPoolExecutor(len(trees) + len(tiles)) as ex:
                 futures = [ex.submit(_build.build_from, *(
                     (_build.CSRC_DIR, _build.BUILD_DIR) if r == repo else
                     (os.path.join(r, "tpu_renderer_torch", "kernels", "csrc"),
                      os.path.join(r, "tpu_renderer_torch", "kernels", "build"))))
-                    for r in trees]
-                build_s = {r: f.result()[1] for r, f in zip(trees, futures)}
+                    for r in trees] + [ex.submit(_build.build_tile, *t) for t in tiles]
+                build_s = {k: f.result()[1] for k, f in zip(trees + tiles, futures)}
         rows = []
         for point, root in zip(pts, roots):
-            secs = build_s.get(root)
-            build_s[root] = None   # a tree's build is reported at its first point
+            tile = (point["tile_h"], point["tile_w"])
+            key = tile if tile in build_s else root
+            secs = build_s.get(key)
+            build_s[key] = None   # a library's build is reported at its first point
             r = _run_point(root, point, inputs, device, timeout)
             if r["point"] != point:
                 raise RuntimeError(f"the copy for {point} reads {r['point']}")
@@ -330,6 +346,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--axes", default=",".join(AXES),
                     help="axes to sweep, comma-separated, of " + ", ".join(AXES))
+    ap.add_argument("--tile_hs", default=",".join(map(str, AXES["tile_h"])),
+                    help="the tile_h axis's values, comma-separated")
+    ap.add_argument("--tile_ws", default=",".join(map(str, AXES["tile_w"])),
+                    help="the tile_w axis's values, comma-separated")
     ap.add_argument("--grid", type=int, default=64)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
@@ -352,6 +372,12 @@ def main(argv=None) -> int:
     if unknown:
         print(f"sweep_tiles: unknown axes {sorted(unknown)}", file=sys.stderr)
         return 1
+    values = {k: tuple(int(v) for v in getattr(args, f"{k}s").split(",") if v)
+              for k in ("tile_h", "tile_w")}
+    refused = [raster.tile_rule(p["tile_h"], p["tile_w"]) for p in points(axes, values)]
+    if any(refused):
+        print(f"sweep_tiles: {next(r for r in refused if r)}", file=sys.stderr)
+        return 1
     if args.device == "cuda":
         print(f"[device] {bench_frame.nvidia_smi()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -359,7 +385,7 @@ def main(argv=None) -> int:
             os.path.join(tmp, "bench_scene.glb"), device=args.device, grid=args.grid,
             width=args.width, height=args.height,
             camera_position=(0.0, 6.0, args.grid * 2.0))
-    rows = sweep(eng, axes, args.device)
+    rows = sweep(eng, axes, args.device, values=values)
     print(json.dumps({"sweep": rows}))
     bad = failed(rows)
     for b in bad:
