@@ -25,6 +25,9 @@ from tpu_renderer.kernels import background as jbackground
 from tpu_renderer_torch import pipeline
 from tpu_renderer_torch.kernels import background
 from tpu_renderer_torch.kernels.common import pad_extent
+from test_torch_threads import share_cores
+
+share_cores()
 
 EXTENTS = [(200, 100), (256, 64), (333, 222)]
 SKY = (0.1, 0.2, 0.4, 0.97)

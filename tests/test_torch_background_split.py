@@ -30,6 +30,9 @@ from tpu_renderer import pipeline as jpipeline
 from tpu_renderer.kernels import background as jbackground
 from tpu_renderer_torch.kernels import background
 from tpu_renderer_torch.kernels.common import fma
+from test_torch_threads import share_cores
+
+share_cores()
 
 SEGMENT, LANES, VEC = 128, 32, 4
 SKY = (0.1, 0.2, 0.4, 0.97)

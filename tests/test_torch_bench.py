@@ -21,6 +21,9 @@ import torch
 from tpu_renderer_torch import bench
 from tpu_renderer_torch.config import RendererConfig
 from tpu_renderer_torch.tools import fit_cost_model
+from test_torch_threads import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -17,6 +17,9 @@ from tpu_renderer_torch import cli
 from tpu_renderer_torch.engine import Engine
 from tpu_renderer_torch.present import load_png
 from tpu_renderer_torch.utils.demo import build_demo_glb
+from test_torch_threads import share_cores
+
+share_cores()
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 SMALL = ["--width", "256", "--height", "64", "--device", "cpu"]

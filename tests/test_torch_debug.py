@@ -16,6 +16,9 @@ from tpu_renderer_torch.config import RendererConfig
 from tpu_renderer_torch.engine import Engine
 from tpu_renderer_torch.utils import profiling
 from tpu_renderer_torch.utils.demo import build_demo_glb
+from test_torch_threads import share_cores
+
+share_cores()
 
 
 def test_a_nan_raises_and_names_the_op():

@@ -33,6 +33,9 @@ from tpu_renderer_torch.engine import Engine  # noqa: E402
 from tpu_renderer_torch.kernels import raster, shade, vertex  # noqa: E402
 from tpu_renderer_torch.present import unpack_u8  # noqa: E402
 from tpu_renderer_torch.utils.demo import build_demo_glb, checker_texture  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 W, H = 256, 64
 TILES = dict(tiles_x=2, tiles_y=2, tile_w=128, tile_h=32)

@@ -20,6 +20,9 @@ from tests.test_e2e_reference import (  # noqa: E402
 from tpu_renderer_torch import scene as scene_mod  # noqa: E402
 from tpu_renderer_torch.pipeline import FrameParams, render_frame  # noqa: E402
 from tpu_renderer_torch.present import unpack_u8  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 
 def _params():

@@ -32,6 +32,9 @@ from tpu_renderer_torch.engine import Engine
 from tpu_renderer_torch.present import unpack_u8
 from tpu_renderer_torch.utils import profiling
 from tpu_renderer_torch.utils.demo import build_demo_glb
+from test_torch_threads import share_cores
+
+share_cores()
 
 TOL = 0.001
 W, H = 256, 128

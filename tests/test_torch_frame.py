@@ -26,6 +26,9 @@ from tpu_renderer_torch.engine import Engine  # noqa: E402
 from tpu_renderer_torch.present import load_png, unpack_u8  # noqa: E402
 from tpu_renderer_torch.utils.demo import (  # noqa: E402
     build_demo_glb, build_structure_glb, checker_texture)
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 TOL = 0.001

@@ -31,6 +31,9 @@ from tests.test_torch_raster import T, W, H, _screen_tris  # noqa: E402
 from tpu_renderer.kernels import raster as jraster  # noqa: E402
 from tpu_renderer.kernels import vertex as jvertex  # noqa: E402
 from tpu_renderer_torch.kernels import raster, vertex  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 TILES = dict(tiles_x=2, tiles_y=2, tile_w=128, tile_h=32)
 LIGHT = np.asarray([0.2, 0.8, 0.5, 1.0, 0.1, 0.15, 0.2, 0.0], np.float32)

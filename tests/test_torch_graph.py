@@ -40,6 +40,9 @@ from tpu_renderer_torch.utils import profiling  # noqa: E402
 from tpu_renderer_torch.utils.bench_frame import texture_the_glass  # noqa: E402
 from tpu_renderer_torch.utils.demo import build_demo_glb  # noqa: E402
 from test_torch_peel import _textured_stack  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 FW, FH = 128, 32
 TOL = 0.001

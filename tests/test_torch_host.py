@@ -31,6 +31,9 @@ from tpu_renderer.utils import demo as jdemo  # noqa: E402
 from tpu_renderer_torch import camera, convert, gltf, math3d, present, scene  # noqa: E402
 from tpu_renderer_torch.config import RendererConfig  # noqa: E402
 from tpu_renderer_torch.utils import demo  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(ROOT, "tpu_renderer_torch")

@@ -41,6 +41,9 @@ from tpu_renderer_torch.kernels import vertex  # noqa: E402
 from tpu_renderer_torch.parallel import multichip  # noqa: E402
 from tpu_renderer_torch.present import load_png, unpack_u8  # noqa: E402
 from tpu_renderer_torch.utils.demo import build_demo_glb  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 W, H = 128, 64
 BG = dict(bg_data1=(0.2, 0.3, 0.4, 1.0), bg_data2=(0.8, 0.7, 0.6, 1.0))
@@ -204,7 +207,10 @@ CASES = {
         ("blit_2x1", "quad", (2, 1), dict(fused=False, out_width=2 * W,
                                           out_height=2 * H)),
         ("refuse_2x2", "refuse", (2, 2), {}),
-        ("launch_in_group", "launch", (2, 1), {})],
+        ("launch_in_group", "launch", (2, 1), {}),
+        *((f"glass_{path}_{r}x{t}", "stacked_glass", (r, t),
+           dict(fused=path == "fused", transp_textured=True))
+          for path in ("fused", "deferred") for r, t in ((2, 1), (1, 2)))],
     4: [("glass_deferred", "glass", (2, 2), dict(fused=False, transp_textured=True)),
         ("stacked_glass_deferred", "stacked_glass", (2, 2),
          dict(fused=False, transp_textured=True)),
@@ -293,10 +299,10 @@ def test_shift_aabb_y_exact(y0):
 
 @pytest.mark.parametrize("row", [1, 2])
 def test_band_bins_are_the_frame_bins_of_the_band(row):
-    """A band's bins, from boxes moved up by y0 (whole tiles) and set below
-    the empty tiles above the band, equal the bins of the frame's tile
-    rows down to the band's last, with the entries above the band
-    dropped: the kernels see the single-device frame's tiles."""
+    """A band's bins, from boxes moved up by y0 (whole tiles), equal the
+    bins of the frame's tile rows of the band: the kernels, launched over
+    the band's tiles from the frame's tile row (tile_y0), see the
+    single-device frame's tiles."""
     geo, mats, meta, model, vis, vp = _setup_inputs(3)
     tc = vertex.expand_corners(*geo, *mats, meta, device="cpu")
     t = torch.from_numpy
@@ -306,12 +312,10 @@ def test_band_bins_are_the_frame_bins_of_the_band(row):
     band = dict(tiles_x=2, tiles_y=band_tiles_y, tile_w=128, tile_h=32)
     frame = dict(band, tiles_y=(row + 1) * band_tiles_y)
     y0 = row * band_tiles_y * 32
-    got = multichip._under_empty_tiles(
-        *pipeline._bins(multichip._shift_aabb_y(aabb, float(y0)), valid, band),
-        row * band_tiles_y * 2)
+    got = pipeline._bins(multichip._shift_aabb_y(aabb, float(y0)), valid, band)
     want_bins, want_counts = pipeline._bins(aabb, valid, frame)
     n_above = row * band_tiles_y * 2
-    want_bins[:n_above], want_counts[:n_above] = -1, 0
+    want_bins, want_counts = want_bins[n_above:], want_counts[n_above:]
     assert int(want_counts.sum()) > 0
     np.testing.assert_array_equal(got[1].numpy(), want_counts.numpy())
     np.testing.assert_array_equal(got[0].numpy(), want_bins.numpy())
@@ -378,6 +382,32 @@ def test_2x2_mesh_matches_single_device(mesh_frames, case, scene_name, kw, exact
         assert saux["transparent_layers"] == 3
     for k in saux:
         assert aux[k] == saux[k], k
+
+
+@pytest.mark.parametrize("path", ["fused", "deferred"])
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2), (2, 2)])
+def test_mesh_peel_matches_single_device_and_jax(mesh_frames, path, mesh_shape):
+    """The textured peel over a mesh (its loop on conditional.run_while,
+    each band's launches over its own tiles): three stacked layers, byte
+    for byte the single-device frame with the same transparent_layers, at
+    every mesh shape; the deferred frames also within the JAX mesh frame's
+    tolerance (1 u8 step, test_multichip.py:100-123) with its aux. The JAX
+    package's fused peel takes ~70 s to compile in interpret mode, so the
+    fused mesh frames stand on the single-device frame, which
+    tests/test_torch_peel.py holds to JAX."""
+    r, t = mesh_shape
+    name = f"stacked_glass_{path}" if mesh_shape == (2, 2) else f"glass_{path}_{r}x{t}"
+    kw = dict(fused=path == "fused", transp_textured=True)
+    img, aux = mesh_frames[name]
+    single, saux = _single("stacked_glass", **kw)
+    np.testing.assert_array_equal(img, single)
+    assert {k: aux[k] for k in saux} == saux and aux["transparent_layers"] == 3
+    if path == "deferred":
+        if len(jax.devices()) < r * t:
+            pytest.skip("the JAX mesh needs the conftest's 8 virtual devices")
+        jimg, jaux = _jax_mesh_frame("stacked_glass", mesh_shape, **kw)
+        assert _u8_diff(img, jimg) <= 1
+        assert aux == jaux
 
 
 def _engine_frame(demo_path, fused):

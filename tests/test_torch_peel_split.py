@@ -28,6 +28,9 @@ import jax.numpy as jnp  # noqa: E402
 from tpu_renderer.kernels import raster as jraster  # noqa: E402
 from tpu_renderer_torch.kernels import raster  # noqa: E402
 from tpu_renderer_torch.utils import hazards  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 ONE_TILE = dict(tiles_x=1, tiles_y=1, tile_w=128, tile_h=32)
 QUAD = dict(tiles_x=2, tiles_y=2, tile_w=128, tile_h=32)

@@ -21,6 +21,9 @@ from tpu_renderer.kernels import raster as jraster  # noqa: E402
 from tpu_renderer.kernels import shade as jshade  # noqa: E402
 from tpu_renderer.kernels import vertex as jvertex  # noqa: E402
 from tpu_renderer_torch.kernels import raster, shade  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 W, H = 256, 64
 TILES = dict(tiles_x=2, tiles_y=2, tile_w=128, tile_h=32)

@@ -12,6 +12,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from tpu_renderer.kernels import raster as jraster  # noqa: E402
 from tpu_renderer_torch.kernels import raster  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 
 def _inputs(t, seed):

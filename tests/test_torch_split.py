@@ -22,6 +22,9 @@ import jax.numpy as jnp  # noqa: E402
 from tpu_renderer.kernels import raster as jraster  # noqa: E402
 from tpu_renderer_torch.kernels import raster  # noqa: E402
 from tpu_renderer_torch.utils import hazards  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 LIGHT = np.asarray([0.2, 0.8, 0.5, 1.0, 0.1, 0.15, 0.2, 0.0], np.float32)
 ONE_TILE = dict(tiles_x=1, tiles_y=1, tile_w=128, tile_h=32)

@@ -35,6 +35,9 @@ from tpu_renderer_torch.kernels import raster  # noqa: E402
 from tpu_renderer_torch.parallel import multichip  # noqa: E402
 from tpu_renderer_torch.utils.bench_frame import texture_the_glass  # noqa: E402
 from tpu_renderer_torch.utils.demo import build_demo_glb  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 W, H = 256, 96
 TOL = 0.001

@@ -17,6 +17,9 @@ from tpu_renderer_torch import pipeline
 from tpu_renderer_torch.kernels import _build, raster, shade, vertex
 from tpu_renderer_torch.tools import profile_raster, profile_stages
 from tpu_renderer_torch.utils import bench_frame
+from test_torch_threads import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,9 @@ import sys
 import pytest
 
 from tpu_renderer_torch.tools import bench_gather, make_gallery, profile_binwidth, sweep_tiles
+from test_torch_threads import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "tpu_renderer_torch")

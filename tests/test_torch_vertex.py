@@ -16,6 +16,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from tpu_renderer.kernels import vertex as jvertex  # noqa: E402
 from tpu_renderer_torch.kernels import vertex  # noqa: E402
+from test_torch_threads import share_cores  # noqa: E402
+
+share_cores()
 
 W, H = 160, 96
 

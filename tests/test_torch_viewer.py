@@ -11,6 +11,9 @@ from tpu_renderer_torch import milestones
 from tpu_renderer_torch.config import RendererConfig
 from tpu_renderer_torch.engine import Engine
 from tpu_renderer_torch.viewer import frame_to_halfblocks, parse_events, run_viewer
+from test_torch_threads import share_cores
+
+share_cores()
 
 
 def _engine():

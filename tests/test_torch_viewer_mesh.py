@@ -23,6 +23,9 @@ import numpy as np
 
 from tpu_renderer_torch import cli
 from tpu_renderer_torch.engine import Engine
+from test_torch_threads import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIEW = ["view", "--grid", "2", "--width", "256", "--height", "64", "--cols", "20",

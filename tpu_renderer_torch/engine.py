@@ -23,11 +23,16 @@ mesh of ranks (parallel/multichip.py): each rank of an initialised process
 group of rows * tri ranks runs its own Engine, and each gets the whole
 frame.
 
-On the card with no mesh, a frame is a replay of a CUDA graph
-(frame_graph.py): each key of statics is captured at its first frame and
-replayed after, the peel loop inside the graph; frame_graphs keeps a few.
-The CPU, a mesh and pipeline.eager() (utils.profiling.debug_mode) draw op by
-op.
+On the card, a frame is a replay of a CUDA graph (frame_graph.py): each
+key of statics is captured at its first frame and replayed after, the peel
+loop inside the graph; frame_graphs keeps a few. A mesh frame is graphed
+the same way, collectives and peel loop inside, where the mesh's process
+group is nccl (a card a rank). Which route a frame takes is decided from
+the device, the backend and pipeline.eager() before any capture
+(render_fn), never from a capture's outcome: a failed capture or replay
+raises. The CPU, pipeline.eager() (utils.profiling.debug_mode) and a mesh
+over gloo draw op by op: gloo's collectives run on the host, which a CUDA
+graph cannot hold, and the ranks that share a card run gloo.
 
 What the port does not take raises NotImplementedError naming the
 ROADMAP.md item: a tile outside raster.tile_rule (not whole 32x8 warp
@@ -313,9 +318,9 @@ class Engine:
     def draw_device(self, params: Optional[FrameParams] = None):
         """Render one frame, leaving the image on the device. Returns (image
         (H, W) int32 packed RGBA tensor, aux dict of device scalars). On the
-        card with no mesh, outside pipeline.eager(), a replay of the frame
-        graph of these statics (captured at their first frame); the image
-        and aux are the caller's own."""
+        card outside pipeline.eager(), with no mesh or a mesh over nccl, a
+        replay of the frame graph of these statics (captured at their first
+        frame; render_fn); the image and aux are the caller's own."""
         if params is None:
             params = self.update_scene()
         cfg = self.config
@@ -332,18 +337,20 @@ class Engine:
 
     def render_fn(self):
         """What draws this engine's frames, with render_frame's signature:
-        over a mesh render_frame_multichip (the same statics and caps; the
-        aux counters composite over it, so the stats and the cap escalation
-        read them as the single-device frame's); on the card outside
-        pipeline.eager() a replay of the frame graph of the frame's statics
-        (frame_graphs.frame); else render_frame."""
-        if self.mesh is not None:
-            from tpu_renderer_torch.parallel.multichip import render_frame_multichip
+        on the card outside pipeline.eager() a replay of the frame graph of
+        the frame's statics (frame_graphs.frame), over a mesh only where its
+        backend is nccl (the graph holds the rank's collectives); else
+        op by op, render_frame or over a mesh render_frame_multichip (the
+        same statics and caps; the aux counters composite over it, so the
+        stats and the cap escalation read them as the single-device
+        frame's)."""
+        if self.mesh is None:
+            return self.frame_graphs.frame if graphed(self.device) else render_frame
+        if graphed(self.device) and self.mesh.backend == "nccl":
+            return functools.partial(self.frame_graphs.frame, mesh=self.mesh)
+        from tpu_renderer_torch.parallel.multichip import render_frame_multichip
 
-            return functools.partial(render_frame_multichip, mesh=self.mesh)
-        if graphed(self.device):
-            return self.frame_graphs.frame
-        return render_frame
+        return functools.partial(render_frame_multichip, mesh=self.mesh)
 
     def _bg_fb_cached(self, params: FrameParams):
         """Background framebuffer (kernel 2.9 or 2.10), cached across

@@ -7,14 +7,21 @@ it for each frame's params, draw_model and background, which it copies into
 buffers of its own. A replay enqueues the whole frame with one launch, where
 the eager frame launches every operation from Python and waits for the host
 at each peel test. GraphCache keeps a few graphs by key: the Engine's
-draw_device (on the card, with no mesh, outside pipeline.eager()) goes
-through one, and pipeline.render_frames replays one a frame when it is
-given the Engine's render_fn().
+draw_device (on the card outside pipeline.eager(), with no mesh or a mesh
+over nccl) goes through one, and pipeline.render_frames replays one a
+frame when it is given the Engine's render_fn().
+
+Given a mesh (parallel/multichip.Mesh), a FrameGraph captures the rank's
+render_frame_multichip instead, collectives and all: the counterpart of
+the JAX package's jax.jit over shard_map. Only nccl's collectives can be
+captured (gloo's run on the host), so the Engine graphs a mesh over nccl
+alone, and every rank captures the same frame at the same draw.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import time
 
 import torch
@@ -42,11 +49,12 @@ class _Input:
         self._src, self._version = src, src._version
 
 
-def graph_key(buffers: SceneBuffers, bg_fb, statics: dict) -> tuple:
+def graph_key(buffers: SceneBuffers, bg_fb, statics: dict, mesh=None) -> tuple:
     """What a FrameGraph is captured for: render_frame's statics (extent,
-    out extent, tile, caps, fp16, transp_textured, fused, trilinear, pot) and
-    the scene's buffers, by identity; not the values of the params,
-    draw_model or the background, which a replay copies in."""
+    out extent, tile, caps, fp16, transp_textured, fused, trilinear, pot),
+    the scene's buffers, by identity, and the mesh's shape and this rank
+    (None with no mesh); not the values of the params, draw_model or the
+    background, which a replay copies in."""
     ids = []
 
     def walk(x):
@@ -57,13 +65,26 @@ def graph_key(buffers: SceneBuffers, bg_fb, statics: dict) -> tuple:
                 walk(v)
 
     walk(buffers._replace(draw_model=None))
+    where = None if mesh is None else (mesh.n_rows, mesh.n_tri, mesh.rank)
     return (tuple(ids), tuple(buffers.draw_model.shape), tuple(bg_fb.shape),
-            tuple(sorted(statics.items())))
+            tuple(sorted(statics.items())), where)
+
+
+def _frame_fn(mesh):
+    """What a FrameGraph captures: render_frame, or over a mesh the rank's
+    render_frame_multichip."""
+    if mesh is None:
+        return render_frame
+    from tpu_renderer_torch.parallel.multichip import render_frame_multichip
+
+    return functools.partial(render_frame_multichip, mesh=mesh)
 
 
 class FrameGraph:
     """One frame captured as a CUDA graph, for one key of statics
-    (graph_key), replayed for any params, draw_model and background.
+    (graph_key), replayed for any params, draw_model and background. With
+    a mesh, the rank's part of the mesh frame (render_frame_multichip):
+    its collectives are captured too, so the backend must be nccl.
 
     At construction one eager frame runs on a side stream (it fills the
     lazy caches, loads the kernels, and is this call's frame: `first`), then
@@ -78,12 +99,18 @@ class FrameGraph:
     wrappers counted is taken back, and each replay adds it; the launches
     inside the peel loop count on the card (raster._Counter.to_device)."""
 
-    def __init__(self, buffers: SceneBuffers, params: FrameParams, bg_fb, statics: dict):
+    def __init__(self, buffers: SceneBuffers, params: FrameParams, bg_fb, statics: dict,
+                 mesh=None):
+        if mesh is not None and mesh.backend != "nccl":
+            raise ValueError(f"a mesh frame is captured over nccl alone, not "
+                             f"{mesh.backend}: its collectives run on the host")
+        frame = _frame_fn(mesh)
         dev = buffers.draw_model.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            image, aux = render_frame(buffers, params, bg_fb=bg_fb, **statics)
+            # also makes the mesh's communicators, before any capture
+            image, aux = frame(buffers, params, bg_fb=bg_fb, **statics)
         torch.cuda.current_stream(dev).wait_stream(side)
         for t in (image, *aux.values()):
             t.record_stream(torch.cuda.current_stream(dev))
@@ -106,8 +133,7 @@ class FrameGraph:
         with torch.cuda.stream(torch.cuda.Stream(dev)), conditional.bodies_into(self._bodies):
             self._graph.capture_begin(pool=pool)
             try:
-                img, aux = render_frame(self._buffers, static_params, bg_fb=bufs[-1],
-                                        **statics)
+                img, aux = frame(self._buffers, static_params, bg_fb=bufs[-1], **statics)
                 self._image = img
                 self._aux = torch.stack([aux[k].to(torch.int32) for k in self.keys])
                 self._graph.capture_end()
@@ -155,26 +181,29 @@ class GraphCache:
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def graph(self, buffers: SceneBuffers, params: FrameParams, bg_fb, statics: dict):
+    def graph(self, buffers: SceneBuffers, params: FrameParams, bg_fb, statics: dict,
+              mesh=None):
         """(graph, first): the key's graph, with its warm-up frame when this
         call captured it (else None)."""
-        key = graph_key(buffers, bg_fb, statics)
+        key = graph_key(buffers, bg_fb, statics, mesh)
         g = self._graphs.get(key)
         if g is not None:
             self._graphs.move_to_end(key)
             return g, None
         while len(self._graphs) >= self.size:
             self._drop(self._graphs.popitem(last=False)[1])
-        g = FrameGraph(buffers, params, bg_fb, statics)
+        g = FrameGraph(buffers, params, bg_fb, statics, mesh)
         self._graphs[key] = g
         self.captured.append((g.capture_ms, g.pool_mib))
         first, g.first = g.first, None
         return g, first
 
-    def frame(self, buffers: SceneBuffers, params: FrameParams, *, bg_fb, **statics):
+    def frame(self, buffers: SceneBuffers, params: FrameParams, *, bg_fb, mesh=None,
+              **statics):
         """render_frame's (image, aux) through the key's graph (render_frame's
-        signature, with bg_fb required)."""
-        g, first = self.graph(buffers, params, bg_fb, statics)
+        signature, with bg_fb required); with a mesh, render_frame_multichip's
+        on this rank."""
+        g, first = self.graph(buffers, params, bg_fb, statics, mesh)
         return first if first is not None else g.replay(buffers, params, bg_fb)
 
     def clear(self) -> None:

@@ -156,17 +156,19 @@ def _bind_raster(lib: ctypes.CDLL) -> None:
     """The argument and result types of the raster launchers."""
     p, i = ctypes.c_void_p, ctypes.c_int
     # every raster launcher takes tiles_x, tiles_y, tile_h, tile_w after
-    # its bins (t4); a tile the library is not built for returns an error
+    # its bins (t4); a tile the library is not built for returns an error.
+    # The frame's passes 2.1-2.5 then take the band's first tile row
+    # (tile_y0, csrc/raster_common.cuh Band)
     t4 = [i, i, i, i]
-    lib.raster_fused_launch.argtypes = [p, p, p, i, i, *t4, p, p, p, p, p]
+    lib.raster_fused_launch.argtypes = [p, p, p, i, i, *t4, i, p, p, p, p, p]
     lib.raster_fused_launch.restype = i
-    lib.raster_accum_launch.argtypes = [p, p, p, i, i, *t4, p, p, p, p, p]
+    lib.raster_accum_launch.argtypes = [p, p, p, i, i, *t4, i, p, p, p, p, p]
     lib.raster_accum_launch.restype = i
-    lib.raster_peel_fused_launch.argtypes = [p, p, p, i, i, *t4, p, p, p, p, p, p]
+    lib.raster_peel_fused_launch.argtypes = [p, p, p, i, i, *t4, i, p, p, p, p, p, p]
     lib.raster_peel_fused_launch.restype = i
-    lib.raster_deferred_launch.argtypes = [p, i, p, p, i, *t4, p, p, p]
+    lib.raster_deferred_launch.argtypes = [p, i, p, p, i, *t4, i, p, p, p]
     lib.raster_deferred_launch.restype = i
-    lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, *t4, p, p, p, p]
+    lib.raster_peel_deferred_launch.argtypes = [p, i, p, p, i, *t4, i, p, p, p, p]
     lib.raster_peel_deferred_launch.restype = i
     # rows, n_tris, bins, counts, bin_width, the tiles, then the pass's
     # own planes and the stream

@@ -57,14 +57,16 @@ template <class T>
 __global__ void __launch_bounds__(Strip<T>::THREADS)
 raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
-                    int tiles_x, const float* __restrict__ z_base, const float* __restrict__ light,
+                    int tiles_x, int tile_y0, const float* __restrict__ z_base,
+                    const float* __restrict__ light,
                     float* __restrict__ acc_out, int* __restrict__ cnt_out, int hp,
                     int wp) {
   __shared__ __align__(16) float ring[RING_SLOTS * CHUNK_FLOATS];
   const int tile = blockIdx.x / T::REGIONS_X;
   const int strip = blockIdx.x % T::REGIONS_X;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + tile_y0;   // the frame's tile row (Band)
+  const Band band{tile_y0 * T::H, wp};
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   // bins and counts come from the caller: never walk past the bin row
@@ -75,12 +77,12 @@ raster_accum_kernel(const float* __restrict__ rows, const int* __restrict__ bins
     const int py0 = ty * T::H + (pass * Strip<T>::WARPS + warp) * REGION_H;
     const Region region(tx * T::W + strip * REGION_W, py0);
     AccumPixels<false> s;   // zv >= 0 is subsumed by zv >= z_base (opaque depth, >= 0)
-    s.load(z_base, light, tx * T::W + strip * REGION_W + lane, py0, wp);
+    s.load(z_base, light, tx * T::W + strip * REGION_W + lane, py0, band);
     walk_entries<Strip<T>::THREADS>(rows, tbins, 0, n, n_chunks, ring,
                             [&](const float* slot, int, int gmask) {
       s.add_slice(slot, (gmask >> (lane / GROUP)) & 1, region);
     });
-    s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp, wp);
+    s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp);
   }
 }
 
@@ -98,13 +100,13 @@ extern "C" int raster_accum_setup(int tile_h, int tile_w, int* bytes) {
 extern "C" int raster_accum_launch(const float* rows, const int* bins,
                                    const int* counts, int bin_width, int n_chunks,
                                    int tiles_x, int tiles_y, int tile_h, int tile_w,
-                                   const float* z_base, const float* light,
+                                   int tile_y0, const float* z_base, const float* light,
                                    float* acc, int* cnt, void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
     raster_accum_kernel<T><<<tiles_x * tiles_y * T::REGIONS_X, Strip<T>::THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-        rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, light, acc, cnt,
+        rows, bins, counts, bin_width, n_chunks, tiles_x, tile_y0, z_base, light, acc, cnt,
         tiles_y * T::H, tiles_x * T::W);
     return static_cast<int>(cudaGetLastError());
   });

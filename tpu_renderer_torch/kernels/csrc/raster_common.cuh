@@ -398,6 +398,21 @@ __device__ __forceinline__ void stage_slice_async(float* slot, const float* rows
   }
 }
 
+// The band of the frame a launch of 2.1-2.5 covers: tiles_y tile rows
+// from the frame's tile row tile_y0, pixel rows from y0 = tile_y0 * T::H
+// (0 and the whole frame for a frame on one device, and for 2.6-2.8). The
+// kernels count pixel rows in the frame, so every pixel center (y + 0.5)
+// is the frame's and each output is the same float arithmetic as a launch
+// over the whole frame; the planes a launch reads and writes hold the
+// band alone, frame row y at their row y - y0, wp columns a row.
+struct Band {
+  int y0, wp;
+
+  __device__ __forceinline__ size_t at(int row, int col) const {
+    return static_cast<size_t>(row - y0) * wp + col;
+  }
+};
+
 // A warp's pixel region: REGION_W columns by REGION_H rows from pixel (x0,
 // y0); centers x in [x0 + 0.5, x0 + REGION_W - 0.5], row r at y0 + r + 0.5.
 struct Region {
@@ -465,6 +480,7 @@ template <bool NONNEG_Z>
 struct AccumPixels {
   float x;                 // the column's pixel center
   int px, py0;             // the column and the region's first row in the frame
+  Band band;
   float power, amb[3];     // light: sun power, ambient rgb
   float zb[REGION_H], acc[3][REGION_H];
   int cnt[REGION_H];
@@ -473,9 +489,10 @@ struct AccumPixels {
   // ambient rgb, 0]
   __device__ __forceinline__ void load(const float* __restrict__ z_base,
                                        const float* __restrict__ light, int col, int py,
-                                       int wp) {
+                                       const Band& b) {
     px = col;
     py0 = py;
+    band = b;
     x = static_cast<float>(px) + 0.5f;
     power = light[3];
     amb[0] = light[4];
@@ -483,7 +500,7 @@ struct AccumPixels {
     amb[2] = light[6];
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i) {
-      zb[i] = z_base[static_cast<size_t>(py0 + i) * wp + px];
+      zb[i] = z_base[band.at(py0 + i, px)];
       acc[0][i] = acc[1][i] = acc[2][i] = 0.0f;
       cnt[i] = 0;
     }
@@ -522,10 +539,10 @@ struct AccumPixels {
   }
 
   __device__ __forceinline__ void store(float* __restrict__ acc_out, int* __restrict__ cnt_out,
-                                        size_t plane_stride, int wp) const {
+                                        size_t plane_stride) const {
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i) {
-      const size_t p = static_cast<size_t>(py0 + i) * wp + px;
+      const size_t p = band.at(py0 + i, px);
 #pragma unroll
       for (int c = 0; c < 3; ++c) acc_out[c * plane_stride + p] = acc[c][i];
       cnt_out[p] = cnt[i];
@@ -581,14 +598,14 @@ struct PeelPixels {
 
   __device__ __forceinline__ void load(const float* __restrict__ z_base,
                                        const int* __restrict__ last, int px, int py,
-                                       int wp, int largest_id) {
+                                       const Band& band, int largest_id) {
     x = static_cast<float>(px) + 0.5f;
     py0 = py;
     max_id = largest_id;
     lt_min = 0x7FFFFFFF;
 #pragma unroll
     for (int i = 0; i < REGION_H; ++i) {
-      const size_t p = static_cast<size_t>(py + i) * wp + px;
+      const size_t p = band.at(py + i, px);
       zb[i] = z_base[p];
       lt[i] = last[p];
       best[i] = ID_INF;
@@ -687,11 +704,11 @@ __device__ __forceinline__ void merge_min_passes(cooperative_groups::cluster_gro
 // (ID_INF: none) and its triangle's planes (store_winner; zeros where
 // there is none).
 __device__ __forceinline__ void store_layer(const float* __restrict__ rows, int best, int row,
-                                            int col, int wp, size_t plane_stride,
+                                            int col, const Band& band, size_t plane_stride,
                                             int* __restrict__ best_out,
                                             float* __restrict__ nums_out,
                                             float* __restrict__ metas_out) {
-  const size_t gp = static_cast<size_t>(row) * wp + col;
+  const size_t gp = band.at(row, col);
   best_out[gp] = best;
   store_winner(rows, best < ID_INF ? best : -1, static_cast<float>(col) + 0.5f,
                static_cast<float>(row) + 0.5f, gp, plane_stride, nums_out, metas_out);
@@ -788,6 +805,8 @@ __device__ __forceinline__ void vis_walk(const float* __restrict__ table, int n_
 // (tile_segment), this block's walked (vis_walk), and the segments'
 // winners folded in segment order through distributed shared memory with
 // the walk's own rule: take (zq, tq) if tq >= 0 and zq >= the running z.
+// The launch covers `band` (Band): tile row ty of the launch is the
+// frame's tile row ty + band.y0 / T::H, and rows are the frame's.
 // The winner is the last entry in walk order with the largest z, so the
 // fold is exact for bins in any order; the z carried is the winner's own,
 // so -0.0 and +0.0 tie as >= ties them and the output keeps its bits, and
@@ -799,7 +818,7 @@ template <class T, int ROW_STRIDE, typename Store>
 __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_tris,
                                          const int* __restrict__ bins,
                                          const int* __restrict__ counts, int bin_width,
-                                         int tiles_x, Store&& store) {
+                                         int tiles_x, const Band& band, Store&& store) {
   constexpr int VIS_PIX = T::PIX / VIS_SPLIT;   // the fold's pixels a block
   static_assert(T::PIX % VIS_SPLIT == 0 && VIS_PIX <= T::THREADS,
                 "the fold gives each thread at most one pixel");
@@ -811,7 +830,7 @@ __device__ __forceinline__ void vis_tile(const float* __restrict__ table, int n_
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / VIS_SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + band.y0 / T::H;   // the frame's tile row
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
@@ -888,7 +907,7 @@ template <class T, int ROW_STRIDE, typename Store>
 __device__ __forceinline__ void vis_tile_passes(const float* __restrict__ table, int n_tris,
                                                 const int* __restrict__ bins,
                                                 const int* __restrict__ counts, int bin_width,
-                                                int tiles_x, Store&& store) {
+                                                int tiles_x, const Band& band, Store&& store) {
   using S = VisSmem<T>;
   static_assert(T::PASSES > 1, "a tile of one pass takes vis_tile");
   float* scoef = dynamic_smem();
@@ -899,7 +918,7 @@ __device__ __forceinline__ void vis_tile_passes(const float* __restrict__ table,
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / VIS_SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + band.y0 / T::H;   // the frame's tile row
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   // bins and counts come from the caller: never walk past the bin row
@@ -1025,7 +1044,8 @@ __device__ __forceinline__ void peel_walk(const float* __restrict__ table, int n
 // ascend (keys_ascend; a -1 hole after a live id reads as not ascending,
 // which only costs the stop), or where its `last` is the table's largest
 // id. The segments' layers merge by a min (merge_min); then emit(row, col,
-// best) for each of the block's 1/PEEL_SPLIT of the tile's pixels. A tile
+// best) for each of the block's 1/PEEL_SPLIT of the tile's pixels (rows
+// the frame's, over `band` as in vis_tile). A tile
 // of one segment is block 0's alone: no merge, no cluster barrier, emit
 // for all its pixels. Every thread of the block must call it.
 template <class T, int ROW_STRIDE, typename Emit>
@@ -1033,7 +1053,8 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
                                           const int* __restrict__ bins,
                                           const int* __restrict__ counts, int bin_width,
                                           int tiles_x, const float* __restrict__ z_base,
-                                          const int* __restrict__ last, int wp, Emit&& emit) {
+                                          const int* __restrict__ last, const Band& band,
+                                          Emit&& emit) {
   constexpr int BATCH = T::THREADS;   // entries staged a pass, one a thread
   static_assert(T::PIX <= BATCH * COEF_STRIDE, "the merge buffer fits the batch");
   // the batch's plane coefficients, then the segment's layer ids for the merge
@@ -1043,7 +1064,7 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / PEEL_SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + band.y0 / T::H;   // the frame's tile row
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
@@ -1057,7 +1078,7 @@ __device__ __forceinline__ void peel_tile(const float* __restrict__ table, int n
 
   PeelPixels<true> s;
   if (rank < segs) {   // uniform across the block
-    s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp, n_tris - 1);
+    s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, band, n_tris - 1);
     peel_walk<ROW_STRIDE, BATCH>(table, n_tris, bins + static_cast<size_t>(tile) * bin_width,
                                  e0, e1, region, scoef, sid, s);
   }
@@ -1094,7 +1115,7 @@ __device__ __forceinline__ void peel_tile_passes(const float* __restrict__ table
                                                  const int* __restrict__ bins,
                                                  const int* __restrict__ counts, int bin_width,
                                                  int tiles_x, const float* __restrict__ z_base,
-                                                 const int* __restrict__ last, int wp,
+                                                 const int* __restrict__ last, const Band& band,
                                                  Emit&& emit) {
   constexpr int BATCH = T::THREADS;   // entries staged a batch, one a thread
   using S = PeelSmem<T>;
@@ -1106,7 +1127,7 @@ __device__ __forceinline__ void peel_tile_passes(const float* __restrict__ table
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / PEEL_SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + band.y0 / T::H;   // the frame's tile row
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   // bins and counts come from the caller: never walk past the bin row
@@ -1123,7 +1144,7 @@ __device__ __forceinline__ void peel_tile_passes(const float* __restrict__ table
     const Region region(tx * T::W + rx0, ty * T::H + ry0);
     PeelPixels<true> s;
     if (rank < segs) {   // uniform across the block
-      s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp, n_tris - 1);
+      s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, band, n_tris - 1);
       peel_walk<ROW_STRIDE, BATCH>(table, n_tris, tbins, e0, e1, region, scoef, sid, s);
     }
     if (segs == 1) {

@@ -61,11 +61,12 @@ template <class T>
 __global__ void __launch_bounds__(T::THREADS, 2)
 raster_deferred_kernel(const float* __restrict__ packed, int n_tris,
                        const int* __restrict__ bins, const int* __restrict__ counts,
-                       int bin_width, int tiles_x, float* __restrict__ z_out,
+                       int bin_width, int tiles_x, int tile_y0, float* __restrict__ z_out,
                        int* __restrict__ tid_out, int wp) {
-  vis_tile<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x,
+  const Band band{tile_y0 * T::H, wp};
+  vis_tile<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, band,
                        [&](int row, int col, float z, int tid) {
-                         const size_t gp = static_cast<size_t>(row) * wp + col;
+                         const size_t gp = band.at(row, col);
                          z_out[gp] = z;
                          tid_out[gp] = tid;
                        });
@@ -77,12 +78,13 @@ template <class T>
 __global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_deferred_kernel(const float* __restrict__ packed, int n_tris,
                             const int* __restrict__ bins, const int* __restrict__ counts,
-                            int bin_width, int tiles_x, const float* __restrict__ z_base,
-                            const int* __restrict__ last, int* __restrict__ layer_out,
-                            int wp) {
-  peel_tile<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
+                            int bin_width, int tiles_x, int tile_y0,
+                            const float* __restrict__ z_base, const int* __restrict__ last,
+                            int* __restrict__ layer_out, int wp) {
+  const Band band{tile_y0 * T::H, wp};
+  peel_tile<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, band,
                         [&](int row, int col, int best) {
-                          layer_out[static_cast<size_t>(row) * wp + col] = best;
+                          layer_out[band.at(row, col)] = best;
                         });
 }
 
@@ -92,11 +94,12 @@ template <class T>
 __global__ void __launch_bounds__(T::THREADS, 2)
 raster_deferred_passes_kernel(const float* __restrict__ packed, int n_tris,
                               const int* __restrict__ bins, const int* __restrict__ counts,
-                              int bin_width, int tiles_x, float* __restrict__ z_out,
-                              int* __restrict__ tid_out, int wp) {
-  vis_tile_passes<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x,
+                              int bin_width, int tiles_x, int tile_y0,
+                              float* __restrict__ z_out, int* __restrict__ tid_out, int wp) {
+  const Band band{tile_y0 * T::H, wp};
+  vis_tile_passes<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, band,
                                  [&](int row, int col, float z, int tid) {
-                                   const size_t gp = static_cast<size_t>(row) * wp + col;
+                                   const size_t gp = band.at(row, col);
                                    z_out[gp] = z;
                                    tid_out[gp] = tid;
                                  });
@@ -106,12 +109,14 @@ template <class T>
 __global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_deferred_passes_kernel(const float* __restrict__ packed, int n_tris,
                                    const int* __restrict__ bins, const int* __restrict__ counts,
-                                   int bin_width, int tiles_x, const float* __restrict__ z_base,
+                                   int bin_width, int tiles_x, int tile_y0,
+                                   const float* __restrict__ z_base,
                                    const int* __restrict__ last, int* __restrict__ layer_out,
                                    int wp) {
+  const Band band{tile_y0 * T::H, wp};
   peel_tile_passes<T, SETUP_COLS>(packed, n_tris, bins, counts, bin_width, tiles_x, z_base,
-                                  last, wp, [&](int row, int col, int best) {
-                                    layer_out[static_cast<size_t>(row) * wp + col] = best;
+                                  last, band, [&](int row, int col, int best) {
+                                    layer_out[band.at(row, col)] = best;
                                   });
 }
 
@@ -161,19 +166,20 @@ extern "C" int raster_peel_deferred_setup(int tile_h, int tile_w, int* bytes) {
 
 extern "C" int raster_deferred_launch(const float* packed, int n_tris, const int* bins,
                                       const int* counts, int bin_width, int tiles_x,
-                                      int tiles_y, int tile_h, int tile_w, float* z, int* tid,
-                                      void* stream) {
+                                      int tiles_y, int tile_h, int tile_w, int tile_y0,
+                                      float* z, int* tid, void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
     if constexpr (T::PASSES == 1) {
       return launch_vis<T>(raster_deferred_kernel<T>, tiles_x * tiles_y, 0, stream, packed,
-                           n_tris, bins, counts, bin_width, tiles_x, z, tid, tiles_x * T::W);
+                           n_tris, bins, counts, bin_width, tiles_x, tile_y0, z, tid,
+                           tiles_x * T::W);
     } else {
       constexpr int bytes = VisSmem<T>::BYTES;
       const int err = deferred_prepare<T>();
       if (err != 0) return err;
       return launch_vis<T>(raster_deferred_passes_kernel<T>, tiles_x * tiles_y, bytes, stream,
-                           packed, n_tris, bins, counts, bin_width, tiles_x, z, tid,
+                           packed, n_tris, bins, counts, bin_width, tiles_x, tile_y0, z, tid,
                            tiles_x * T::W);
     }
   });
@@ -182,14 +188,15 @@ extern "C" int raster_deferred_launch(const float* packed, int n_tris, const int
 extern "C" int raster_peel_deferred_launch(const float* packed, int n_tris,
                                            const int* bins, const int* counts,
                                            int bin_width, int tiles_x, int tiles_y,
-                                           int tile_h, int tile_w, const float* z_base,
-                                           const int* last, int* layer, void* stream) {
+                                           int tile_h, int tile_w, int tile_y0,
+                                           const float* z_base, const int* last, int* layer,
+                                           void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
     if constexpr (T::PASSES == 1) {
       raster_peel_deferred_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
                                        static_cast<cudaStream_t>(stream)>>>(
-          packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
+          packed, n_tris, bins, counts, bin_width, tiles_x, tile_y0, z_base, last, layer,
           tiles_x * T::W);
     } else {
       constexpr int bytes = PeelSmem<T>::BYTES;
@@ -197,7 +204,7 @@ extern "C" int raster_peel_deferred_launch(const float* packed, int n_tris,
       if (err != 0) return err;
       raster_peel_deferred_passes_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS,
                                               bytes, static_cast<cudaStream_t>(stream)>>>(
-          packed, n_tris, bins, counts, bin_width, tiles_x, z_base, last, layer,
+          packed, n_tris, bins, counts, bin_width, tiles_x, tile_y0, z_base, last, layer,
           tiles_x * T::W);
     }
     return static_cast<int>(cudaGetLastError());

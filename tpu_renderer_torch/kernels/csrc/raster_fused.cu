@@ -107,7 +107,7 @@ template <class T>
 __global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                     const int* __restrict__ counts, int bin_width, int n_chunks,
-                    int tiles_x, float* __restrict__ z_out,
+                    int tiles_x, int tile_y0, float* __restrict__ z_out,
                     int* __restrict__ tid_out, float* __restrict__ nums_out,
                     float* __restrict__ metas_out, int hp, int wp) {
   static_assert(T::PIX == SPLIT * T::THREADS, "the epilogue gives each thread one pixel");
@@ -120,7 +120,8 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + tile_y0;   // the frame's tile row (Band)
+  const Band band{tile_y0 * T::H, wp};
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
@@ -169,7 +170,7 @@ raster_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins
   const int row = ty * T::H + p / T::W;
   const int col = tx * T::W + p % T::W;
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-  const size_t gp = static_cast<size_t>(row) * wp + col;
+  const size_t gp = band.at(row, col);
   z_out[gp] = zw;
   tid_out[gp] = tw;
   store_winner(rows, tw, static_cast<float>(col) + 0.5f, static_cast<float>(row) + 0.5f, gp,
@@ -194,7 +195,7 @@ template <class T>
 __global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_fused_passes_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                            const int* __restrict__ counts, int bin_width, int n_chunks,
-                           int tiles_x, float* __restrict__ z_out,
+                           int tiles_x, int tile_y0, float* __restrict__ z_out,
                            int* __restrict__ tid_out, float* __restrict__ nums_out,
                            float* __restrict__ metas_out, int hp, int wp) {
   static_assert(T::PASSES > 1, "a tile of one pass takes raster_fused_kernel");
@@ -205,7 +206,8 @@ raster_fused_passes_kernel(const float* __restrict__ rows, const int* __restrict
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + tile_y0;   // the frame's tile row (Band)
+  const Band band{tile_y0 * T::H, wp};
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   // bins and counts come from the caller: never walk past the bin row
@@ -262,7 +264,7 @@ raster_fused_passes_kernel(const float* __restrict__ rows, const int* __restrict
     const int p = merged_pixel<T, SPLIT>(rank, j);
     const int row = ty * T::H + p / T::W;
     const int col = tx * T::W + p % T::W;
-    const size_t gp = static_cast<size_t>(row) * wp + col;
+    const size_t gp = band.at(row, col);
     z_out[gp] = zw[j];
     tid_out[gp] = tw[j];
     store_winner(rows, tw[j], static_cast<float>(col) + 0.5f, static_cast<float>(row) + 0.5f,
@@ -300,14 +302,14 @@ extern "C" int raster_fused_setup(int tile_h, int tile_w, int* bytes) {
 extern "C" int raster_fused_launch(const float* rows, const int* bins,
                                    const int* counts, int bin_width, int n_chunks,
                                    int tiles_x, int tiles_y, int tile_h, int tile_w,
-                                   float* z, int* tid, float* nums, float* metas,
-                                   void* stream) {
+                                   int tile_y0, float* z, int* tid, float* nums,
+                                   float* metas, void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
     if constexpr (T::PASSES == 1) {
       raster_fused_kernel<T><<<tiles_x * tiles_y * SPLIT, T::THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-          rows, bins, counts, bin_width, n_chunks, tiles_x, z, tid, nums, metas,
+          rows, bins, counts, bin_width, n_chunks, tiles_x, tile_y0, z, tid, nums, metas,
           tiles_y * T::H, tiles_x * T::W);
     } else {
       constexpr int bytes = FusedSmem<T>::BYTES;
@@ -315,7 +317,7 @@ extern "C" int raster_fused_launch(const float* rows, const int* bins,
       if (err != 0) return err;
       raster_fused_passes_kernel<T><<<tiles_x * tiles_y * SPLIT, T::THREADS, bytes,
                                       static_cast<cudaStream_t>(stream)>>>(
-          rows, bins, counts, bin_width, n_chunks, tiles_x, z, tid, nums, metas,
+          rows, bins, counts, bin_width, n_chunks, tiles_x, tile_y0, z, tid, nums, metas,
           tiles_y * T::H, tiles_x * T::W);
     }
     return static_cast<int>(cudaGetLastError());

@@ -88,9 +88,10 @@ raster_fused_gathered_kernel(const float* __restrict__ rows, int n_tris,
                              int* __restrict__ tid_out, float* __restrict__ nums_out,
                              float* __restrict__ metas_out, int hp, int wp) {
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-  vis_tile<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x,
+  const Band band{0, wp};   // the whole frame
+  vis_tile<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, band,
                      [&](int row, int col, float z, int tid) {
-                       const size_t gp = static_cast<size_t>(row) * wp + col;
+                       const size_t gp = band.at(row, col);
                        z_out[gp] = z;
                        tid_out[gp] = tid;
                        store_winner(rows, tid, static_cast<float>(col) + 0.5f,
@@ -137,7 +138,7 @@ raster_accum_gathered_kernel(const float* __restrict__ rows, int n_tris,
   const int py0 = ty * T::H + (q % G::ROWS) * REGION_H;
   const Region region(rx, py0);
   AccumPixels<true> s;    // the caller's z_base may be negative: keep zv >= 0
-  s.load(z_base, light, rx + lane, py0, wp);
+  s.load(z_base, light, rx + lane, py0, Band{0, wp});   // the whole frame
 
   // bins and counts come from the caller: never walk past the bin row
   const int n = max(0, min(counts[tile], bin_width));
@@ -150,7 +151,7 @@ raster_accum_gathered_kernel(const float* __restrict__ rows, int n_tris,
       [&](const float* slot, int k) {
         s.add_slice(slot, tri_entry(tbins, k * CHUNK + lane, n, n_tris) >= 0, region);
       });
-  s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp, wp);
+  s.store(acc_out, cnt_out, static_cast<size_t>(hp) * wp);
 }
 
 // Kernel 2.8: kernel 2.5's walk (peel_tile in raster_common.cuh) over the
@@ -165,9 +166,10 @@ raster_peel_gathered_kernel(const float* __restrict__ rows, int n_tris,
                             float* __restrict__ nums_out, float* __restrict__ metas_out,
                             int hp, int wp) {
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-  peel_tile<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, wp,
+  const Band band{0, wp};   // the whole frame
+  peel_tile<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last, band,
                       [&](int row, int col, int best) {
-                        store_layer(rows, best, row, col, wp, plane_stride, best_out,
+                        store_layer(rows, best, row, col, band, plane_stride, best_out,
                                     nums_out, metas_out);
                       });
 }
@@ -184,9 +186,10 @@ raster_fused_gathered_passes_kernel(const float* __restrict__ rows, int n_tris,
                                     float* __restrict__ nums_out,
                                     float* __restrict__ metas_out, int hp, int wp) {
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
-  vis_tile_passes<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x,
+  const Band band{0, wp};   // the whole frame
+  vis_tile_passes<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, band,
                                [&](int row, int col, float z, int tid) {
-                                 const size_t gp = static_cast<size_t>(row) * wp + col;
+                                 const size_t gp = band.at(row, col);
                                  z_out[gp] = z;
                                  tid_out[gp] = tid;
                                  store_winner(rows, tid, static_cast<float>(col) + 0.5f,
@@ -205,9 +208,10 @@ raster_peel_gathered_passes_kernel(const float* __restrict__ rows, int n_tris,
                                    float* __restrict__ nums_out,
                                    float* __restrict__ metas_out, int hp, int wp) {
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
+  const Band band{0, wp};   // the whole frame
   peel_tile_passes<T, ROW_COLS>(rows, n_tris, bins, counts, bin_width, tiles_x, z_base, last,
-                                wp, [&](int row, int col, int best) {
-                                  store_layer(rows, best, row, col, wp, plane_stride, best_out,
+                                band, [&](int row, int col, int best) {
+                                  store_layer(rows, best, row, col, band, plane_stride, best_out,
                                               nums_out, metas_out);
                                 });
 }

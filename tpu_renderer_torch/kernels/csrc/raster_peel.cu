@@ -96,7 +96,7 @@ template <class T>
 __global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                          const int* __restrict__ counts, int bin_width, int n_chunks,
-                         int tiles_x, const float* __restrict__ z_base,
+                         int tiles_x, int tile_y0, const float* __restrict__ z_base,
                          const int* __restrict__ last, int* __restrict__ best_out,
                          float* __restrict__ nums_out, float* __restrict__ metas_out,
                          int hp, int wp) {
@@ -108,7 +108,8 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / PEEL_SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + tile_y0;   // the frame's tile row (Band)
+  const Band band{tile_y0 * T::H, wp};
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int rx0 = (warp % T::REGIONS_X) * REGION_W;   // region in the tile
@@ -123,12 +124,12 @@ raster_peel_fused_kernel(const float* __restrict__ rows, const int* __restrict__
   if (segs == 1 && rank > 0) return;
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
   auto emit = [&](int row, int col, int best) {
-    store_layer(rows, best, row, col, wp, plane_stride, best_out, nums_out, metas_out);
+    store_layer(rows, best, row, col, band, plane_stride, best_out, nums_out, metas_out);
   };
 
   PeelPixels<false> s;
   if (rank < segs) {   // uniform across the block
-    s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp,
+    s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, band,
            n_chunks * CHUNK - 1);
     peel_fused_walk<T>(rows, bins + static_cast<size_t>(tile) * bin_width, e0, e1, n_chunks,
                        smem, region, s);
@@ -163,7 +164,7 @@ template <class T>
 __global__ void __cluster_dims__(PEEL_SPLIT, 1, 1) __launch_bounds__(T::THREADS, 2)
 raster_peel_fused_passes_kernel(const float* __restrict__ rows, const int* __restrict__ bins,
                                 const int* __restrict__ counts, int bin_width, int n_chunks,
-                                int tiles_x, const float* __restrict__ z_base,
+                                int tiles_x, int tile_y0, const float* __restrict__ z_base,
                                 const int* __restrict__ last, int* __restrict__ best_out,
                                 float* __restrict__ nums_out, float* __restrict__ metas_out,
                                 int hp, int wp) {
@@ -174,7 +175,8 @@ raster_peel_fused_passes_kernel(const float* __restrict__ rows, const int* __res
   const int rank = static_cast<int>(cluster.block_rank());
   const int tile = blockIdx.x / PEEL_SPLIT;
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int ty = tile / tiles_x + tile_y0;   // the frame's tile row (Band)
+  const Band band{tile_y0 * T::H, wp};
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   // bins and counts come from the caller: never walk past the bin row
@@ -186,7 +188,7 @@ raster_peel_fused_passes_kernel(const float* __restrict__ rows, const int* __res
   if (segs == 1 && rank > 0) return;
   const size_t plane_stride = static_cast<size_t>(hp) * wp;
   auto emit = [&](int row, int col, int best) {
-    store_layer(rows, best, row, col, wp, plane_stride, best_out, nums_out, metas_out);
+    store_layer(rows, best, row, col, band, plane_stride, best_out, nums_out, metas_out);
   };
   const int* tbins = bins + static_cast<size_t>(tile) * bin_width;
 
@@ -197,7 +199,7 @@ raster_peel_fused_passes_kernel(const float* __restrict__ rows, const int* __res
     const Region region(tx * T::W + rx0, ty * T::H + ry0);
     PeelPixels<false> s;
     if (rank < segs) {   // uniform across the block
-      s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, wp,
+      s.load(z_base, last, tx * T::W + rx0 + lane, ty * T::H + ry0, band,
              n_chunks * CHUNK - 1);
       peel_fused_walk<T>(rows, tbins, e0, e1, n_chunks, ring, region, s);
     }
@@ -246,14 +248,16 @@ extern "C" int raster_peel_fused_setup(int tile_h, int tile_w, int* bytes) {
 extern "C" int raster_peel_fused_launch(const float* rows, const int* bins,
                                         const int* counts, int bin_width, int n_chunks,
                                         int tiles_x, int tiles_y, int tile_h, int tile_w,
-                                        const float* z_base, const int* last, int* best,
+                                        int tile_y0, const float* z_base, const int* last,
+                                        int* best,
                                         float* nums, float* metas, void* stream) {
   return with_tile(tile_h, tile_w, [&](auto tile) {
     using T = decltype(tile);
     if constexpr (T::PASSES == 1) {
       raster_peel_fused_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
-          rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, last, best, nums, metas,
+          rows, bins, counts, bin_width, n_chunks, tiles_x, tile_y0, z_base, last, best, nums,
+          metas,
           tiles_y * T::H, tiles_x * T::W);
     } else {
       constexpr int bytes = PeelFusedSmem<T>::BYTES;
@@ -261,7 +265,8 @@ extern "C" int raster_peel_fused_launch(const float* rows, const int* bins,
       if (err != 0) return err;
       raster_peel_fused_passes_kernel<T><<<tiles_x * tiles_y * PEEL_SPLIT, T::THREADS, bytes,
                                            static_cast<cudaStream_t>(stream)>>>(
-          rows, bins, counts, bin_width, n_chunks, tiles_x, z_base, last, best, nums, metas,
+          rows, bins, counts, bin_width, n_chunks, tiles_x, tile_y0, z_base, last, best, nums,
+          metas,
           tiles_y * T::H, tiles_x * T::W);
     }
     return static_cast<int>(cudaGetLastError());

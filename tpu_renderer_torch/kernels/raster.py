@@ -398,9 +398,12 @@ def full_bins(n_chunks: int, n_tiles: int, bin_cap: int, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def _tile_planes(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int, device):
-    """Pixel-center planes per tile, (n_tiles, tile_h, tile_w) f32 each."""
-    ty = torch.arange(tiles_y, device=device).repeat_interleave(tiles_x)
+def _tile_planes(tiles_x: int, tiles_y: int, tile_w: int, tile_h: int, device,
+                 tile_y0: int = 0):
+    """Pixel-center planes per tile, (n_tiles, tile_h, tile_w) f32 each, of
+    the tiles_y tile rows from the frame's tile row tile_y0 (a band: its
+    centers are the frame's)."""
+    ty = torch.arange(tile_y0, tile_y0 + tiles_y, device=device).repeat_interleave(tiles_x)
     tx = torch.arange(tiles_x, device=device).repeat(tiles_y)
     yy = torch.arange(tile_h, device=device)[None, :, None] + (ty * tile_h)[:, None, None]
     xx = torch.arange(tile_w, device=device)[None, None, :] + (tx * tile_w)[:, None, None]
@@ -520,9 +523,10 @@ def reconstruct_outputs(nums, metas, X, Y):
     return attrs, metas[:13], inv
 
 
-def _frame_planes(hp: int, wp: int, device):
+def _frame_planes(hp: int, wp: int, device, y0: int = 0):
+    """Pixel-center planes (hp, wp) of the frame's rows y0 .. y0 + hp."""
     X = torch.arange(wp, device=device, dtype=torch.int32).to(torch.float32) + 0.5
-    Y = torch.arange(hp, device=device, dtype=torch.int32).to(torch.float32) + 0.5
+    Y = torch.arange(y0, y0 + hp, device=device, dtype=torch.int32).to(torch.float32) + 0.5
     return X[None, :].expand(hp, wp), Y[:, None].expand(hp, wp)
 
 
@@ -588,10 +592,11 @@ def region_rows(rows, x0, y0, w: int = REGION_W, h: int = REGION_H):
 
 def rasterize_fused_plain(rows, bins, counts, *, tiles_x: int, tiles_y: int,
                           tile_w: int, tile_h: int, chunk: int = CHUNK,
-                          group: int = GROUP):
+                          group: int = GROUP, tile_y0: int = 0):
     """Plain PyTorch twin of the raster_fused kernel: (z (Hp, Wp) f32,
-    tid (Hp, Wp) i32, nums (4, Hp, Wp) f32, metas (15, Hp, Wp) f32)."""
-    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    tid (Hp, Wp) i32, nums (4, Hp, Wp) f32, metas (15, Hp, Wp) f32) over
+    the band of tiles_y tile rows from the frame's tile row tile_y0."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device, tile_y0)
     z, tid = _visibility_plain(rows, bins, counts, X, Y, chunk, group)
     nums, metas = _winner_planes(rows, tid, X, Y)
     f = lambda t: _tiles_to_frame(t, tiles_x, tiles_y).contiguous()  # noqa: E731
@@ -611,13 +616,17 @@ def _check(name, t, dtype, shape, device):
 
 def _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h,
                   chunk, group, z_base=None, light=None, last=None,
-                  cols: int = ROW_COLS):
+                  cols: int = ROW_COLS, tile_y0: int = 0):
     """Validate a raster pass's tensors (device, dtype, shape, contiguity)
     before they reach the plain version or, as pointers, a kernel. rows
     are (T, 48) fat rows in whole chunks, (T, 48) fat rows of any T < 2^24
     under per-triangle bins (chunk=None, the gathered oracles), or (T, 16)
-    packed setup rows (cols=SETUP_COLS, the deferred path)."""
+    packed setup rows (cols=SETUP_COLS, the deferred path). The bins and
+    planes are the band's: tiles_y tile rows from the frame's tile row
+    tile_y0."""
     dev = rows.device
+    if tile_y0 < 0:
+        raise ValueError(f"tile_y0 must be >= 0, got {tile_y0}")
     chunked = cols == ROW_COLS and chunk is not None
     whole = not chunked or rows.shape[0] % chunk == 0
     if rows.dim() != 2 or rows.shape[1] != cols or not whole:
@@ -815,16 +824,17 @@ peel_gathered_counter = _Counter()
 
 @checked
 def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
-                        tile_w: int, tile_h: int):
+                        tile_w: int, tile_h: int, tile_y0: int = 0):
     """Launch the raster_fused CUDA kernel (csrc/raster_fused.cu) on CUDA
     tensors: the same (z, tid, nums, metas) as rasterize_fused_plain at
-    CHUNK/GROUP. One launch of n_tiles clusters of FUSED_SPLIT blocks; the
-    kernel reads counts itself, so nothing here waits on the device."""
+    CHUNK/GROUP. One launch of n_tiles clusters of FUSED_SPLIT blocks over
+    the band's tiles (tile_y0); the kernel reads counts itself, so nothing
+    here waits on the device."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"raster_fused_kernel takes CUDA tensors, got {dev}")
     _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
-                  GROUP)
+                  GROUP, tile_y0=tile_y0)
     _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     z = torch.empty((hp, wp), dtype=torch.float32, device=dev)
@@ -833,7 +843,7 @@ def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
-            *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), ctypes.c_int(tile_y0),
             _ptr(z), _ptr(tid), _ptr(nums), _ptr(metas), _stream(dev), tile=(tile_h, tile_w))
     fused_counter.launches += 1
     return z, tid, nums, metas
@@ -841,7 +851,7 @@ def raster_fused_kernel(rows, bins, counts, *, tiles_x: int, tiles_y: int,
 
 def rasterize_fused(rows, bins, counts, *, tiles_x: int, tiles_y: int,
                     tile_w: int, tile_h: int, chunk: int = CHUNK,
-                    group: int = GROUP):
+                    group: int = GROUP, tile_y0: int = 0):
     """Opaque fused raster over dense bins (bin_triangles_full).
 
     rows: (T, 48) f32 fat rows, T % chunk == 0; bins: (n_tiles, W) i32
@@ -849,16 +859,22 @@ def rasterize_fused(rows, bins, counts, *, tiles_x: int, tiles_y: int,
     i32, attrs (6, Hp, Wp), metas (13, Hp, Wp), inv (Hp, Wp)) — the
     contract of the JAX package's rasterize_fused_slabs. CPU tensors take
     the plain version, CUDA tensors the kernel.
+
+    tile_y0: the band's first tile row in the frame (a mesh rank's band;
+    0 for the whole frame). The bins and every output are the band's
+    tiles_y tile rows, and the pixel centers the frame's, so the band's
+    outputs equal the frame's rows tile_y0 * tile_h onward bit for bit.
     """
     dev = rows.device
-    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+                 tile_y0=tile_y0)
     _check_inputs(rows, bins, counts, chunk=chunk, group=group, **tiles)
     if dev.type == "cuda":
         z, tid, nums, metas = raster_fused_kernel(rows, bins, counts, **tiles)
     else:
         z, tid, nums, metas = rasterize_fused_plain(rows, bins, counts, chunk=chunk,
                                                     group=group, **tiles)
-    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev)
+    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev, tile_y0 * tile_h)
     attrs, metas13, inv = reconstruct_outputs(nums, metas, X, Y)
     return z, tid, attrs, metas13, inv
 
@@ -889,10 +905,11 @@ def _add_fragments(acc, cnt, c, take, X, Y, light):
 
 def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
                           tiles_y: int, tile_w: int, tile_h: int,
-                          chunk: int = CHUNK, group: int = GROUP):
+                          chunk: int = CHUNK, group: int = GROUP, tile_y0: int = 0):
     """Plain PyTorch twin of the raster_accum kernel: (acc (3, Hp, Wp) f32,
-    cnt (Hp, Wp) i32). Adds per pixel in ascending triangle order."""
-    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    cnt (Hp, Wp) i32) over the band from tile row tile_y0. Adds per pixel
+    in ascending triangle order."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device, tile_y0)
     n_tiles = X.shape[0]
     zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
     acc = [torch.zeros(X.shape, dtype=torch.float32, device=X.device)
@@ -912,7 +929,7 @@ def rasterize_accum_plain(rows, bins, counts, z_base, light, *, tiles_x: int,
 
 @checked
 def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
-                        tiles_y: int, tile_w: int, tile_h: int):
+                        tiles_y: int, tile_w: int, tile_h: int, tile_y0: int = 0):
     """Launch the raster_accum CUDA kernel (csrc/raster_accum.cu) on CUDA
     tensors: the same (acc, cnt) as rasterize_accum_plain at CHUNK/GROUP.
     One launch of n_tiles x accum_split(tile_w) blocks, with no wait on
@@ -921,14 +938,14 @@ def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
     if dev.type != "cuda":
         raise ValueError(f"raster_accum_kernel takes CUDA tensors, got {dev}")
     _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
-                  GROUP, z_base=z_base, light=light)
+                  GROUP, z_base=z_base, light=light, tile_y0=tile_y0)
     _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     acc = torch.empty((3, hp, wp), dtype=torch.float32, device=dev)
     cnt = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_accum_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
-            *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), ctypes.c_int(tile_y0),
             _ptr(z_base), _ptr(light), _ptr(acc), _ptr(cnt), _stream(dev), tile=(tile_h, tile_w))
     accum_counter.launches += 1
     return acc, cnt
@@ -936,15 +953,18 @@ def raster_accum_kernel(rows, bins, counts, z_base, light, *, tiles_x: int,
 
 def rasterize_accum(rows, bins, counts, z_base, light, *, tiles_x: int,
                     tiles_y: int, tile_w: int, tile_h: int,
-                    chunk: int = CHUNK, group: int = GROUP):
+                    chunk: int = CHUNK, group: int = GROUP, tile_y0: int = 0):
     """Sum-shade every untextured transparent fragment with z >= z_base.
 
     light: (8,) f32 [sun_dir xyz, sun_power, ambient rgb, 0]. Returns
     (acc (3, Hp, Wp) f32 summed colors, cnt (Hp, Wp) i32 fragments per
     pixel) — the contract of the JAX package's rasterize_accum_slabs. CPU
-    tensors take the plain version, CUDA tensors the kernel.
+    tensors take the plain version, CUDA tensors the kernel. tile_y0: the
+    band's first tile row, as rasterize_fused takes it (z_base is the
+    band's).
     """
-    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+                 tile_y0=tile_y0)
     _check_inputs(rows, bins, counts, chunk=chunk, group=group, z_base=z_base,
                   light=light, **tiles)
     if rows.device.type == "cuda":
@@ -999,11 +1019,12 @@ def rasterize_accum_chunks(rows, cbins, ccounts, z_base, light, *, tiles_x: int,
 def rasterize_peel_fused_plain(rows, bins, counts, z_base, last, *,
                                tiles_x: int, tiles_y: int, tile_w: int,
                                tile_h: int, chunk: int = CHUNK,
-                               group: int = GROUP):
+                               group: int = GROUP, tile_y0: int = 0):
     """Plain PyTorch twin of the raster_peel kernel: (best (Hp, Wp) i32,
     ID_INF where the pixel has no further layer, nums (4, Hp, Wp) f32,
-    metas (15, Hp, Wp) f32 of the triangle `best`)."""
-    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device)
+    metas (15, Hp, Wp) f32 of the triangle `best`) over the band from tile
+    row tile_y0."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, rows.device, tile_y0)
     n_tiles = X.shape[0]
     zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
     lt = _frame_to_tiles(last, tiles_x, tiles_y, tile_w, tile_h)
@@ -1027,7 +1048,7 @@ def rasterize_peel_fused_plain(rows, bins, counts, z_base, last, *,
 @checked
 def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
                              tiles_x: int, tiles_y: int, tile_w: int,
-                             tile_h: int):
+                             tile_h: int, tile_y0: int = 0):
     """Launch the raster_peel CUDA kernel (csrc/raster_peel.cu) on CUDA
     tensors: the same (best, nums, metas) as rasterize_peel_fused_plain at
     CHUNK/GROUP, for bins in any order. One launch of n_tiles clusters of
@@ -1036,7 +1057,7 @@ def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
     if dev.type != "cuda":
         raise ValueError(f"raster_peel_fused_kernel takes CUDA tensors, got {dev}")
     _check_inputs(rows, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
-                  GROUP, z_base=z_base, last=last)
+                  GROUP, z_base=z_base, last=last, tile_y0=tile_y0)
     _check_aligned(rows)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     best = torch.empty((hp, wp), dtype=torch.int32, device=dev)
@@ -1044,7 +1065,7 @@ def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
     metas = torch.empty((len(META_COLS), hp, wp), dtype=torch.float32, device=dev)
     _launch("raster_peel_fused_launch", _ptr(rows), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), ctypes.c_int(rows.shape[0] // CHUNK),
-            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), _ptr(z_base),
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), ctypes.c_int(tile_y0), _ptr(z_base),
             _ptr(last), _ptr(best), _ptr(nums), _ptr(metas), _stream(dev), tile=(tile_h, tile_w))
     peel_fused_counter.launches += 1
     return best, nums, metas
@@ -1052,7 +1073,7 @@ def raster_peel_fused_kernel(rows, bins, counts, z_base, last, *,
 
 def rasterize_peel_fused(rows, bins, counts, z_base, last, *, tiles_x: int,
                          tiles_y: int, tile_w: int, tile_h: int,
-                         chunk: int = CHUNK, group: int = GROUP):
+                         chunk: int = CHUNK, group: int = GROUP, tile_y0: int = 0):
     """One transparency peel over dense chunk bins (the JAX package's
     rasterize_peel_slabs): per pixel the smallest triangle id > last that
     covers it and passes z >= z_base, in submission order.
@@ -1062,7 +1083,8 @@ def rasterize_peel_fused(rows, bins, counts, z_base, last, *, tiles_x: int,
     opaque depth; last: (Hp, Wp) i32 previous layer (-1 before the first).
     Returns (best (Hp, Wp) i32, ID_INF where no layer, attrs (6, Hp, Wp),
     metas (13, Hp, Wp), inv (Hp, Wp)). CPU tensors take the plain version,
-    CUDA tensors the kernel.
+    CUDA tensors the kernel. tile_y0: the band's first tile row, as
+    rasterize_fused takes it (z_base and last are the band's).
 
     Bin order: the result is a min over the entries, the same for bins in
     any order. The kernel stops a walk early only where a segment's chunk
@@ -1070,7 +1092,8 @@ def rasterize_peel_fused(rows, bins, counts, z_base, last, *, tiles_x: int,
     cost the early stop, never the result.
     """
     dev = rows.device
-    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+                 tile_y0=tile_y0)
     _check_inputs(rows, bins, counts, chunk=chunk, group=group, z_base=z_base,
                   last=last, **tiles)
     if dev.type == "cuda":
@@ -1079,7 +1102,7 @@ def rasterize_peel_fused(rows, bins, counts, z_base, last, *, tiles_x: int,
     else:
         best, nums, metas = rasterize_peel_fused_plain(
             rows, bins, counts, z_base, last, chunk=chunk, group=group, **tiles)
-    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev)
+    X, Y = _frame_planes(tiles_y * tile_h, tiles_x * tile_w, dev, tile_y0 * tile_h)
     attrs, metas13, inv = reconstruct_outputs(nums, metas, X, Y)
     return best, attrs, metas13, inv
 
@@ -1201,10 +1224,11 @@ def _slots(bins, counts) -> int:
 
 
 def rasterize_plain(packed, bins, counts, *, tiles_x: int, tiles_y: int,
-                    tile_w: int, tile_h: int):
+                    tile_w: int, tile_h: int, tile_y0: int = 0):
     """Plain PyTorch twin of the raster_deferred kernel: (z (Hp, Wp) f32,
-    tid (Hp, Wp) i32), later bin entries winning ties."""
-    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, packed.device)
+    tid (Hp, Wp) i32) over the band from tile row tile_y0, later bin
+    entries winning ties."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, packed.device, tile_y0)
     z = torch.full(X.shape, DEPTH_CLEAR, dtype=torch.float32, device=X.device)
     tid = torch.full(X.shape, NO_TRI, dtype=torch.int32, device=X.device)
     for k in range(_slots(bins, counts)):
@@ -1219,7 +1243,7 @@ def rasterize_plain(packed, bins, counts, *, tiles_x: int, tiles_y: int,
 
 @checked
 def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
-                           tile_w: int, tile_h: int):
+                           tile_w: int, tile_h: int, tile_y0: int = 0):
     """Launch the raster_deferred CUDA kernel (csrc/raster_deferred.cu) on
     CUDA tensors: the same (z, tid) as rasterize_plain, for bins in any
     order. One launch of n_tiles clusters of VIS_SPLIT blocks, with no wait
@@ -1228,20 +1252,20 @@ def raster_deferred_kernel(packed, bins, counts, *, tiles_x: int, tiles_y: int,
     if dev.type != "cuda":
         raise ValueError(f"raster_deferred_kernel takes CUDA tensors, got {dev}")
     _check_inputs(packed, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
-                  GROUP, cols=SETUP_COLS)
+                  GROUP, cols=SETUP_COLS, tile_y0=tile_y0)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     z = torch.empty((hp, wp), dtype=torch.float32, device=dev)
     tid = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_deferred_launch", _ptr(packed), ctypes.c_int(packed.shape[0]),
             _ptr(bins), _ptr(counts), ctypes.c_int(bins.shape[1]),
-            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), _ptr(z), _ptr(tid),
-            _stream(dev), tile=(tile_h, tile_w))
+            *_tile_args(tiles_x, tiles_y, tile_h, tile_w), ctypes.c_int(tile_y0), _ptr(z),
+            _ptr(tid), _stream(dev), tile=(tile_h, tile_w))
     deferred_counter.launches += 1
     return z, tid
 
 
 def rasterize(packed, bins, counts, *, tiles_x: int, tiles_y: int, tile_w: int,
-              tile_h: int):
+              tile_h: int, tile_y0: int = 0):
     """Deferred visibility raster (the JAX package's raster.rasterize).
 
     packed: (T, 16) f32 setup rows (vertex.triangle_setup_c); bins:
@@ -1249,8 +1273,10 @@ def rasterize(packed, bins, counts, *, tiles_x: int, tiles_y: int, tile_w: int,
     expand_bins); counts: (n_tiles,) i32. Returns (z (Hp, Wp) f32, tid
     (Hp, Wp) i32, -1 where no triangle). Reversed-Z >=, later bin entries
     win ties. CPU tensors take the plain version, CUDA tensors the kernel.
+    tile_y0: the band's first tile row, as rasterize_fused takes it.
     """
-    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+                 tile_y0=tile_y0)
     _check_inputs(packed, bins, counts, chunk=CHUNK, group=GROUP,
                   cols=SETUP_COLS, **tiles)
     if packed.device.type == "cuda":
@@ -1259,10 +1285,11 @@ def rasterize(packed, bins, counts, *, tiles_x: int, tiles_y: int, tile_w: int,
 
 
 def rasterize_peel_plain(packed, bins, counts, z_base, last, *, tiles_x: int,
-                         tiles_y: int, tile_w: int, tile_h: int):
+                         tiles_y: int, tile_w: int, tile_h: int, tile_y0: int = 0):
     """Plain PyTorch twin of the raster_peel_deferred kernel: layer
-    (Hp, Wp) i32, ID_INF where the pixel has no further fragment."""
-    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, packed.device)
+    (Hp, Wp) i32 over the band from tile row tile_y0, ID_INF where the
+    pixel has no further fragment."""
+    X, Y = _tile_planes(tiles_x, tiles_y, tile_w, tile_h, packed.device, tile_y0)
     zb = _frame_to_tiles(z_base, tiles_x, tiles_y, tile_w, tile_h)
     lt = _frame_to_tiles(last, tiles_x, tiles_y, tile_w, tile_h)
     best = torch.full(X.shape, ID_INF, dtype=torch.int32, device=X.device)
@@ -1277,7 +1304,7 @@ def rasterize_peel_plain(packed, bins, counts, z_base, last, *, tiles_x: int,
 
 @checked
 def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
-                       tiles_y: int, tile_w: int, tile_h: int):
+                       tiles_y: int, tile_w: int, tile_h: int, tile_y0: int = 0):
     """Launch the raster_peel_deferred CUDA kernel (csrc/raster_deferred.cu)
     on CUDA tensors: the same layer plane as rasterize_peel_plain, for bins
     in any order. One launch of n_tiles clusters of PEEL_SPLIT blocks, with
@@ -1286,31 +1313,34 @@ def raster_peel_kernel(packed, bins, counts, z_base, last, *, tiles_x: int,
     if dev.type != "cuda":
         raise ValueError(f"raster_peel_kernel takes CUDA tensors, got {dev}")
     _check_inputs(packed, bins, counts, tiles_x, tiles_y, tile_w, tile_h, CHUNK,
-                  GROUP, z_base=z_base, last=last, cols=SETUP_COLS)
+                  GROUP, z_base=z_base, last=last, cols=SETUP_COLS, tile_y0=tile_y0)
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     layer = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _launch("raster_peel_deferred_launch", _ptr(packed),
             ctypes.c_int(packed.shape[0]), _ptr(bins), _ptr(counts),
             ctypes.c_int(bins.shape[1]), *_tile_args(tiles_x, tiles_y, tile_h, tile_w),
-            _ptr(z_base), _ptr(last), _ptr(layer), _stream(dev), tile=(tile_h, tile_w))
+            ctypes.c_int(tile_y0), _ptr(z_base), _ptr(last), _ptr(layer), _stream(dev),
+            tile=(tile_h, tile_w))
     peel_counter.launches += 1
     return layer
 
 
 def rasterize_peel(packed, bins, counts, z_base, last, *, tiles_x: int,
-                   tiles_y: int, tile_w: int, tile_h: int):
+                   tiles_y: int, tile_w: int, tile_h: int, tile_y0: int = 0):
     """One deferred transparency peel (the JAX package's
     raster.rasterize_peel): per pixel the smallest triangle id > last that
     covers it with 0 <= z <= 1 and z >= z_base. bins: per-triangle ids
     (refine_bins / expand_bins). Returns (Hp, Wp) i32, ID_INF where no
     fragment. CPU tensors take the plain version, CUDA tensors the kernel.
+    tile_y0: the band's first tile row, as rasterize_fused takes it.
 
     Bin order: the result is a min over the entries, the same for bins in
     any order. The kernel stops a walk early only where a segment's ids
     strictly ascend, as refine_bins and expand_bins write them; other
     orders cost the early stop, never the result.
     """
-    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h)
+    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+                 tile_y0=tile_y0)
     _check_inputs(packed, bins, counts, chunk=CHUNK, group=GROUP, z_base=z_base,
                   last=last, cols=SETUP_COLS, **tiles)
     if packed.device.type == "cuda":

@@ -4,10 +4,9 @@ parallel/multichip.py, which runs the same mesh over devices in one
 process (shard_map).
 
 * rows (image parallel): the framebuffer is cut into horizontal bands of
-  whole tiles; each rank bins, rasterizes and shades only its band. The
-  planes keep the frame's coordinates, so a rank's raster launches run
-  from the frame's first tile row to its band's last, the rows above the
-  band without entries (render_frame_multichip says why).
+  whole tiles; each rank bins, rasterizes and shades only its band: its
+  raster launches cover the band's tiles alone (tile_y0), and the planes
+  keep the frame's coordinates (render_frame_multichip says why).
 * tri (triangle parallel, sort-last): each triangle set is padded to a
   multiple of raster.CHUNK * n_tri and cut into n_tri equal shards; each
   rank rasterizes its shard against its band, then the visibility
@@ -44,7 +43,7 @@ import torch
 import torch.distributed as dist
 
 from tpu_renderer_torch import pipeline
-from tpu_renderer_torch.kernels import raster, shade, vertex
+from tpu_renderer_torch.kernels import conditional, raster, shade, vertex
 from tpu_renderer_torch.kernels.common import pad_extent, round_up
 from tpu_renderer_torch.pipeline import FrameParams, SceneBuffers
 from tpu_renderer_torch.present import to_packed_u32
@@ -77,7 +76,9 @@ class Mesh:
 
     timing=True synchronises the card around every collective and adds its
     host time to collective_ms (and 1 to collectives); off, a collective
-    costs one attribute test more."""
+    costs one attribute test more. A synchronisation cannot be captured, so
+    a collective under a CUDA graph capture (frame_graph.FrameGraph) with
+    timing on raises."""
 
     def __init__(self, n_rows: int, n_tri: int, device: torch.device, groups):
         self.n_rows, self.n_tri = n_rows, n_tri
@@ -97,6 +98,10 @@ class Mesh:
     def _timed(self, fn):
         if not self.timing:
             return fn()
+        if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("Mesh.timing synchronises the card around each "
+                               "collective, which a CUDA graph capture cannot "
+                               "hold: turn it off to capture the mesh frame")
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else (lambda _dev: None))
         sync(self.device)
@@ -299,25 +304,6 @@ def _shard_set(corners: vertex.CornerData, draw, valid, mesh: Mesh):
             cut(valid, False), n_pad // mesh.n_tri)
 
 
-def _above(t, rows: int, fill):
-    """t (..., h, W) below `rows` rows of `fill` (dim -2)."""
-    if not rows:
-        return t
-    pad = torch.full(tuple(t.shape[:-2]) + (rows, t.shape[-1]), fill,
-                     dtype=t.dtype, device=t.device)
-    return torch.cat([pad, t], dim=-2)
-
-
-def _under_empty_tiles(bins, counts, n_tiles: int):
-    """Bins of a band's tiles below n_tiles empty ones."""
-    if not n_tiles:
-        return bins, counts
-    return (torch.cat([torch.full((n_tiles, bins.shape[1]), raster.NO_TRI,
-                                  dtype=bins.dtype, device=bins.device), bins]),
-            torch.cat([torch.zeros(n_tiles, dtype=counts.dtype,
-                                   device=counts.device), counts]))
-
-
 @torch.no_grad()
 def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
                            mesh: Mesh, width: int, height: int,
@@ -343,10 +329,17 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
     Global coordinates: the planes are the single-device frame's, not
     rebased to the band (the JAX body's C += B * y0 rounds the planes
     otherwise and moves 0.17% of the 1080p bench frame's pixels by a u8
-    step). So a rank's raster launches cover the tile rows from the top of
-    the frame to the bottom of its band, those above it empty (their boxes
-    binned moved up by y0, a whole number of tiles, into the band's tiles
-    alone), and the band is sliced from their outputs.
+    step). A rank's bins are its band's tiles (the boxes binned moved up
+    by y0, a whole number of tiles), and its raster launches cover those
+    tiles alone, from the frame's tile row y0 / tile_h (the kernels'
+    tile_y0), so every plane, depth and layer id is band-sized while each
+    pixel center stays the frame's: what the JAX body's grid covers, in
+    the frame's coordinates.
+
+    Every rank draws the same operations in the same order, so the frame
+    captures as one CUDA graph where the collectives can be captured
+    (nccl: frame_graph.FrameGraph with mesh=), the textured peel a WHILE
+    node whose test each 'tri' group agrees on (_peel).
 
     bg_fb: optional (4, Hp, Wp) background at the mesh's padded extent
     (background_fb); out_width/out_height: the upscale blit, after the
@@ -357,15 +350,12 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
     band_tiles = dict(tiles_x=wp // tile_w, tiles_y=band_h // tile_h,
                       tile_w=tile_w, tile_h=tile_h)
     y0 = mesh.row * band_h
-    tiles = dict(band_tiles, tiles_y=(y0 + band_h) // tile_h)
-    n_above = (y0 // tile_h) * band_tiles["tiles_x"]
+    # the raster launches: the band's tiles, from the frame's tile row
+    tiles = dict(band_tiles, tile_y0=y0 // tile_h)
     dev = buffers.draw_model.device
 
     def q(x):
         return x.half().float() if fp16 else x
-
-    def band(t):
-        return t[..., y0:, :]
 
     if bg_fb is None:
         bg_fb = background_fb(params, mesh=mesh, width=width, height=height,
@@ -400,8 +390,7 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
             valid_s = valid_l
             if sort:
                 aabb, valid_s, rows = raster.spatial_sort(aabb, valid_l, rows)
-            bins, counts = _under_empty_tiles(
-                *pipeline._bins(band_boxes(aabb), valid_s, band_tiles), n_above)
+            bins, counts = pipeline._bins(band_boxes(aabb), valid_s, band_tiles)
             return dict(rows=rows.contiguous(), bins=bins, counts=counts,
                         valid=valid_l)
         s, rows = pipeline._deferred_setup(corners, draw, valid, buffers, visible,
@@ -414,9 +403,8 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
                     ccounts=ccounts, valid=s.valid, overflow_c=overflow_c)
 
     def refine(st):
-        bins, counts, overflow = raster.refine_bins(st["cbins"], st["aabb"],
-                                                    tri_cap=tri_cap, **band_tiles)
-        return (*_under_empty_tiles(bins, counts, n_above), overflow)
+        return raster.refine_bins(st["cbins"], st["aabb"], tri_cap=tri_cap,
+                                  **band_tiles)
 
     # -- opaque: the shard's raster, composited over 'tri' ------------------
     corners, draw, valid, t_shard = _shard_set(
@@ -427,13 +415,12 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
         st["valid"].sum(dtype=torch.int32), "sum", "tri")
     base = mesh.tri * t_shard
     if fused:
-        z, tid_l, attrs, meta, inv = (band(t) for t in raster.rasterize_fused(
-            st["rows"], st["bins"], st["counts"], **tiles))
+        z, tid_l, attrs, meta, inv = raster.rasterize_fused(
+            st["rows"], st["bins"], st["counts"], **tiles)
     else:
         peaks["bin_overflow"] = st["overflow_c"]
         bins, counts, peaks["bin_overflow_tris"] = refine(st)
-        z, tid_l = (band(t) for t in raster.rasterize(st["packed"], bins, counts,
-                                                      **tiles))
+        z, tid_l = raster.rasterize(st["packed"], bins, counts, **tiles)
     # local -> global ids; the deepest z wins, a tie the larger id
     tid = torch.where(tid_l >= 0, tid_l + base, raster.NO_TRI)
     zmax = mesh.all_reduce(z, "max", "tri")
@@ -467,14 +454,12 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
                    sort=not textured_peel)
         if not fused:
             peaks["bin_overflow_transparent"] = st["overflow_c"]
-        z_frame = _above(z, y0, raster.DEPTH_CLEAR)
         if not textured_peel:
             light = torch.cat([params.sun_dir[:3], params.sun_color[3:4],
                                params.ambient[:3],
                                torch.zeros(1, dtype=torch.float32, device=dev)])
-            acc, cnt = (band(t) for t in raster.rasterize_accum(
-                st["rows"], st["bins"], st["counts"], z_frame, light.contiguous(),
-                **tiles))
+            acc, cnt = raster.rasterize_accum(st["rows"], st["bins"], st["counts"], z,
+                                              light.contiguous(), **tiles)
             acc = mesh.all_reduce(acc, "sum", "tri")
             cnt = mesh.all_reduce(cnt, "sum", "tri")
             fb = pipeline._composite(fb, cnt > 0, acc, q)
@@ -485,8 +470,9 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
             else:
                 bins, counts, peaks["bin_overflow_transparent_tris"] = refine(st)
             fb, peaks["transparent_layers"] = _peel(
-                mesh, st, bins, counts, z_frame, fb, q, mesh.tri * t_shard, y0,
-                fused, transp_textured, look, tiles)
+                mesh, st, bins, counts, z, fb, q, mesh.tri * t_shard, y0,
+                fused, transp_textured, look, tiles,
+                limit=buffers.transp_tri_vidx.shape[0])
 
     names = list(peaks)
     peak = mesh.all_reduce(torch.stack([peaks[k].to(torch.int32) for k in names]),
@@ -503,49 +489,63 @@ def render_frame_multichip(buffers: SceneBuffers, params: FrameParams, *,
     return image[:height, :width].contiguous(), aux
 
 
-def _peel(mesh, st, bins, counts, z_frame, fb, q, base_id, y0, fused, textured,
-          look, tiles):
+def _peel(mesh, st, bins, counts, z, fb, q, base_id, y0, fused, textured,
+          look, tiles, limit: int):
     """The textured transparent pass: the global submission-order peel.
-    Each layer every 'tri' rank peels its shard's next layer (kernel 2.3 on
-    the fused path, 2.5 on the deferred one) over the tile rows down to its
-    band, a MIN over 'tri' elects the smallest global id, and the winner's
-    planes (fused) or shaded colour (deferred) are summed over 'tri' under
-    the win mask; the layer blends in and quantises to fp16 as the
-    single-device loop does. Returns (fb, layers peeled in this band)."""
+    Each layer every 'tri' rank peels its shard's next layer over its
+    band's tiles (kernel 2.3 on the fused path, 2.5 on the deferred one), a
+    MIN over 'tri' elects the smallest global id, and the winner's planes
+    (fused) or shaded colour (deferred) are summed over 'tri' under the win
+    mask; the layer blends in and quantises to fp16 as the single-device
+    loop does. Returns (fb, layers peeled in this band, a device scalar).
+
+    The loop is pipeline._peel_on_device's: a WHILE node around an IF node
+    under a FrameGraph capture (its collectives captured inside the
+    nodes' bodies), host tests elsewhere (gloo, the CPU, an eager frame).
+    After the MIN `found` is the same on every rank of a 'tri' group, so
+    the group's ranks run the same passes, and the same collectives, with
+    no collective of their own for the stop. Bands stop apart: their
+    collectives are their own groups'. As there, a band of `limit`
+    transparent triangles peels at most `limit` layers."""
     last = torch.full(fb.shape[1:], -1, dtype=torch.int32, device=fb.device)
-    layers = 0
-    while True:
+    layers = torch.zeros((), dtype=torch.int32, device=fb.device)
+    fb = fb.clone()   # updated in place
+
+    def one_pass():
         # global last -> this shard's eligibility threshold: an earlier
         # shard's winner clamps to -1 (all eligible), a later one stays
         # above every local id (none eligible)
-        last_l = _above(torch.clamp(last - base_id, -1, raster.ID_INF), y0, -1)
+        last_l = torch.clamp(last - base_id, -1, raster.ID_INF)
         if fused:
-            layer_l, attrs, meta, inv = (t[..., y0:, :] for t in raster.rasterize_peel_fused(
-                st["rows"], bins, counts, z_frame, last_l, **tiles))
+            layer_l, attrs, meta, inv = raster.rasterize_peel_fused(
+                st["rows"], bins, counts, z, last_l, **tiles)
         else:
-            layer_l = raster.rasterize_peel(st["packed"], bins, counts, z_frame,
-                                            last_l, **tiles)[y0:]
+            layer_l = raster.rasterize_peel(st["packed"], bins, counts, z, last_l,
+                                            **tiles)
         found_l = layer_l < raster.ID_INF
         gl = torch.where(found_l, layer_l + base_id, raster.ID_INF)
         layer = mesh.all_reduce(gl, "min", "tri")
         found = layer < raster.ID_INF
-        # after the MIN `found` is the same on every rank of the 'tri'
-        # group, so each group's ranks leave the loop together: the one
-        # host sync a layer needs no collective of its own
-        if not bool(found.any()):
-            break
-        layers += 1
-        win = found_l & (gl == layer)
-        if fused:
-            planes = torch.cat([attrs, meta, inv[None]])
-            planes = mesh.all_reduce(torch.where(win[None], planes, 0.0), "sum", "tri")
-            na, nm = attrs.shape[0], meta.shape[0]
-            src = shade.shade_fused(planes[:na], planes[na:na + nm],
-                                    planes[na + nm], textured=textured, **look)
-        else:
-            src = shade.shade_core(torch.where(found_l, layer_l, 0), st["rows"],
-                                   textured=textured, y0=y0, **look)
-            src = mesh.all_reduce(torch.where(win[None], src, 0.0), "sum", "tri")
-        fb = pipeline._composite(fb, found, src, q)
-        last = torch.where(found, layer, raster.ID_INF)
-    return fb, torch.tensor(layers, dtype=torch.int32, device=fb.device)
+        more = found.any()
+
+        def keep():
+            win = found_l & (gl == layer)
+            if fused:
+                planes = torch.cat([attrs, meta, inv[None]])
+                planes = mesh.all_reduce(torch.where(win[None], planes, 0.0), "sum", "tri")
+                na, nm = attrs.shape[0], meta.shape[0]
+                src = shade.shade_fused(planes[:na], planes[na:na + nm],
+                                        planes[na + nm], textured=textured, **look)
+            else:
+                src = shade.shade_core(torch.where(found_l, layer_l, 0), st["rows"],
+                                       textured=textured, y0=y0, **look)
+                src = mesh.all_reduce(torch.where(win[None], src, 0.0), "sum", "tri")
+            fb.copy_(pipeline._composite(fb, found, src, q))
+            last.copy_(torch.where(found, layer, raster.ID_INF))
+            layers.add_(1)
+
+        conditional.run_if(more, keep)
+        return more & (layers <= limit)
+
+    conditional.run_while(torch.ones((), dtype=torch.bool, device=fb.device), one_pass)
+    return fb, layers

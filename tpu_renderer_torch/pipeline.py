@@ -29,9 +29,9 @@ jax.jit(render_frame) is: frame_graph.FrameGraph captures the frame once per
 key of statics as a CUDA graph, with the peel loop inside it as a WHILE node
 (kernels/conditional.py: lax.while_loop's counterpart), and replays it;
 render_frames, given the Engine's render_fn(), replays one captured frame
-per FrameParams (lax.scan's counterpart). The CPU, a multi-device mesh and
-the eager() block draw op by op; the peel loop is the same, its tests read
-on the host.
+per FrameParams (lax.scan's counterpart); a mesh over nccl is captured the
+same way (parallel/multichip.py). The CPU, a mesh over gloo and the eager()
+block draw op by op; the peel loop is the same, its tests read on the host.
 """
 
 from __future__ import annotations

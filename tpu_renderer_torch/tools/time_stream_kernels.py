@@ -118,12 +118,23 @@ def expanded_bins(dense_bins, counts):
     return raster.expand_bins(torch.where(live, dense_bins >> shift, raster.NO_TRI), n)
 
 
+def frame_tiles(kwargs) -> dict:
+    """A frame kernel's tile arguments (tiles_x, tiles_y, tile_w, tile_h)
+    without its band's first tile row, as the gathered oracles and the
+    binning take them: those cover the whole frame, so the call must be
+    one over the whole frame (tile_y0 = 0)."""
+    out = dict(kwargs)
+    if out.pop("tile_y0", 0):
+        raise ValueError(f"a call over a band ({kwargs}) has no whole-frame twin")
+    return out
+
+
 def oracle_call(call):
-    """A call (args, kwargs) of kernel 2.2 or 2.3 -> the same call of its
-    gathered oracle, 2.7 or 2.8: the same rows and planes, the chunk bin
-    expanded (expanded_bins)."""
+    """A call (args, kwargs) of kernel 2.2 or 2.3 over the whole frame ->
+    the same call of its gathered oracle, 2.7 or 2.8: the same rows and
+    planes, the chunk bin expanded (expanded_bins)."""
     (rows, dense, counts, *rest), kwargs = call
-    return (rows, *expanded_bins(dense, counts), *rest), kwargs
+    return (rows, *expanded_bins(dense, counts), *rest), frame_tiles(kwargs)
 
 
 def gathered_calls(tmp: str) -> dict:
