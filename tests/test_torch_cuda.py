@@ -1252,6 +1252,72 @@ def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
         assert eng.draw().shape == (H, W, 4)
 
 
+def test_graphed_frame_stamps_every_peel_pass(cuda, tmp_path):
+    """A graphed textured-glass frame under profiling.tracing(): each replay
+    stamps the frame's spans, the WHILE body's once a pass (layers + 1
+    passes, numbered on the card, in increasing time); the graph captured
+    with tracing off holds no stamp and replays the same image; the
+    calibration's round trip stays under 50 us."""
+    from tpu_renderer_torch.utils import profiling
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng = _path_engine(path, cuda, "textured-glass")
+    eng.draw()
+    raster.stamp_counter.reset()
+    off = eng.draw()                          # a replay of the graph captured untraced
+    assert raster.stamp_counter.total() == 0
+    with profiling.tracing() as trace:
+        first = eng.draw()                    # the traced capture (its first frame eager)
+        on = [eng.draw() for _ in range(3)]   # replays
+    layers = int(eng._last_aux["transparent_layers"])
+    assert layers >= 1 and len(eng.frame_graphs) == 2
+    for image in (first, *on):
+        np.testing.assert_array_equal(image, off)
+    summary = trace.summary()
+    assert summary["dropped"] == 0 and summary["calibration_us"] < 50.0
+    assert [f["frame"] for f in summary["frames"]] == [1, 2, 3, 4]
+    for f in summary["frames"]:
+        assert f["peel_passes"] == layers + 1 and len(f["peel_shaded_ms"]) == layers
+        assert abs(sum(f["device_self_ms"].values()) - f["device_ms"]["frame"]) < 1e-6
+    for frame in (2, 3, 4):
+        passes = [s for s in trace.device_spans() if s[0] == "peel_pass" and s[4] == frame]
+        assert [s[5] for s in passes] == list(range(layers + 1))
+        starts = [s[1] for s in passes]
+        assert starts == sorted(starts) and all(s[1] < s[2] for s in passes)
+    raster.stamp_counter.reset()
+    np.testing.assert_array_equal(eng.draw(), off)
+    assert raster.stamp_counter.total() == 0
+
+
+def test_a_cpu_frame_traced_on_a_card_host_stamps_on_the_cpu(cuda, tmp_path):
+    """The trace stamps on the device a frame runs on, not on the current
+    card: a CPU engine's traced frame stamps on the CPU beside a card, and a
+    card's frame in the same block raises rather than stamp into another
+    device's log."""
+    from tpu_renderer_torch.utils import profiling
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo2.glb")
+    build_demo_glb(path, grid=2, seed=0)
+    cpu = _path_engine(path, "cpu", "textured-glass")
+    card = _path_engine(path, cuda, "textured-glass")
+    card.draw()
+    off = cpu.draw()
+    raster.stamp_counter.reset()
+    with profiling.tracing() as trace:
+        on = cpu.draw()
+        with pytest.raises(ValueError, match="one device"):
+            card.draw()
+    assert trace.device == torch.device("cpu")
+    assert [s[0] for s in trace.device_spans() if s[3] == -1] == ["frame"]
+    assert raster.stamp_counter.total() == len(trace.stamps) > 0
+    np.testing.assert_array_equal(on, off)
+    summary = trace.summary()
+    assert summary["timer_step_ns"] is None and len(summary["frames"]) == 1
+
+
 # -- every tile of the kernels' set (raster.TILES), and tiles past it --------
 
 # tiles raster.tile_rule takes outside the shipped set, each built into a

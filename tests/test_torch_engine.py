@@ -255,12 +255,6 @@ def test_draw_pipelined_present_cells_and_hud(demo_glb):
 
 
 def test_profiling_helpers_equal_jax(tmp_path):
-    t, jt = profiling.FrameTimer(window=2), jprofiling.FrameTimer(window=2)
-    for timer in (t, jt):
-        for _ in range(3):
-            with timer:
-                pass
-    assert len(t.samples) == len(jt.samples) == 2 and t.mean_ms >= 0 and t.fps >= 0
     eng = Engine(RendererConfig(width=128, height=32), device="cpu")
     eng.init()
     with profiling.device_trace(str(tmp_path / "trace")) as prof:
@@ -268,6 +262,7 @@ def test_profiling_helpers_equal_jax(tmp_path):
     assert prof is not None
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
     assert os.path.getsize(tmp_path / "trace" / "key_averages.txt") > 0
+    assert os.path.getsize(tmp_path / "trace" / "spans.json") > 0
     assert profiling.stats_text(eng.stats) == jprofiling.stats_text(eng.stats)
     assert "triangles" in profiling.stats_text(eng.stats)
 

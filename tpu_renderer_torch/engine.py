@@ -62,6 +62,7 @@ from tpu_renderer_torch.kernels import raster
 from tpu_renderer_torch.pipeline import FrameParams, background_fb, graphed, render_frame
 from tpu_renderer_torch.present import unpack_u8
 from tpu_renderer_torch.resources import FILTER_MIP_LINEAR
+from tpu_renderer_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -108,19 +109,23 @@ def _check_config(cfg: RendererConfig) -> None:
 
 class _InFlight:
     """One submitted frame of draw_pipelined: its host image (pinned and
-    still being written until `ready` has passed, on CUDA), its counters and
-    its frame number."""
+    still being written until `ready` has passed, on CUDA), its counters,
+    its frame number and, while tracing, its traced frame's number."""
 
     def __init__(self, host, ready, aux, frame_number):
         self.host, self.ready, self.aux = host, ready, aux
         self.frame_number = frame_number
+        self.traced_frame = profiling.frame_number()
 
     def image(self) -> np.ndarray:
-        """Wait for the copy, then the frame as (H, W, 4) uint8."""
-        if self.ready is not None:
-            self.ready.synchronize()
+        """Wait for the copy, then the frame as (H, W, 4) uint8 (host spans
+        wait and copy_out, while tracing)."""
+        with profiling.span("wait"):
+            if self.ready is not None:
+                self.ready.synchronize()
         # a copy: the pinned slot is written again FRAME_OVERLAP frames on
-        return unpack_u8(self.host.numpy()).copy()
+        with profiling.span("copy_out"):
+            return unpack_u8(self.host.numpy()).copy()
 
 
 class Engine:
@@ -157,26 +162,29 @@ class Engine:
             raise NoDeviceError(
                 "Engine runs on the CUDA card by default and no CUDA device "
                 "is available: pass device=\"cpu\" to render on the CPU")
-        if self.config.multichip is not None:
-            # the mesh first: it decides the rank's card
-            from tpu_renderer_torch.parallel import multichip
+        with profiling.setup_step("Engine.init"):
+            if self.config.multichip is not None:
+                # the mesh first: it decides the rank's card
+                from tpu_renderer_torch.parallel import multichip
 
-            self.mesh = multichip.make_mesh(*self.config.multichip,
-                                            device=self.device)
-            self.device = self.mesh.device
-        if scene is not None:
-            self.scene = scene
-        elif scene_path is not None:
-            self.scene = scene_mod.load_scene(scene_path, variant=variant)
-        else:
-            # empty scene: background only
-            self.scene = scene_mod.LoadedScene()
-            scene_mod.default_materials_and_textures(self.scene)
-        # the graphs read the old scene's buffers (a new scene's may take
-        # their ids, which key the graphs)
-        self.frame_graphs.clear()
-        self.flat = scene_mod.flatten_scene(self.scene, device=self.device)
-        self._compute_caps()
+                self.mesh = multichip.make_mesh(*self.config.multichip,
+                                                device=self.device)
+                self.device = self.mesh.device
+            with profiling.setup_step("load"):
+                if scene is not None:
+                    self.scene = scene
+                elif scene_path is not None:
+                    self.scene = scene_mod.load_scene(scene_path, variant=variant)
+                else:
+                    # empty scene: background only
+                    self.scene = scene_mod.LoadedScene()
+                    scene_mod.default_materials_and_textures(self.scene)
+            # the graphs read the old scene's buffers (a new scene's may take
+            # their ids, which key the graphs)
+            self.frame_graphs.clear()
+            self.flat = scene_mod.flatten_scene(self.scene, device=self.device)
+            with profiling.setup_step("caps"):
+                self._compute_caps()
 
     def _compute_caps(self) -> None:
         """Per-scene statics: the deferred path's bin capacities, the
@@ -307,13 +315,16 @@ class Engine:
 
     def update_scene(self, top_matrix=None,
                      refresh_transforms: bool = False) -> FrameParams:
-        t0 = time.perf_counter()
-        self.camera.update()
-        if refresh_transforms or top_matrix is not None:
-            self.flat.refresh_transforms(self.scene, top_matrix)
-        params = self.frame_params()
-        self.stats.scene_update_time = (time.perf_counter() - t0) * 1000.0
-        return params
+        """The camera, the transforms when asked, and the frame's uniforms
+        (a host span update_scene, while tracing)."""
+        with profiling.span("update_scene"):
+            t0 = time.perf_counter()
+            self.camera.update()
+            if refresh_transforms or top_matrix is not None:
+                self.flat.refresh_transforms(self.scene, top_matrix)
+            params = self.frame_params()
+            self.stats.scene_update_time = (time.perf_counter() - t0) * 1000.0
+            return params
 
     def draw_device(self, params: Optional[FrameParams] = None):
         """Render one frame, leaving the image on the device. Returns (image
@@ -323,17 +334,18 @@ class Engine:
         frame; render_fn); the image and aux are the caller's own."""
         if params is None:
             params = self.update_scene()
-        cfg = self.config
-        statics = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-                       fp16=cfg.framebuffer_fp16,
-                       transp_textured=self._transp_textured(), fused=self._fused,
-                       trilinear=self._trilinear, pot=self._pot,
-                       bg_fb=self._bg_fb_cached(params), **self._extents(),
-                       **self._caps)
-        image, aux = self.render_fn()(self.flat.buffers, params, **statics)
-        self.frame_number += 1
-        self._last_aux = aux
-        return image, aux
+        with profiling.span("draw_device"):
+            cfg = self.config
+            statics = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                           fp16=cfg.framebuffer_fp16,
+                           transp_textured=self._transp_textured(), fused=self._fused,
+                           trilinear=self._trilinear, pot=self._pot,
+                           bg_fb=self._bg_fb_cached(params), **self._extents(),
+                           **self._caps)
+            image, aux = self.render_fn()(self.flat.buffers, params, **statics)
+            self.frame_number += 1
+            self._last_aux = aux
+            return image, aux
 
     def render_fn(self):
         """What draws this engine's frames, with render_frame's signature:
@@ -446,28 +458,36 @@ class Engine:
         viewer.frame_to_halfblocks, returned as (rows * 2, cols, 4).
         Stats (one small device fetch) refresh every stats_interval frames;
         on the deferred path that delays the cap escalation by up to an
-        interval (the fused path cannot overflow)."""
-        t0 = time.perf_counter()
-        params = self.update_scene()
-        image, aux = self.draw_device(params)
-        if present_cells is not None:
-            cols, rows = present_cells
-            h, w = image.shape
-            ys = (np.arange(rows * 2) * (h / (rows * 2))).astype(np.int64).clip(0, h - 1)
-            xs = (np.arange(cols) * (w / cols)).astype(np.int64).clip(0, w - 1)
-            image = image[torch.as_tensor(ys, device=self.device)][
-                :, torch.as_tensor(xs, device=self.device)]
-        self._inflight.append(self._submit(image, aux))
-        if len(self._inflight) < self.FRAME_OVERLAP:
-            return None
-        old = self._inflight.popleft()
-        out = old.image()
-        if stats_interval and (old.frame_number - 1) % stats_interval == 0:
-            self._update_stats(old.aux)
-        self.stats.mesh_draw_time = (time.perf_counter() - t0) * 1000.0
-        if hud and present_cells is None:
-            hud_mod.draw_stats(out, self.stats)
-        return out
+        interval (the fused path cannot overflow).
+
+        Host spans, while tracing: draw_pipelined, and inside it
+        update_scene, draw_device, submit, fetch (the frame it delivers:
+        wait and copy_out) and update_stats."""
+        with profiling.span("draw_pipelined"):
+            t0 = time.perf_counter()
+            params = self.update_scene()
+            image, aux = self.draw_device(params)
+            with profiling.span("submit"):
+                if present_cells is not None:
+                    cols, rows = present_cells
+                    h, w = image.shape
+                    ys = (np.arange(rows * 2) * (h / (rows * 2))).astype(np.int64).clip(0, h - 1)
+                    xs = (np.arange(cols) * (w / cols)).astype(np.int64).clip(0, w - 1)
+                    image = image[torch.as_tensor(ys, device=self.device)][
+                        :, torch.as_tensor(xs, device=self.device)]
+                self._inflight.append(self._submit(image, aux))
+            if len(self._inflight) < self.FRAME_OVERLAP:
+                return None
+            old = self._inflight.popleft()
+            with profiling.span("fetch", frame=old.traced_frame):
+                out = old.image()
+            if stats_interval and (old.frame_number - 1) % stats_interval == 0:
+                with profiling.span("update_stats"):
+                    self._update_stats(old.aux)
+            self.stats.mesh_draw_time = (time.perf_counter() - t0) * 1000.0
+            if hud and present_cells is None:
+                hud_mod.draw_stats(out, self.stats)
+            return out
 
     def _submit(self, image, aux) -> _InFlight:
         """Start frame `image`'s copy to the host. On CUDA: into the least

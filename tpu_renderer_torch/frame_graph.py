@@ -22,12 +22,12 @@ from __future__ import annotations
 
 import collections
 import functools
-import time
 
 import torch
 
 from tpu_renderer_torch.kernels import conditional, raster
 from tpu_renderer_torch.pipeline import FrameParams, SceneBuffers, render_frame
+from tpu_renderer_torch.utils import profiling
 
 
 class _Input:
@@ -52,8 +52,10 @@ class _Input:
 def graph_key(buffers: SceneBuffers, bg_fb, statics: dict, mesh=None) -> tuple:
     """What a FrameGraph is captured for: render_frame's statics (extent,
     out extent, tile, caps, fp16, transp_textured, fused, trilinear, pot),
-    the scene's buffers, by identity, and the mesh's shape and this rank
-    (None with no mesh); not the values of the params, draw_model or the
+    the scene's buffers, by identity, the mesh's shape and this rank
+    (None with no mesh), and the trace's flag (profiling.graph_flag: None
+    with tracing off, so a graph holds stamps only where it was captured
+    while tracing); not the values of the params, draw_model or the
     background, which a replay copies in."""
     ids = []
 
@@ -67,7 +69,7 @@ def graph_key(buffers: SceneBuffers, bg_fb, statics: dict, mesh=None) -> tuple:
     walk(buffers._replace(draw_model=None))
     where = None if mesh is None else (mesh.n_rows, mesh.n_tri, mesh.rank)
     return (tuple(ids), tuple(buffers.draw_model.shape), tuple(bg_fb.shape),
-            tuple(sorted(statics.items())), where)
+            tuple(sorted(statics.items())), where, profiling.graph_flag())
 
 
 def _frame_fn(mesh):
@@ -97,7 +99,11 @@ class FrameGraph:
 
     The launch counters stay true: a capture launches nothing, so what its
     wrappers counted is taken back, and each replay adds it; the launches
-    inside the peel loop count on the card (raster._Counter.to_device)."""
+    inside the peel loop count on the card (raster._Counter.to_device).
+
+    The set-up record (profiling.setup_step) holds the first frame and the
+    capture; captured while tracing, the graph holds the frame's device
+    spans, and each replay counts a traced frame."""
 
     def __init__(self, buffers: SceneBuffers, params: FrameParams, bg_fb, statics: dict,
                  mesh=None):
@@ -108,9 +114,10 @@ class FrameGraph:
         dev = buffers.draw_model.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), profiling.setup_step("first frame"):
             # also makes the mesh's communicators, before any capture
             image, aux = frame(buffers, params, bg_fb=bg_fb, **statics)
+            torch.cuda.synchronize(dev)
         torch.cuda.current_stream(dev).wait_stream(side)
         for t in (image, *aux.values()):
             t.record_stream(torch.cuda.current_stream(dev))
@@ -126,11 +133,12 @@ class FrameGraph:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
+        self.device, self.traced = dev, profiling.graph_flag() is not None
         self._graph = torch.cuda.CUDAGraph()
         self._bodies = torch.cuda.MemPool()
         pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.stream(torch.cuda.Stream(dev)), conditional.bodies_into(self._bodies):
+        with torch.cuda.stream(torch.cuda.Stream(dev)), \
+                conditional.bodies_into(self._bodies), profiling.setup_step("capture") as rec:
             self._graph.capture_begin(pool=pool)
             try:
                 img, aux = frame(self._buffers, static_params, bg_fb=bufs[-1], **statics)
@@ -142,18 +150,26 @@ class FrameGraph:
                 raise
             finally:
                 self._launches = raster._Counter.restore(before)
-        self.capture_ms = (time.perf_counter() - t0) * 1000.0
+        self.capture_ms = rec["ms"]
         self.pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 20
 
     def replay(self, buffers: SceneBuffers, params: FrameParams, bg_fb):
         """The frame for these inputs: (image, aux) as render_frame returns
-        them, copies of the graph's own (the next replay overwrites those)."""
-        for i, t in zip(self._inputs, (*params, buffers.draw_model, bg_fb)):
-            i.refresh(t)
-        self._graph.replay()
-        raster._Counter.add(self._launches)
-        aux = self._aux.clone()
-        return self._image.clone(), {k: aux[i] for i, k in enumerate(self.keys)}
+        them, copies of the graph's own (the next replay overwrites those).
+        Host spans, while tracing: replay, and inside it refresh, launch and
+        clones."""
+        with profiling.span("replay"):
+            with profiling.span("refresh"):
+                for i, t in zip(self._inputs, (*params, buffers.draw_model, bg_fb)):
+                    i.refresh(t)
+            with profiling.span("launch"):
+                if self.traced:
+                    profiling.replayed_frame(self.device)
+                self._graph.replay()
+            raster._Counter.add(self._launches)
+            with profiling.span("clones"):
+                aux = self._aux.clone()
+                return self._image.clone(), {k: aux[i] for i, k in enumerate(self.keys)}
 
 
 def _abandon(graph, dev, pool) -> None:
@@ -185,14 +201,16 @@ class GraphCache:
               mesh=None):
         """(graph, first): the key's graph, with its warm-up frame when this
         call captured it (else None)."""
-        key = graph_key(buffers, bg_fb, statics, mesh)
-        g = self._graphs.get(key)
-        if g is not None:
-            self._graphs.move_to_end(key)
-            return g, None
+        with profiling.span("graph"):
+            key = graph_key(buffers, bg_fb, statics, mesh)
+            g = self._graphs.get(key)
+            if g is not None:
+                self._graphs.move_to_end(key)
+                return g, None
         while len(self._graphs) >= self.size:
             self._drop(self._graphs.popitem(last=False)[1])
-        g = FrameGraph(buffers, params, bg_fb, statics, mesh)
+        with profiling.span("capture"):
+            g = FrameGraph(buffers, params, bg_fb, statics, mesh)
         self._graphs[key] = g
         self.captured.append((g.capture_ms, g.pool_mib))
         first, g.first = g.first, None

@@ -1,5 +1,6 @@
 """Build and load the CUDA kernels (csrc/*.cu: the raster passes, the
-background passes, and the conditional nodes of a captured frame).
+background passes, the conditional nodes of a captured frame, and the
+trace's stamps).
 
 The sources are compiled with nvcc for sm_90a, one nvcc process per source,
 all started together, and linked into one shared library with a plain C
@@ -237,10 +238,13 @@ def load_tile_library(tile_h: int, tile_w: int, verbose: bool = False) -> ctypes
 def load_library(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
+    from tpu_renderer_torch.utils.profiling import setup_step
+
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(build(verbose=verbose))
+        with setup_step("kernel library"):
+            lib = ctypes.CDLL(build(verbose=verbose))
         _bind_raster(lib)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.background_gradient_launch.argtypes = [p, p, i, i, i, p, p]
@@ -260,6 +264,15 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.graph_conditional_end.restype = i
         lib.graph_body_stream.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
         lib.graph_body_stream.restype = i
+        # the trace's stamps (csrc/trace.cu): log, state, capacity, tag,
+        # instance, new_frame, stream; the calibration's clock; the timer's step
+        ll = ctypes.c_longlong
+        lib.trace_stamp.argtypes = [p, p, ll, ll, p, i, p]
+        lib.trace_stamp.restype = i
+        lib.trace_clock.argtypes = [p, p]
+        lib.trace_clock.restype = i
+        lib.trace_timer_step.argtypes = [p, i, p]
+        lib.trace_timer_step.restype = i
         _lib = lib
         return _lib
 

@@ -820,6 +820,9 @@ peel_counter = _Counter()
 fused_gathered_counter = _Counter()
 accum_gathered_counter = _Counter()
 peel_gathered_counter = _Counter()
+# the trace's stamps (utils/profiling.device_span; csrc/trace.cu), on the
+# card and in their CPU twin: 0 while tracing is off
+stamp_counter = _Counter()
 
 
 @checked
