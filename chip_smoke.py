@@ -15,11 +15,12 @@ long plain-version loops:
    the same sources);
 3. the bench frame (the demo scene at grid=64, 1920x1080, camera
    (0, 6, 128), pitch -0.18): renders it once and, on the inputs the frame
-   gave kernels 2.1 and 2.2, holds each kernel against its plain PyTorch
-   version (exact on every output) and times both with CUDA events; then
-   resets the launch counters, renders 1 + 20 frames through
-   Engine(device="cuda") and fails unless both kernels were launched; the
-   same frame rendered through the plain versions must be identical;
+   gave kernels 2.1, 2.2 and 2.12 (the opaque pass's shading and its
+   composite), holds each kernel against its plain PyTorch version (exact
+   on every output) and times both with CUDA events; then resets the
+   launch counters, renders 1 + 20 frames through Engine(device="cuda")
+   and fails unless the three kernels were launched; the same frame
+   rendered through the plain versions must be identical;
 3b. the stress frame (grid 128, the bench's stress variant): 2.1 and 2.2
    on its captured inputs against their plain versions, timed;
 3c. the adversarial rows of tpu_renderer_torch/utils/hazards.py (equal-z
@@ -41,9 +42,10 @@ long plain-version loops:
 4. the textured-glass bench frame (the same scene, its glass sampling the
    checker texture, so its transparency takes the depth peel): kernel 2.3
    against its plain version on the first peel's inputs and a later one's,
-   timed; 1 + 5 graphed frames with the counters reset, layers per frame
-   and the host syncs inside each draw_device(); the plain-version frame
-   must be identical;
+   timed; kernel 2.12 on the first peeled layer's shading and additive
+   blend, against its plain version, timed; 1 + 5 graphed frames with the
+   counters reset, layers per frame and the host syncs inside each
+   draw_device(); the plain-version frame must be identical;
 5. the deferred bench frame (fused=False): the caps the escalation reached,
    kernels 2.4 and 2.5 against their plain versions (2.5 on two peels),
    timed; 1 + 5 frames counted; the plain-version frame must be
@@ -260,6 +262,10 @@ KERNELS = {
     "background_grid_kernel": ("background", "grid_gradient_plain", "grid_counter",
                                "tpu_renderer_torch/kernels/csrc/background.cu",
                                "tpu_renderer/kernels/background.py:171"),
+    # no Pallas kernel: the JAX package's shade_fused is jnp, which XLA fuses
+    "shade_fused_kernel": ("shade", "shade_fused_plain", "fused_counter",
+                           "tpu_renderer_torch/kernels/csrc/shade.cu",
+                           "tpu_renderer/kernels/shade.py:296"),
 }
 # the CUDA kernel's own name where it is not its wrapper's
 DEVICE_NAMES = {"raster_peel_kernel": "raster_peel_deferred_kernel"}
@@ -655,16 +661,85 @@ def plain_frame(eng, names):
         return eng.draw()
 
 
+def shade_bound(args, kwargs):
+    """(bound_ms, bytes) of a kernel 2.12 call: the bytes at the HBM rate.
+    Read once: the planes of each pixel it shades (attrs, meta and inv, 20
+    f32 a pixel, textured; light and rgb, 4, untextured), in the epilogue
+    form only the pixels hit, and the atlas; the epilogue form also reads
+    the hit byte and the framebuffer's 4 f32 of every pixel and writes 4;
+    the rgb form writes 3."""
+    attrs, atlas, textured = args[0], args[3], args[6]
+    n = attrs.shape[1] * attrs.shape[2]
+    plane = 4 * (20 if textured else 4)
+    nbytes = atlas.quads.numel() * atlas.quads.element_size()
+    if kwargs.get("blend") is None:
+        nbytes += n * (plane + 12)
+    else:
+        nbytes += int(kwargs["hit"].sum()) * plane + n * (1 + 16 + 16)
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def check_shade(calls, label):
+    """Kernel 2.12 against its plain version on each captured call (out
+    left to each, so the two write apart), then timed on the first as
+    check_kernel times the raster kernels. Returns its JSON entry."""
+    import torch
+
+    from tpu_renderer_torch.kernels import shade
+    from tpu_renderer_torch.utils.timing import device_ms, event_ms, host_ms
+
+    name = "shade_fused_kernel"
+    _, _, _, source, replaces = KERNELS[name]
+    err, plain_ms = 0.0, None
+    for i, (args, kwargs) in calls:
+        kwargs = dict(kwargs, out=None)
+        got = shade.shade_fused_kernel(*args, **kwargs)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = shade.shade_fused_plain(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        if plain_ms is None:
+            plain_ms = start.elapsed_time(end)
+        err = max(err, max_abs_err(got, want))
+        print(f"[kernel] {name} ({label}, call {i}): blend {kwargs.get('blend')}, textured "
+              f"{args[6]}, trilinear {args[7]}, pot {args[8]}; exact vs plain (max_abs_err "
+              f"{err})", flush=True)
+    args, kwargs = calls[0][1]
+    kwargs = dict(kwargs, out=None)
+    fn = lambda: shade.shade_fused_kernel(*args, **kwargs)  # noqa: E731
+    ms = event_ms(fn, runs=20)
+    device = device_ms(fn)
+    host = host_ms(fn)
+    bound_ms, nbytes = shade_bound(args, kwargs)
+    n = args[0].shape[1] * args[0].shape[2]
+    hit = int(kwargs["hit"].sum()) if kwargs.get("hit") is not None else n
+    print(f"[kernel] {name} ({label}): {hit} of {n} pixels shaded; {ms:.4f} ms (median of "
+          f"20), device {device:.4f} ms (a graph of 50), host {host:.4f} ms a call, plain "
+          f"{plain_ms:.2f} ms (one call), bound {bound_ms:.4f} ms by bytes ({nbytes} B; "
+          f"{bound_ms / device:.1%} of the device time)", flush=True)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, device_ms=device, host_ms=host,
+                pixels_shaded=hit, label=label)
+
+
 def bench_path(eng, results, inputs):
-    """Phase 3: the bench frame (kernels 2.1, 2.2). inputs keeps the two
-    kernels' calls, and 2.2's as 2.7 takes it, for phases 5b and 11."""
+    """Phase 3: the bench frame (kernels 2.1, 2.2 and 2.12, the opaque
+    shade). inputs keeps 2.1's and 2.2's calls, and 2.2's as 2.7 takes it,
+    for phases 5b and 11."""
     from tpu_renderer_torch.tools.time_stream_kernels import oracle_call
 
-    names = ("raster_fused_kernel", "raster_accum_kernel")
+    raster_names = ("raster_fused_kernel", "raster_accum_kernel")
+    names = (*raster_names, "shade_fused_kernel")
     seen = capture_kernel_inputs(eng.draw_device, names)
-    for n in names:
+    for n in raster_names:
         results[n] = check_kernel(n, [(0, seen[n][-1])], "bench frame")
         inputs[n] = seen[n][-1]
+    assert len(seen["shade_fused_kernel"]) == 1, "one shade launch a bench frame"
+    results["shade_fused_kernel"] = check_shade([(0, seen["shade_fused_kernel"][0])],
+                                                "bench frame, opaque planes")
     inputs["raster_accum_gathered_kernel"] = oracle_call(inputs["raster_accum_kernel"])
     frame_ms, image, _, _, launches = counted_frames(eng, 20, "bench frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), "kernel frame differs from plain frame"
@@ -891,21 +966,29 @@ def textured_glass_path(scene_path, results, inputs):
     assert eng._fused and eng._transp_textured()
     print(f"[scene] textured-glass bench scene ready in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    name = "raster_peel_fused_kernel"
-    seen = capture_kernel_inputs(eng.draw_device, (name,))
+    name, shade_name = "raster_peel_fused_kernel", "shade_fused_kernel"
+    seen = capture_kernel_inputs(eng.draw_device, (name, shade_name))
     calls = seen[name]
     inputs[name] = calls[0]
     inputs["raster_peel_gathered_kernel"] = oracle_call(calls[0])
     later = len(calls) // 2
     results[name] = check_kernel(name, [(0, calls[0]), (later, calls[later])],
                                  "textured-glass frame")
+    # the opaque pass's shade, then one a shaded layer (every peel but the last)
+    shades = seen[shade_name]
+    assert len(shades) == len(calls), (len(shades), len(calls))
+    layer = check_shade([(1, shades[1])], "textured-glass frame, first peeled layer")
+    results[shade_name]["peel_layer"] = {k: layer[k] for k in (
+        "device_ms", "host_ms", "ms", "plain_ms", "bound_ms", "pixels_shaded")}
     frame_ms, image, layers, _, launches = counted_frames(
-        eng, 5, "textured-glass frame", ("raster_fused_kernel", name))
-    assert np.array_equal(image, plain_frame(eng, ("raster_fused_kernel", name))), \
+        eng, 5, "textured-glass frame", ("raster_fused_kernel", name, shade_name))
+    assert np.array_equal(image, plain_frame(eng, ("raster_fused_kernel", name, shade_name))), \
         "textured-glass kernel frame differs from plain frame"
     print(f"[frame] textured-glass frame == plain-version frame; frame ms {frame_ms:.3f}, "
-          f"{layers[0]} layers, {len(calls)} peel launches a frame", flush=True)
+          f"{layers[0]} layers, {len(calls)} peel launches a frame, 2.12 launched "
+          f"{launches[shade_name]} times over 6 frames", flush=True)
     results[name]["launches"] = launches[name]
+    results[shade_name]["peel_layer"]["launches"] = launches[shade_name]
 
 
 def deferred_path(scene_path, results, inputs):

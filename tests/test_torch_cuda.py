@@ -1537,3 +1537,152 @@ def test_graphed_frames_at_every_tile_equal_the_default_tile(cuda, tmp_path, kin
         assert counter.total() > 0 and len(eng.frame_graphs) >= 1, (tile_h, tile_w)
     for tile, frame in frames.items():
         np.testing.assert_array_equal(frame, frames[(32, 128)], err_msg=str(tile))
+
+
+# -- kernel 2.12: the fused path's shading (csrc/shade.cu) ---------------------
+
+
+def _shade_both(planes, fb, textured, trilinear, pot, blend, fp16):
+    """shade_fused_kernel and shade_fused_plain on the same card planes (the
+    plain version's torch ops on the card): (kernel, plain), and the
+    kernel's launches (1 each)."""
+    from tpu_renderer_torch.kernels import shade
+    from test_torch_shade import look
+
+    attrs, meta, inv, hit, atlas = planes
+    kw = dict(textured=textured, trilinear=trilinear, pot=pot, **look(fb.device))
+    if blend is not None:
+        kw.update(fb=fb, hit=hit, blend=blend, fp16=fp16)
+    before = shade.fused_counter.launches
+    got = shade.shade_fused(attrs, meta, inv, atlas, **kw)
+    assert shade.fused_counter.launches == before + 1
+    want = shade.shade_fused_plain(attrs, meta, inv, atlas, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("fp16", [True, False])
+@pytest.mark.parametrize("blend", [None, "replace", "add"])
+@pytest.mark.parametrize("pot", [True, False])
+@pytest.mark.parametrize("trilinear", [True, False])
+@pytest.mark.parametrize("textured", [True, False])
+@pytest.mark.parametrize("source", ["fused", "peel"])
+def test_shade_kernel_matches_plain(cuda, source, textured, trilinear, pot, blend, fp16):
+    """Kernel 2.12 equals its plain version bit for bit at every static
+    combination and blend, on kernel 2.1's opaque planes and kernel 2.3's
+    first peel, every filter mode and both wraps shading (shade_planes)."""
+    from test_torch_shade import framebuffer, shade_planes
+
+    planes = shade_planes(cuda, source)
+    assert int(planes[3].sum()) > 1000
+    got, want = _shade_both(planes, framebuffer(cuda), textured, trilinear, pot, blend, fp16)
+    assert got.shape == want.shape == (3 if blend is None else 4, H, W)
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("trilinear", [True, False])
+@pytest.mark.parametrize("case", ["inv0", "lod_low", "lod_high", "uv_far", "no_hits"])
+def test_shade_kernel_matches_plain_at_the_edges(cuda, case, trilinear):
+    """Kernel 2.12 against its plain version on edge_planes: inv 0, the LOD
+    clamped at 0 and at n_levels - 1, u and v far outside [0, 1), a layer
+    with no hits (the framebuffer comes back as it was, through fp16); both
+    wraps, the rgb form and the additive epilogue."""
+    from test_torch_shade import edge_planes, framebuffer
+
+    planes = edge_planes(cuda, case)
+    fb = framebuffer(cuda)
+    for pot in (True, False):
+        for blend in (None, "add"):
+            got, want = _shade_both(planes, fb, True, trilinear, pot, blend, True)
+            assert _same(got, want), (pot, blend)
+    if case == "no_hits":
+        assert _same(got, fb)
+
+
+def test_shade_kernel_in_place_and_its_refusals(cuda):
+    """out=fb writes the framebuffer in place (the peel's WHILE body), the
+    same words as out of place; out overlapping fb without being it, a
+    misaligned atlas or a plane off the card is refused before a launch."""
+    from tpu_renderer_torch.kernels import shade
+    from test_torch_shade import framebuffer, look, shade_planes
+
+    attrs, meta, inv, hit, atlas = shade_planes(cuda, "peel")
+    fb = framebuffer(cuda)
+    kw = dict(hit=hit, blend="add", **look(cuda))
+    want = shade.shade_fused(attrs, meta, inv, atlas, fb=fb, **kw)
+    inplace = fb.clone()
+    assert shade.shade_fused(attrs, meta, inv, atlas, fb=inplace, out=inplace, **kw) is inplace
+    assert _same(inplace, want)
+    before = shade.fused_counter.launches
+    wide = torch.zeros((5, H, W), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="apart"):
+        shade.shade_fused(attrs, meta, inv, atlas, fb=wide[1:], out=wide[:4], **kw)
+    odd = torch.zeros(atlas.quads.numel() + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        shade.shade_fused(attrs, meta, inv, atlas._replace(quads=odd.view(-1, 4)), fb=fb, **kw)
+    with pytest.raises(ValueError, match="inv"):
+        shade.shade_fused(attrs, meta, inv.cpu(), atlas, fb=fb, **kw)
+    assert shade.fused_counter.launches == before
+
+
+def test_shade_kernel_against_the_cpu_plain_version(cuda):
+    """The card's kernel against the plain version on the CPU, on the same
+    planes: the untextured shade is equal bit for bit; the textured one
+    differs only at pixels where the LOD's log (logf on the card, torch's
+    CPU log) differs by an ulp, which can move the mip level or the
+    trilinear weight."""
+    from tpu_renderer_torch.kernels import shade
+    from tpu_renderer_torch.kernels.common import fma
+    from test_torch_shade import framebuffer, look, shade_atlas, shade_planes
+
+    attrs, meta, inv, hit, atlas = shade_planes(cuda)
+    h_attrs, h_meta, h_inv, h_hit = (t.cpu() for t in (attrs, meta, inv, hit))
+    h_atlas = shade_atlas("cpu")
+    fb = framebuffer(cuda)
+    for textured in (False, True):
+        kw = dict(textured=textured, trilinear=True, pot=False, blend="replace")
+        got = shade.shade_fused(attrs, meta, inv, atlas, fb=fb, hit=hit, **kw,
+                                **look(cuda)).cpu()
+        want = shade.shade_fused(h_attrs, h_meta, h_inv, h_atlas, fb=fb.cpu(), hit=h_hit,
+                                 **kw, **look("cpu"))
+        differ = (got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
+        if not textured:
+            assert not differ.any()
+            continue
+        # rho as sample_texture computes it (its operations but the log are exact)
+        du_dx, du_dy, dv_dx, dv_dy = shade.uv_gradients(
+            h_attrs[4], h_attrs[5], tuple(h_meta[6 + m] for m in range(6)), h_inv)
+        ax, bx = du_dx * h_meta[2], dv_dx * h_meta[3]
+        ay, by = du_dy * h_meta[2], dv_dy * h_meta[3]
+        rho = torch.maximum(torch.sqrt(fma(ax, ax, bx * bx)), torch.sqrt(fma(ay, ay, by * by)))
+        rho = torch.clamp(rho, min=1e-12)
+        log_differs = torch.log(rho) != torch.log(rho.to(cuda)).cpu()
+        assert not (differ & ~log_differs).any()
+        assert int(differ.sum()) < 0.01 * int(h_hit.sum())
+
+
+def test_graphed_glass_frame_counts_the_shade_kernel(cuda, tmp_path, monkeypatch):
+    """A graphed textured-glass frame (the peel loop, its layers shaded and
+    blended in place by kernel 2.12 inside the WHILE body) equals the same
+    frame drawn eagerly with the plain version in the kernel's place, and a
+    replay counts 1 + transparent_layers launches of the kernel: the opaque
+    pass's and one a layer, counted on the card."""
+    from tpu_renderer_torch import pipeline
+    from tpu_renderer_torch.kernels import shade
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0)
+    eng = _path_engine(path, cuda, "textured-glass")
+    eng.draw()                                 # the capture
+    shade.fused_counter.reset()
+    got = eng.draw()                           # a replay
+    layers = int(eng._last_aux["transparent_layers"])
+    assert layers >= 1
+    assert shade.fused_counter.total() == 1 + layers
+    monkeypatch.setattr(shade, "shade_fused_kernel", shade.shade_fused_plain)
+    shade.fused_counter.reset()
+    with pipeline.eager():
+        want = eng.draw()
+    assert shade.fused_counter.total() == 0
+    np.testing.assert_array_equal(got, want)

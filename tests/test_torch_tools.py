@@ -389,11 +389,12 @@ def test_smoke_split_line_of_the_triangle_peels(name):
 
 
 def test_smoke_kernel_table_names_what_exists():
-    """chip_smoke's KERNELS: eleven kernels, each with its launcher, plain
+    """chip_smoke's KERNELS: twelve kernels, each with its launcher, plain
     version and counter in the port, its source in the checkout, and the
-    line of the Pallas kernel it replaces in the JAX package."""
+    line of what it replaces in the JAX package: a Pallas kernel for 2.1-2.11,
+    the jnp shade_fused for 2.12 (the JAX package shades without one)."""
     smoke = _chip_smoke()
-    assert len(smoke.KERNELS) == 11
+    assert len(smoke.KERNELS) == 12
     for name, (_, plain, counter, source, replaces) in smoke.KERNELS.items():
         mod = smoke.kernel_module(name)
         assert callable(getattr(mod, name)) and callable(getattr(mod, plain)), name
@@ -402,7 +403,10 @@ def test_smoke_kernel_table_names_what_exists():
         assert "__global__" in text and 'extern "C"' in text, (name, source)
         path, line = replaces.rsplit(":", 1)
         src = open(os.path.join(ROOT, path)).read().splitlines()[int(line) - 1]
-        assert src.startswith("def _") and "kernel" in src or "_loop(" in src, (name, src)
+        if name == "shade_fused_kernel":
+            assert src.startswith("def shade_fused("), (name, src)
+        else:
+            assert src.startswith("def _") and "kernel" in src or "_loop(" in src, (name, src)
 
 
 def test_time_background_lerp_computes_the_gradient():

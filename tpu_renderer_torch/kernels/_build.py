@@ -1,6 +1,6 @@
 """Build and load the CUDA kernels (csrc/*.cu: the raster passes, the
-background passes, the conditional nodes of a captured frame, and the
-trace's stamps).
+background passes, the fused path's shading, the conditional nodes of a
+captured frame, and the trace's stamps).
 
 The sources are compiled with nvcc for sm_90a, one nvcc process per source,
 all started together, and linked into one shared library with a plain C
@@ -254,6 +254,11 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         lib.background_sky_launch.restype = i
         lib.background_grid_launch.argtypes = [i, i, i, i, p, p]
         lib.background_grid_launch.restype = i
+        # kernel 2.12 (csrc/shade.cu): attrs, meta, inv, quads, n_quads,
+        # atlas width, ambient, sun power, fb, hit, out, pixels, textured,
+        # trilinear, pot, blend, fp16, stream
+        lib.shade_fused_launch.argtypes = [p, p, p, p, i, i, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.shade_fused_launch.restype = i
         # the conditional nodes of a captured frame (csrc/conditional.cu)
         lib.graph_conditional_begin.argtypes = [p, p, i, p,
                                                 ctypes.POINTER(ctypes.c_ulonglong)]

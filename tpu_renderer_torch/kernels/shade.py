@@ -6,19 +6,31 @@ trilinear/nearest filtering and REPEAT wrap over the prebaked quad atlas
 multiply-add fused (kernels.common.fma) where XLA fuses it for the JAX
 reference on the CPU (measured), so both round alike. Everything works on
 channel-major (Hp, Wp) planes.
+
+On the fused path, shade_fused on CUDA tensors launches kernel 2.12
+(csrc/shade.cu: the same operations in one loop, bit for bit the plain
+version, shade_fused_plain, which CPU tensors take), and it can do the
+composite that follows the shading in the frame as its epilogue. The
+deferred path (shade, blend_layer: shade_core's fat-row gather) is plain
+PyTorch on every device.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from tpu_renderer_torch.kernels.common import dot3_seq, fma
+from tpu_renderer_torch.kernels.raster import _Counter, _launch, _ptr, _stream
 from tpu_renderer_torch.resources import (
     FILTER_MAG_LINEAR,
     FILTER_MIN_LINEAR,
     FILTER_MIP_LINEAR,
 )
+from tpu_renderer_torch.utils.profiling import checked
 
 # The fat-row layout (48 f32 per triangle, vertex.triangle_setup_rows):
 #   0-8 edge planes, 9-11 depth plane, 12 material id, 13-30 attribute
@@ -32,6 +44,12 @@ C_ATTR, C_TEX, C_GRAD, C_DEN = 13, 31, 37, 43
 
 _INV255 = 1.0 / 255.0
 _INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
+
+# shade_fused's epilogues (kernel 2.12's blend 1 and 2; 0 is the rgb form)
+BLENDS = ("replace", "add")
+
+# kernel 2.12's launches (shade_fused_kernel)
+fused_counter = _Counter()
 
 
 def build_shade_rows(packed, attrs, aabb, meta6):
@@ -204,12 +222,13 @@ def light_and_texture(light_num, color_in, uv, texmeta, grads, atlas,
     return tuple(out)
 
 
-def shade_fused(attrs, meta, inv, atlas, ambient_rgb, sun_power,
-                textured: bool = True, trilinear: bool = True,
-                pot: bool = False):
-    """Shade from the fused raster's or peel's outputs: attrs (6, Hp, Wp)
-    interpolated [light_num, rgb, uv]; meta (13, Hp, Wp) per-winner
-    constants; inv (Hp, Wp). Returns (3, Hp, Wp) rgb."""
+def shade_fused_plain(attrs, meta, inv, atlas, ambient_rgb, sun_power,
+                      textured: bool = True, trilinear: bool = True,
+                      pot: bool = False, *, fb=None, hit=None,
+                      blend: Optional[str] = None, fp16: bool = True, out=None):
+    """Plain PyTorch version of shade_fused_kernel (shade_fused's
+    contract): the JAX package's shade_fused op for op, and the composite
+    that follows it in the frame where `blend` is given."""
     grads = uv_gradients(attrs[4], attrs[5],
                          tuple(meta[6 + m] for m in range(6)), inv) \
         if textured else None
@@ -218,7 +237,139 @@ def shade_fused(attrs, meta, inv, atlas, ambient_rgb, sun_power,
         (attrs[4], attrs[5]), tuple(meta[m] for m in range(6)), grads,
         atlas, ambient_rgb, sun_power, textured=textured,
         trilinear=trilinear, pot=pot)
-    return torch.stack([r, g, b])
+    rgb = torch.stack([r, g, b])
+    if blend is None:
+        return rgb
+    new = composite(fb, hit, rgb, blend)
+    if fp16:   # the R16G16B16A16_SFLOAT attachment's write
+        new = new.half().float()
+    if out is None:
+        return new
+    return out.copy_(new)
+
+
+def composite(fb, hit, src, blend: str):
+    """The framebuffer (4, Hp, Wp) after a pass's colour src (3, Hp, Wp)
+    lands where hit: blend "replace" (the opaque pass) writes it,
+    "add" (vk_pipelines.cpp:157-167) adds src + dst * dstAlpha, contracted as
+    XLA does; alpha is 1 where hit, fb stays elsewhere. Before the fp16
+    write."""
+    if blend == "replace":
+        rgb = torch.where(hit[None], src, fb[:3])
+    else:
+        rgb = torch.where(hit[None], fma(fb[:3], fb[3][None], src), fb[:3])
+    alpha = torch.where(hit, torch.ones((), device=hit.device), fb[3])
+    return torch.cat([rgb, alpha[None]])
+
+
+def _check_fused(attrs, meta, inv, fb, hit, blend, out):
+    """shade_fused's arguments, on any device: (Hp, Wp), or ValueError."""
+    if attrs.dim() != 3 or attrs.shape[0] != 6:
+        raise ValueError(f"attrs must be (6, Hp, Wp), got {tuple(attrs.shape)}")
+    hw = tuple(attrs.shape[1:])
+    for name, t, shape, dtype in (("attrs", attrs, (6, *hw), torch.float32),
+                                  ("meta", meta, (13, *hw), torch.float32),
+                                  ("inv", inv, hw, torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    if blend is None:
+        if fb is not None or hit is not None or out is not None:
+            raise ValueError("fb, hit and out go with a blend")
+        return hw
+    if blend not in BLENDS:
+        raise ValueError(f"blend must be one of {BLENDS}, got {blend!r}")
+    if fb is None or hit is None:
+        raise ValueError(f"blend {blend!r} needs fb and hit")
+    for name, t, shape, dtype in (("fb", fb, (4, *hw), torch.float32),
+                                  ("hit", hit, hw, torch.bool),
+                                  ("out", out, (4, *hw), torch.float32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype):
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    return hw
+
+
+def _overlap(a, b) -> bool:
+    """Do the bytes of a and b overlap without being the same tensor's?"""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    if a0 == b0:
+        return False
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+@checked
+def shade_fused_kernel(attrs, meta, inv, atlas, ambient_rgb, sun_power,
+                       textured: bool = True, trilinear: bool = True,
+                       pot: bool = False, *, fb=None, hit=None,
+                       blend: Optional[str] = None, fp16: bool = True, out=None):
+    """Launch kernel 2.12 (csrc/shade.cu) on CUDA tensors: what
+    shade_fused_plain returns, bit for bit, in one launch on the current
+    stream with no wait on the device. Every argument is checked here,
+    before the library is built or loaded: CUDA tensors on one device,
+    contiguous; the atlas quads (N, 4) int32 on 16-byte boundaries;
+    ambient_rgb (3,) and sun_power (one element) f32 tensors; out, where
+    given, fb itself or apart from it."""
+    hp, wp = _check_fused(attrs, meta, inv, fb, hit, blend, out)
+    dev = attrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_fused_kernel takes CUDA tensors, got {dev}")
+    if hp * wp >= 2 ** 31:
+        raise ValueError(f"shade_fused_kernel takes fewer than 2^31 pixels, got {hp}x{wp}")
+    quads = atlas.quads
+    if quads.dim() != 2 or quads.shape[1] != 4 or quads.dtype != torch.int32 \
+            or quads.shape[0] < 1:
+        raise ValueError(f"atlas.quads must be (N, 4) int32, got {tuple(quads.shape)} "
+                         f"{quads.dtype}")
+    tensors = [("attrs", attrs), ("meta", meta), ("inv", inv), ("atlas.quads", quads),
+               ("ambient_rgb", ambient_rgb), ("sun_power", sun_power),
+               ("fb", fb), ("hit", hit), ("out", out)]
+    for name, t in tensors:
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{name} must be a tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t, n in (("ambient_rgb", ambient_rgb, 3), ("sun_power", sun_power, 1)):
+        if t.dtype != torch.float32 or t.numel() != n:
+            raise ValueError(f"{name} must hold {n} float32, got {tuple(t.shape)} {t.dtype}")
+    if quads.data_ptr() % 16:
+        raise ValueError("atlas.quads must start on a 16-byte boundary")
+    if out is not None and _overlap(out, fb):
+        raise ValueError("out must be fb itself or apart from it")
+    if out is None:
+        out = torch.empty((3 if blend is None else 4, hp, wp), dtype=torch.float32, device=dev)
+    _launch("shade_fused_launch", _ptr(attrs), _ptr(meta), _ptr(inv), _ptr(quads),
+            ctypes.c_int(quads.shape[0]), ctypes.c_int(atlas.width), _ptr(ambient_rgb),
+            _ptr(sun_power), _ptr(fb) if fb is not None else None,
+            _ptr(hit) if hit is not None else None, _ptr(out), ctypes.c_int(hp * wp),
+            ctypes.c_int(int(textured)), ctypes.c_int(int(trilinear)),
+            ctypes.c_int(int(pot)), ctypes.c_int(BLENDS.index(blend) + 1 if blend else 0),
+            ctypes.c_int(int(fp16)), _stream(dev))
+    fused_counter.launches += 1
+    return out
+
+
+def shade_fused(attrs, meta, inv, atlas, ambient_rgb, sun_power,
+                textured: bool = True, trilinear: bool = True,
+                pot: bool = False, *, fb=None, hit=None,
+                blend: Optional[str] = None, fp16: bool = True, out=None):
+    """Shade from the fused raster's or peel's outputs: attrs (6, Hp, Wp)
+    interpolated [light_num, rgb, uv]; meta (13, Hp, Wp) per-winner
+    constants; inv (Hp, Wp). Returns (3, Hp, Wp) rgb.
+
+    With blend ("replace": the opaque pass; "add": a peeled layer's
+    additive blend), fb (4, Hp, Wp) and hit (Hp, Wp) bool, it returns the
+    framebuffer after the composite instead (composite(), then the fp16
+    write where fp16), written into out where given (which may be fb
+    itself). CPU tensors take the plain version, CUDA tensors kernel 2.12
+    (whose wrapper checks the arguments)."""
+    if attrs.device.type == "cuda":
+        return shade_fused_kernel(attrs, meta, inv, atlas, ambient_rgb, sun_power,
+                                  textured, trilinear, pot, fb=fb, hit=hit, blend=blend,
+                                  fp16=fp16, out=out)
+    _check_fused(attrs, meta, inv, fb, hit, blend, out)
+    return shade_fused_plain(attrs, meta, inv, atlas, ambient_rgb, sun_power, textured,
+                             trilinear, pot, fb=fb, hit=hit, blend=blend, fp16=fp16, out=out)
 
 
 def shade_core(t, rows, atlas, ambient_rgb, sun_power, textured: bool = True,
@@ -277,7 +428,4 @@ def blend_layer(fb, tid, rows, atlas, ambient_rgb, sun_power,
     found = tid >= 0
     src = shade_core(torch.where(found, tid, 0), rows, atlas, ambient_rgb,
                      sun_power, textured=textured, trilinear=trilinear, pot=pot)
-    # src + dst * dstAlpha, contracted as XLA does
-    rgb = torch.where(found[None], fma(fb[:3], fb[3][None], src), fb[:3])
-    alpha = torch.where(found, torch.ones((), device=tid.device), fb[3])
-    return torch.cat([rgb, alpha[None]])
+    return composite(fb, found, src, "add")
