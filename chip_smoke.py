@@ -98,8 +98,10 @@ long plain-version loops:
 12. the raster profile tool (tpu_renderer_torch.tools.profile_raster.main)
    in-process: its five lines; 2.4 and 2.6 must launch;
 13. the bench (tpu_renderer_torch.bench.main --frames 20) in-process: its
-   JSON line; 2.1 and 2.2 must launch in every frame of every variant, and
-   trilinear_auto_scale must lie in [auto_scale_min, 1];
+   JSON line; 2.1 and 2.2 must launch in every frame of every variant,
+   kernel 2.12's two-tap instance in every frame of the two trilinear
+   variants and in no other, and trilinear_auto_scale must lie in
+   [auto_scale_min, 1];
 14. the multi-device frame (tpu_renderer_torch/parallel/multichip.py)
    on the bench scene at 1920x1080, each mesh's ranks started by
    multichip.launch after the kernel library is built here: (1, 1) over
@@ -137,7 +139,9 @@ long plain-version loops:
    eagerly (pipeline.eager()) on the bench, trilinear, stress,
    textured-glass and deferred paths: over a 10-frame orbit each graphed
    frame equals the eager one byte for byte, with the same aux and the same
-   launches of every kernel (the peels counted on the card), and no host
+   launches of every kernel (the peels counted on the card; kernel 2.12's
+   two-tap instance as often as 2.12 on the trilinear path, never on the
+   others), and no host
    sync inside a graphed draw_device() (torch.cuda.set_sync_debug_mode); the
    textured-glass graph is captured looking away from the glass, so its
    replays peel every layer they find on the card; each capture's ms and
@@ -267,6 +271,8 @@ KERNELS = {
                            "tpu_renderer_torch/kernels/csrc/shade.cu",
                            "tpu_renderer/kernels/shade.py:296"),
 }
+# kernel 2.12's two-tap instance, counted apart from the kernel (read_counters)
+TWO_TAP = "shade_fused_kernel.two_tap"
 # the CUDA kernel's own name where it is not its wrapper's
 DEVICE_NAMES = {"raster_peel_kernel": "raster_peel_deferred_kernel"}
 BACKGROUND_KERNELS = tuple(n for n in KERNELS if n.startswith("background_"))
@@ -571,17 +577,23 @@ def ascending_segments(bins, counts, segs) -> int:
     return out
 
 
+def _counters():
+    """name -> launch counter, of each kernel and of TWO_TAP."""
+    out = {n: getattr(kernel_module(n), c) for n, (_, _, c, _, _) in KERNELS.items()}
+    out[TWO_TAP] = kernel_module("shade_fused_kernel").trilinear_counter
+    return out
+
+
 def reset_counters():
-    for name, (_, _, counter, _, _) in KERNELS.items():
-        getattr(kernel_module(name), counter).reset()
+    for counter in _counters().values():
+        counter.reset()
 
 
 def read_counters():
-    """Each kernel's launches since reset_counters(): the wrappers' host
-    counts, the launches graph replays added, and those counted on the card
-    inside the graphs' peel loops (a sync)."""
-    return {n: getattr(kernel_module(n), c).total()
-            for n, (_, _, c, _, _) in KERNELS.items()}
+    """Each kernel's and TWO_TAP's launches since reset_counters(): the
+    wrappers' host counts, the launches graph replays added, and those
+    counted on the card inside the graphs' peel loops (a sync)."""
+    return {n: c.total() for n, c in _counters().items()}
 
 
 def counted_frames(eng, n, path, expect):
@@ -1589,6 +1601,8 @@ def bench_phase():
     for i, launches in enumerate(variants):
         for n in ("raster_fused_kernel", "raster_accum_kernel"):
             assert launches[n] == 2 * frames, f"bench variant {i}: {n} launched {launches[n]}"
+        # the two trilinear variants take kernel 2.12's two-tap instance
+        assert launches[TWO_TAP] == (2 * frames if i in (1, 2) else 0), (i, launches[TWO_TAP])
     # since the stress variant's reset: its sequences, then the two
     # pipelined loops (frames, and 3 + frames)
     interactive = {n: v - variants[-1][n] for n, v in read_counters().items()}
@@ -2083,6 +2097,9 @@ def graphed_phase(scene_path):
             assert torch.equal(g_img, e_img), f"{path} frame {i}: graphed != eager"
             assert g_aux == e_aux, (path, i, g_aux, e_aux)
             assert g_n == e_n, (path, i, g_n, e_n)
+            # kernel 2.12's two-tap instance runs on the trilinear path alone
+            assert g_n[TWO_TAP] == (g_n["shade_fused_kernel"] if path == "trilinear" else 0), \
+                (path, i, g_n)
             assert g_syncs == 0, f"{path} frame {i}: {g_syncs} host syncs in a graphed frame"
             layers.append(g_aux.get("transparent_layers", 0))
             syncs.append(g_syncs)

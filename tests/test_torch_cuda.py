@@ -1661,6 +1661,45 @@ def test_shade_kernel_against_the_cpu_plain_version(cuda):
         assert int(differ.sum()) < 0.01 * int(h_hit.sum())
 
 
+@pytest.mark.parametrize("kind", ["bench", "textured-glass"])
+@pytest.mark.parametrize("trilinear", [False, True], ids=["one_tap", "two_taps"])
+def test_graphed_frame_counts_the_two_tap_instance(cuda, tmp_path, kind, trilinear):
+    """Replays of a graphed frame count kernel 2.12's two-tap instance
+    (shade.trilinear_counter) as often as the kernel where the scene's
+    samplers are LINEAR_MIPMAP_LINEAR, and never on a single-tap scene:
+    once a frame on the fused path with untextured glass, 1 + layers with
+    the textured glass's peel (counted on the card in the WHILE body); a
+    traced block's summary lists the same counts."""
+    from tpu_renderer_torch.kernels import shade
+    from tpu_renderer_torch.utils import profiling
+    from tpu_renderer_torch.utils.demo import build_demo_glb
+
+    path = str(tmp_path / "demo4.glb")
+    build_demo_glb(path, grid=4, seed=0, trilinear=trilinear)
+    eng = _path_engine(path, cuda, kind)
+    assert eng._trilinear is trilinear and eng._scene_taps() == (2 if trilinear else 1)
+    frames = 3
+    eng.draw()                                 # the capture
+    with profiling.tracing():
+        eng.draw()                             # the traced key's capture
+    shade.fused_counter.reset()
+    shade.trilinear_counter.reset()
+    with profiling.tracing() as trace:
+        for _ in range(frames):
+            eng.draw()                         # replays
+    layers = int(eng._last_aux["transparent_layers"])
+    per_frame = 1 + (layers if kind == "textured-glass" else 0)
+    assert kind == "bench" or layers >= 1
+    want = {"shade.fused": frames * per_frame,
+            "shade.trilinear": frames * per_frame if trilinear else 0}
+    assert len(trace.summary()["frames"]) == frames
+    assert trace.summary()["launches"] == want
+    for _ in range(frames):
+        eng.draw()
+    assert shade.fused_counter.total() == 2 * want["shade.fused"]
+    assert shade.trilinear_counter.total() == 2 * want["shade.trilinear"]
+
+
 def test_graphed_glass_frame_counts_the_shade_kernel(cuda, tmp_path, monkeypatch):
     """A graphed textured-glass frame (the peel loop, its layers shaded and
     blended in place by kernel 2.12 inside the WHILE body) equals the same

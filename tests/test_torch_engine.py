@@ -368,9 +368,9 @@ def test_shipped_cost_model_is_launch_bound():
     """The constants fitted on the card (the graphed frame, which the
     host's launch rate no longer bounds): no negative term, and a fixed term
     below a 60 fps budget, so that target picks, at every extent, the
-    largest scale the model predicts under budget: above auto_scale_min for
-    two-tap content at 1080p, the floor where even it is over budget (the
-    JAX package's behaviour for a target out of reach)."""
+    largest scale the model predicts under budget: since the fused path's
+    shading is one kernel (2.12), the native extent for two-tap content at
+    1080p and at 2160p, both predicted under budget."""
     assert min(getattr(Engine, name) for name in COST) >= 0.0
     budget = Engine._COST_MARGIN * 1000.0 / 60.0
     assert Engine._COST_FIXED_MS < budget
@@ -382,6 +382,6 @@ def test_shipped_cost_model_is_launch_bound():
         assert s == 1.0 or eng._predict_frame_ms(round(s + 0.05, 2)) > budget, (w, h, s)
         assert eng._predict_frame_ms(s) <= budget or s == floor, (w, h, s)
         if (w, h) == (1920, 1080):
-            assert floor < s < 1.0
+            assert s == 1.0
         if (w, h) == (3840, 2160):
-            assert s == floor
+            assert s == 1.0

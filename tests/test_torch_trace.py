@@ -4,8 +4,9 @@ stamp is its plain twin on time.perf_counter_ns: the span tree of a frame
 on the fused path with untextured glass (the accumulation), the fused peel
 and the deferred path; one frame id a frame; a peel pass a layer and one
 more; self times that sum to the frame; what is dropped past the capacity;
-the set-up record; and tracing off, which stamps nothing, keeps the graph
-key and leaves every frame byte for byte the same.
+the set-up record; the launches of kernel 2.12 that the summary lists; and
+tracing off, which stamps nothing, keeps the graph key and leaves every
+frame byte for byte the same.
 
 The card's side (stamps inside a replayed graph and its WHILE node, the
 calibration) is in tests/test_torch_cuda.py.
@@ -204,6 +205,29 @@ def test_the_set_up_record_names_init_and_its_steps(glb):
              if r["parent"] == "Engine.init" and r["start_ns"] >= init["start_ns"]]
     assert [r["name"] for r in steps] == ["load", "flatten", "upload", "caps"]
     assert sum(r["ms"] for r in steps) <= init["ms"] and all(r["ms"] >= 0 for r in steps)
+
+
+def test_the_summary_lists_the_launches_of_kernel_2_12(glb, monkeypatch):
+    """The summary counts LAUNCH_COUNTERS over its block: on the CPU the
+    frame shades in the plain version (no launch); what the counters add
+    inside the block is its, what they add after it is not."""
+    from tpu_renderer_torch.kernels import shade
+
+    for counter in (shade.fused_counter, shade.trilinear_counter):
+        monkeypatch.setattr(counter, "launches", counter.launches)
+    eng = _engine(glb, "peel")
+    eng.draw()
+    with profiling.tracing() as trace:
+        eng.draw()
+    assert trace.summary()["launches"] == {"shade.fused": 0, "shade.trilinear": 0}
+    with profiling.tracing() as trace:
+        eng.draw()
+        shade.fused_counter.launches += 3
+        shade.trilinear_counter.launches += 2
+    shade.fused_counter.launches += 5
+    assert set(profiling.LAUNCH_COUNTERS) == {"shade.fused", "shade.trilinear"}
+    assert trace.summary()["launches"] == {"shade.fused": 3, "shade.trilinear": 2}
+    assert json.loads(json.dumps(trace.to_json()))["summary"]["launches"]["shade.fused"] == 3
 
 
 def test_device_trace_writes_the_span_log(glb, tmp_path):

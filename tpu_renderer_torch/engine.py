@@ -162,7 +162,7 @@ class Engine:
             raise NoDeviceError(
                 "Engine runs on the CUDA card by default and no CUDA device "
                 "is available: pass device=\"cpu\" to render on the CPU")
-        with profiling.setup_step("Engine.init"):
+        with profiling.setup_step("Engine.init") as record:
             if self.config.multichip is not None:
                 # the mesh first: it decides the rank's card
                 from tpu_renderer_torch.parallel import multichip
@@ -185,6 +185,8 @@ class Engine:
             self.flat = scene_mod.flatten_scene(self.scene, device=self.device)
             with profiling.setup_step("caps"):
                 self._compute_caps()
+            # the sampler statics that pick kernel 2.12's instance
+            record.update(taps=self._scene_taps(), pot=self._pot)
 
     def _compute_caps(self) -> None:
         """Per-scene statics: the deferred path's bin capacities, the
@@ -246,9 +248,9 @@ class Engine:
     #   _COST_BLIT_MS:  the linear upscale blit, timed alone
     # _COST_MARGIN keeps the pick under budget through frame-to-frame
     # variance.
-    _COST_BASE_NS = 1.109
-    _COST_TAP_NS = 2.442
-    _COST_FIXED_MS = 8.18
+    _COST_BASE_NS = 0.681
+    _COST_TAP_NS = 0.005
+    _COST_FIXED_MS = 6.32
     _COST_BLIT_MS = 0.28
     _COST_MARGIN = 0.97
 

@@ -48,8 +48,10 @@ _INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
 # shade_fused's epilogues (kernel 2.12's blend 1 and 2; 0 is the rgb form)
 BLENDS = ("replace", "add")
 
-# kernel 2.12's launches (shade_fused_kernel)
+# kernel 2.12's launches (shade_fused_kernel), and those of its two-tap
+# instance (textured and trilinear: a LINEAR_MIPMAP_LINEAR sampler)
 fused_counter = _Counter()
+trilinear_counter = _Counter()
 
 
 def build_shade_rows(packed, attrs, aabb, meta6):
@@ -346,6 +348,8 @@ def shade_fused_kernel(attrs, meta, inv, atlas, ambient_rgb, sun_power,
             ctypes.c_int(int(pot)), ctypes.c_int(BLENDS.index(blend) + 1 if blend else 0),
             ctypes.c_int(int(fp16)), _stream(dev))
     fused_counter.launches += 1
+    if textured and trilinear:
+        trilinear_counter.launches += 1
     return out
 
 

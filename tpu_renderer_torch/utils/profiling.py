@@ -10,9 +10,11 @@ std::chrono counters + ImGui stats HUD (vk_engine.cpp:1164-1200, 1358-1359,
   they run in every replay and in every pass of the peel loop's WHILE node,
   where torch.profiler sees nothing. ``Trace.summary()`` reads the log by
   frame.
+  The summary also lists the launches of the counters in LAUNCH_COUNTERS
+  over the block (kernel 2.12's, and those of its two-tap instance).
 * ``setup_step`` / ``setup_record``: the set-up record, always on: the
-  steps that run once (Engine.init, the kernel library, a frame graph's
-  first frame and capture).
+  steps that run once (Engine.init, with the scene's sampler statics, the
+  kernel library, a frame graph's first frame and capture).
 * ``device_trace`` wraps torch.profiler for per-kernel device timing (the
   analog of GPU timestamp queries, which the reference does not have) and
   writes the span log beside it (spans.json).
@@ -29,6 +31,7 @@ import collections
 import contextlib
 import ctypes
 import functools
+import importlib
 import json
 import os
 import time
@@ -41,6 +44,10 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 HOST_PREFIX = "tpu_renderer_torch:"   # a host span's name in torch.profiler's trace
 CALIBRATION_PAIRS = 20                # stamp-and-synchronise pairs at each end of a trace
 TIMER_STEP_READS = 1 << 16            # global-timer reads that find its smallest step
+# the launch counters a trace's summary lists: name -> (module under
+# tpu_renderer_torch.kernels, counter)
+LAUNCH_COUNTERS = {"shade.fused": ("shade", "fused_counter"),
+                   "shade.trilinear": ("shade", "trilinear_counter")}
 
 # The open tracing() block's Trace, or None: the one test a span pays when
 # tracing is off.
@@ -186,6 +193,8 @@ class Trace:
         self.calibration: list = []
         self.stamps = None
         self.device_dropped = 0
+        self._launches0 = _launch_totals()   # LAUNCH_COUNTERS at the block's start
+        self.launches = None                # over the block, once closed
 
     def log_on(self, device) -> _DeviceLog:
         """The log of `device`, the block's one device: at its first use,
@@ -212,6 +221,7 @@ class Trace:
         return self.log
 
     def close(self) -> None:
+        self.launches = {k: n - self._launches0[k] for k, n in _launch_totals().items()}
         if self.log is None:   # nothing stamped
             self.stamps = []
             return
@@ -264,9 +274,11 @@ class Trace:
         count; the device gaps between consecutive traced frames, longest
         first, each named by the innermost host span running at its start;
         the entries dropped past the capacity, device and host; the
-        calibration's spread (the larger round trip of the tightest pair at
-        either end, us), the clocks' drift across the trace (us) and the
-        global timer's step (ns)."""
+        launches of LAUNCH_COUNTERS over the block (graph replays and the
+        card-counted peel loop included); the calibration's spread (the
+        larger round trip of the tightest pair at either end, us), the
+        clocks' drift across the trace (us) and the global timer's step
+        (ns)."""
         dev = self.device_spans()
         kids, shaded = _child_ms(dev), {s[3] for s in dev if s[0] == "shade"}
         frames: dict = {}
@@ -306,6 +318,7 @@ class Trace:
             calibration_us, drift_us = max(rt0, rt1) / 1e3, ((h1 - h0) - (g1 - g0)) / 1e3
         return dict(frames=traced, host=host, gaps=gaps,
                     dropped=self.device_dropped + self.host_dropped,
+                    launches=dict(self.launches),
                     calibration_us=calibration_us, clock_drift_us=drift_us,
                     timer_step_ns=self.timer_step_ns)
 
@@ -325,6 +338,14 @@ class Trace:
                     device=[dict(zip(keys + ("instance",), s)) for s in self.device_spans()],
                     setup=setup_record(), summary=self.summary(),
                     unix_minus_perf_ns=time.time_ns() - time.perf_counter_ns())
+
+
+def _launch_totals() -> dict:
+    """Each counter of LAUNCH_COUNTERS' launches so far (a sync a device
+    tally)."""
+    return {name: getattr(importlib.import_module(f"tpu_renderer_torch.kernels.{mod}"),
+                          counter).total()
+            for name, (mod, counter) in LAUNCH_COUNTERS.items()}
 
 
 def _child_ms(spans) -> list:
