@@ -15,12 +15,13 @@ long plain-version loops:
    the same sources);
 3. the bench frame (the demo scene at grid=64, 1920x1080, camera
    (0, 6, 128), pitch -0.18): renders it once and, on the inputs the frame
-   gave kernels 2.1, 2.2 and 2.12 (the opaque pass's shading and its
-   composite), holds each kernel against its plain PyTorch version (exact
-   on every output) and times both with CUDA events; then resets the
-   launch counters, renders 1 + 20 frames through Engine(device="cuda")
-   and fails unless the three kernels were launched; the same frame
-   rendered through the plain versions must be identical;
+   gave kernels 2.1, 2.2, 2.12 (the opaque pass's shading and its
+   composite) and 2.13 (the triangle setup, opaque ++ transparent), holds
+   each kernel against its plain PyTorch version (exact on every output)
+   and times both with CUDA events; then resets the launch counters,
+   renders 1 + 20 frames through Engine(device="cuda") and fails unless
+   the four kernels were launched; the same frame rendered through the
+   plain versions must be identical;
 3b. the stress frame (grid 128, the bench's stress variant): 2.1 and 2.2
    on its captured inputs against their plain versions, timed;
 3c. the adversarial rows of tpu_renderer_torch/utils/hazards.py (equal-z
@@ -270,6 +271,11 @@ KERNELS = {
     "shade_fused_kernel": ("shade", "shade_fused_plain", "fused_counter",
                            "tpu_renderer_torch/kernels/csrc/shade.cu",
                            "tpu_renderer/kernels/shade.py:296"),
+    # no Pallas kernel: the JAX package's triangle_setup_rows is jnp, which
+    # XLA fuses
+    "triangle_setup_rows_kernel": ("vertex", "triangle_setup_rows_plain", "setup_counter",
+                                   "tpu_renderer_torch/kernels/csrc/setup.cu",
+                                   "tpu_renderer/kernels/vertex.py:292"),
 }
 # kernel 2.12's two-tap instance, counted apart from the kernel (read_counters)
 TWO_TAP = "shade_fused_kernel.two_tap"
@@ -737,14 +743,63 @@ def check_shade(calls, label):
                 pixels_shaded=hit, label=label)
 
 
+def setup_bound(args):
+    """(bound_ms, bytes) of a kernel 2.13 call: the bytes at the HBM rate.
+    Read once: a triangle's 160 B of corners (CornerData), its draw id and
+    flag, each draw's transform and visibility, viewproj and the sun;
+    written once: its 192 B fat row, 16 B box and 1 B flag."""
+    corners, draw_model = args[0], args[3]
+    n_tris, n_draws = corners.pos.shape[0], draw_model.shape[0]
+    nbytes = n_tris * (160 + 4 + 1 + 192 + 16 + 1) + n_draws * (64 + 1) + 64 + 12
+    return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def check_setup(args, kwargs, label):
+    """Kernel 2.13 against its plain version on a captured call, then timed
+    as check_shade times 2.12. Returns its JSON entry."""
+    import torch
+
+    from tpu_renderer_torch.kernels import vertex
+    from tpu_renderer_torch.utils.timing import device_ms, event_ms, host_ms
+
+    name = "triangle_setup_rows_kernel"
+    _, _, _, source, replaces = KERNELS[name]
+    got = vertex.triangle_setup_rows_kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = vertex.triangle_setup_rows_plain(*args, **kwargs)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max_abs_err(got, want)
+    fn = lambda: vertex.triangle_setup_rows_kernel(*args, **kwargs)  # noqa: E731
+    ms = event_ms(fn, runs=20)
+    device = device_ms(fn)
+    host = host_ms(fn)
+    bound_ms, nbytes = setup_bound(args)
+    n = args[0].pos.shape[0]
+    live = int(got[2].sum())
+    print(f"[kernel] {name} ({label}): {n} triangles ({live} live), exact vs plain "
+          f"(max_abs_err {err}); {ms:.4f} ms (median of 20), device {device:.4f} ms (a graph "
+          f"of 50), host {host:.4f} ms a call, plain {plain_ms:.2f} ms (one call), bound "
+          f"{bound_ms:.4f} ms by bytes ({nbytes} B; {bound_ms / device:.1%} of the device "
+          f"time)", flush=True)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, device_ms=device, host_ms=host,
+                triangles=n, live=live, label=label)
+
+
 def bench_path(eng, results, inputs):
-    """Phase 3: the bench frame (kernels 2.1, 2.2 and 2.12, the opaque
-    shade). inputs keeps 2.1's and 2.2's calls, and 2.2's as 2.7 takes it,
-    for phases 5b and 11."""
+    """Phase 3: the bench frame (kernels 2.1, 2.2, 2.12, the opaque shade,
+    and 2.13, the setup). inputs keeps 2.1's and 2.2's calls, and 2.2's as
+    2.7 takes it, for phases 5b and 11."""
     from tpu_renderer_torch.tools.time_stream_kernels import oracle_call
 
     raster_names = ("raster_fused_kernel", "raster_accum_kernel")
-    names = (*raster_names, "shade_fused_kernel")
+    setup_name = "triangle_setup_rows_kernel"
+    names = (*raster_names, "shade_fused_kernel", setup_name)
     seen = capture_kernel_inputs(eng.draw_device, names)
     for n in raster_names:
         results[n] = check_kernel(n, [(0, seen[n][-1])], "bench frame")
@@ -752,6 +807,9 @@ def bench_path(eng, results, inputs):
     assert len(seen["shade_fused_kernel"]) == 1, "one shade launch a bench frame"
     results["shade_fused_kernel"] = check_shade([(0, seen["shade_fused_kernel"][0])],
                                                 "bench frame, opaque planes")
+    assert len(seen[setup_name]) == 1, "one setup launch a bench frame"
+    results[setup_name] = check_setup(*seen[setup_name][0],
+                                      "bench frame, opaque ++ transparent")
     inputs["raster_accum_gathered_kernel"] = oracle_call(inputs["raster_accum_kernel"])
     frame_ms, image, _, _, launches = counted_frames(eng, 20, "bench frame", names)
     assert np.array_equal(image, plain_frame(eng, names)), "kernel frame differs from plain frame"

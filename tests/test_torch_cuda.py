@@ -1669,7 +1669,8 @@ def test_graphed_frame_counts_the_two_tap_instance(cuda, tmp_path, kind, triline
     samplers are LINEAR_MIPMAP_LINEAR, and never on a single-tap scene:
     once a frame on the fused path with untextured glass, 1 + layers with
     the textured glass's peel (counted on the card in the WHILE body); a
-    traced block's summary lists the same counts."""
+    traced block's summary lists the same counts, and kernel 2.13's one
+    launch a frame."""
     from tpu_renderer_torch.kernels import shade
     from tpu_renderer_torch.utils import profiling
     from tpu_renderer_torch.utils.demo import build_demo_glb
@@ -1691,7 +1692,8 @@ def test_graphed_frame_counts_the_two_tap_instance(cuda, tmp_path, kind, triline
     per_frame = 1 + (layers if kind == "textured-glass" else 0)
     assert kind == "bench" or layers >= 1
     want = {"shade.fused": frames * per_frame,
-            "shade.trilinear": frames * per_frame if trilinear else 0}
+            "shade.trilinear": frames * per_frame if trilinear else 0,
+            "vertex.setup": frames}
     assert len(trace.summary()["frames"]) == frames
     assert trace.summary()["launches"] == want
     for _ in range(frames):

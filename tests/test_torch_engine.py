@@ -369,11 +369,15 @@ def test_shipped_cost_model_is_launch_bound():
     host's launch rate no longer bounds): no negative term, and a fixed term
     below a 60 fps budget, so that target picks, at every extent, the
     largest scale the model predicts under budget: since the fused path's
-    shading is one kernel (2.12), the native extent for two-tap content at
-    1080p and at 2160p, both predicted under budget."""
+    shading and setup are one kernel each (2.12, 2.13), the native extent
+    for two-tap content at 1080p and at 2160p, both predicted under budget,
+    and at 1080p a 120 fps target too (4.06 ms predicted)."""
     assert min(getattr(Engine, name) for name in COST) >= 0.0
     budget = Engine._COST_MARGIN * 1000.0 / 60.0
     assert Engine._COST_FIXED_MS < budget
+    eng = Engine(RendererConfig(width=1920, height=1080, target_fps=120.0), device="cpu")
+    eng._scene_taps = lambda: 2
+    assert eng._pick_auto_scale() == 1.0
     for w, h in AUTO_EXTENTS:
         eng = Engine(RendererConfig(width=w, height=h, target_fps=60.0), device="cpu")
         eng._scene_taps = lambda: 2

@@ -389,12 +389,13 @@ def test_smoke_split_line_of_the_triangle_peels(name):
 
 
 def test_smoke_kernel_table_names_what_exists():
-    """chip_smoke's KERNELS: twelve kernels, each with its launcher, plain
+    """chip_smoke's KERNELS: thirteen kernels, each with its launcher, plain
     version and counter in the port, its source in the checkout, and the
     line of what it replaces in the JAX package: a Pallas kernel for 2.1-2.11,
-    the jnp shade_fused for 2.12 (the JAX package shades without one)."""
+    the jnp shade_fused for 2.12 (the JAX package shades without one) and
+    the jnp triangle_setup_rows for 2.13 (nor sets up with one)."""
     smoke = _chip_smoke()
-    assert len(smoke.KERNELS) == 12
+    assert len(smoke.KERNELS) == 13
     for name, (_, plain, counter, source, replaces) in smoke.KERNELS.items():
         mod = smoke.kernel_module(name)
         assert callable(getattr(mod, name)) and callable(getattr(mod, plain)), name
@@ -405,6 +406,8 @@ def test_smoke_kernel_table_names_what_exists():
         src = open(os.path.join(ROOT, path)).read().splitlines()[int(line) - 1]
         if name == "shade_fused_kernel":
             assert src.startswith("def shade_fused("), (name, src)
+        elif name == "triangle_setup_rows_kernel":
+            assert src.startswith("def triangle_setup_rows("), (name, src)
         else:
             assert src.startswith("def _") and "kernel" in src or "_loop(" in src, (name, src)
 
@@ -423,6 +426,23 @@ def test_time_background_lerp_computes_the_gradient():
     a, b, t = time_background.lerp_operands(d1, d2, 270, wp, hp)
     want = background.gradient_plain(d1, d2, height=270, width_pad=wp, height_pad=hp)
     assert float((torch.lerp(a, b, t) - want).abs().max()) < 1e-6
+
+
+def test_smoke_setup_bound_counts_the_corners_and_the_rows():
+    """2.13's bound: each triangle's 160 B of corners, its draw id and flag
+    read once, its 192 B fat row, 16 B box and 1 B flag written once, each
+    draw's transform and visibility, viewproj and the sun read once, at the
+    HBM rate; bytes bound it (grid 64's 46,250 triangles: ~17 MB)."""
+    from test_torch_setup import setup_inputs
+
+    smoke = _chip_smoke()
+    args = setup_inputs("cpu")
+    ms, nbytes = smoke.setup_bound(args)
+    T, D = args[0].pos.shape[0], args[3].shape[0]
+    assert nbytes == T * (160 + 5 + 209) + D * 65 + 76
+    assert sum(t[0].numel() * t.element_size() for t in args[0]) == 160
+    assert ms == pytest.approx(nbytes / smoke.PEAK_BYTES * 1e3)
+    assert 17.2e6 < 46250 * 374 < 17.4e6
 
 
 @pytest.mark.parametrize("name", ["background_gradient_kernel", "background_sky_kernel",

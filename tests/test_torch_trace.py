@@ -209,24 +209,28 @@ def test_the_set_up_record_names_init_and_its_steps(glb):
 
 def test_the_summary_lists_the_launches_of_kernel_2_12(glb, monkeypatch):
     """The summary counts LAUNCH_COUNTERS over its block: on the CPU the
-    frame shades in the plain version (no launch); what the counters add
-    inside the block is its, what they add after it is not."""
-    from tpu_renderer_torch.kernels import shade
+    frame sets up and shades in the plain versions (no launch); what the
+    counters add inside the block is its, what they add after it is not."""
+    from tpu_renderer_torch.kernels import shade, vertex
 
-    for counter in (shade.fused_counter, shade.trilinear_counter):
+    for counter in (shade.fused_counter, shade.trilinear_counter, vertex.setup_counter):
         monkeypatch.setattr(counter, "launches", counter.launches)
     eng = _engine(glb, "peel")
     eng.draw()
     with profiling.tracing() as trace:
         eng.draw()
-    assert trace.summary()["launches"] == {"shade.fused": 0, "shade.trilinear": 0}
+    assert trace.summary()["launches"] == {"shade.fused": 0, "shade.trilinear": 0,
+                                           "vertex.setup": 0}
     with profiling.tracing() as trace:
         eng.draw()
         shade.fused_counter.launches += 3
         shade.trilinear_counter.launches += 2
+        vertex.setup_counter.launches += 1
     shade.fused_counter.launches += 5
-    assert set(profiling.LAUNCH_COUNTERS) == {"shade.fused", "shade.trilinear"}
-    assert trace.summary()["launches"] == {"shade.fused": 3, "shade.trilinear": 2}
+    vertex.setup_counter.launches += 4
+    assert set(profiling.LAUNCH_COUNTERS) == {"shade.fused", "shade.trilinear", "vertex.setup"}
+    assert trace.summary()["launches"] == {"shade.fused": 3, "shade.trilinear": 2,
+                                           "vertex.setup": 1}
     assert json.loads(json.dumps(trace.to_json()))["summary"]["launches"]["shade.fused"] == 3
 
 

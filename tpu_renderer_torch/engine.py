@@ -248,9 +248,9 @@ class Engine:
     #   _COST_BLIT_MS:  the linear upscale blit, timed alone
     # _COST_MARGIN keeps the pick under budget through frame-to-frame
     # variance.
-    _COST_BASE_NS = 0.681
+    _COST_BASE_NS = 0.666
     _COST_TAP_NS = 0.005
-    _COST_FIXED_MS = 6.32
+    _COST_FIXED_MS = 2.66
     _COST_BLIT_MS = 0.28
     _COST_MARGIN = 0.97
 

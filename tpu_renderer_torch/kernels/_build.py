@@ -1,6 +1,6 @@
 """Build and load the CUDA kernels (csrc/*.cu: the raster passes, the
-background passes, the fused path's shading, the conditional nodes of a
-captured frame, and the trace's stamps).
+background passes, the fused path's triangle setup and shading, the
+conditional nodes of a captured frame, and the trace's stamps).
 
 The sources are compiled with nvcc for sm_90a, one nvcc process per source,
 all started together, and linked into one shared library with a plain C
@@ -259,6 +259,12 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         # trilinear, pot, blend, fp16, stream
         lib.shade_fused_launch.argtypes = [p, p, p, p, i, i, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.shade_fused_launch.restype = i
+        # kernel 2.13 (csrc/setup.cu): pos, nrm, col, uv, mat, meta6,
+        # tri_draw, tri_valid, draw_model, draw_visible, n_draws, viewproj,
+        # sun, triangles, width, height, rows, aabb, valid, stream
+        lib.triangle_setup_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, p, i, i, i,
+                                              p, p, p, p]
+        lib.triangle_setup_launch.restype = i
         # the conditional nodes of a captured frame (csrc/conditional.cu)
         lib.graph_conditional_begin.argtypes = [p, p, i, p,
                                                 ctypes.POINTER(ctypes.c_ulonglong)]

@@ -1,5 +1,6 @@
 """Vertex stage + triangle setup (mesh.vert plus the fixed-function primitive
-assembly), in plain PyTorch. The math is the JAX package's
+assembly), in plain PyTorch, and on the card the fused path's setup as
+kernel 2.13. The math is the JAX package's
 (tpu_renderer/kernels/vertex.py) operation for operation, so the 48-column
 fat rows agree with it:
 
@@ -15,16 +16,29 @@ reference's jitted frame on the CPU (measured): the 4x4 products summed
 pairwise, and the multiply-adds contracted into fused multiply-adds
 (kernels.common.fma), x0*y0 + x1*y1 + x2*y2 as fma(x2, y2, fma(x0, y0,
 x1*y1)). So the rounding of every value is fixed, on every device.
+
+triangle_setup_rows on CUDA tensors launches kernel 2.13 (csrc/setup.cu:
+the same operations in one loop, bit for bit the plain version,
+triangle_setup_rows_plain, which CPU tensors take). The cull
+(draw_visibility) and the deferred path's setup (triangle_setup_c) are plain
+PyTorch on every device.
 """
 
 from __future__ import annotations
 
+import ctypes
+import numbers
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpu_renderer_torch.kernels.common import dot3_seq, fma
+from tpu_renderer_torch.kernels.raster import _Counter, _launch, _ptr, _stream
+from tpu_renderer_torch.utils.profiling import checked
+
+# kernel 2.13's launches (triangle_setup_rows_kernel)
+setup_counter = _Counter()
 
 
 class CornerData(NamedTuple):
@@ -260,12 +274,12 @@ def triangle_setup(positions, normals, colors, uvs, tri_vidx, tri_draw,
         draw_visible, viewproj, width, height, sun_dir=sun_dir)
 
 
-def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
-                        draw_visible, viewproj, width: int, height: int,
-                        sun_dir=None):
-    """Per-frame mesh.vert + primitive setup over corner-expanded geometry.
-    Returns (rows (T, 48) f32 in the fat-row layout of shade.py, aabb (T, 4)
-    f32 screen boxes, valid (T,) bool)."""
+def triangle_setup_rows_plain(corners: CornerData, tri_draw, tri_valid, draw_model,
+                              draw_visible, viewproj, width: int, height: int,
+                              sun_dir=None):
+    """Plain PyTorch version of triangle_setup_rows_kernel
+    (triangle_setup_rows' contract): the JAX package's triangle_setup_rows
+    op for op."""
     p, zc, lv = _homogeneous(corners, tri_draw, draw_model, draw_visible,
                              viewproj, width, height, sun_dir)
     e0 = _cross(p[1], p[2])
@@ -314,3 +328,90 @@ def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
     rows = torch.stack(planes, dim=1).contiguous()           # (T, 48)
     aabb = torch.stack(ab, dim=1).contiguous()               # (T, 4)
     return rows, aabb, good
+
+
+_SETUP_SHAPES = (("pos", (3, 3), torch.float32), ("nrm", (3, 3), torch.float32),
+                 ("col", (3, 3), torch.float32), ("uv", (3, 2), torch.float32),
+                 ("mat", (), torch.int32), ("meta6", (6,), torch.float32))
+
+
+def _check_setup(corners, tri_draw, tri_valid, draw_model, draw_visible, viewproj, width,
+                 height, sun_dir):
+    """triangle_setup_rows_kernel's arguments: (T, D), or ValueError. The
+    device is checked last, so each other refusal shows on the CPU too."""
+    if not isinstance(corners, CornerData) or not isinstance(corners.pos, torch.Tensor):
+        raise ValueError(f"corners must be CornerData of tensors, got {type(corners).__name__}")
+    dev = corners.pos.device
+    T = corners.pos.shape[0] if corners.pos.dim() else -1
+    D = draw_model.shape[0] if isinstance(draw_model, torch.Tensor) and draw_model.dim() else -1
+    expect = [(f"corners.{name}", getattr(corners, name), (T, *tail), dtype)
+              for name, tail, dtype in _SETUP_SHAPES]
+    expect += [("tri_draw", tri_draw, (T,), torch.int32),
+               ("tri_valid", tri_valid, (T,), torch.bool),
+               ("draw_model", draw_model, (D, 4, 4), torch.float32),
+               ("draw_visible", draw_visible, (D,), torch.bool),
+               ("viewproj", viewproj, (4, 4), torch.float32)]
+    if sun_dir is not None:
+        expect.append(("sun_dir", sun_dir, (3,), torch.float32))
+    for name, t, shape, dtype in expect:
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{name} must be a tensor on {dev}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, v in (("width", width), ("height", height)):
+        if not isinstance(v, numbers.Integral) or not 0 < v < 2 ** 24:
+            raise ValueError(f"{name} must be an integer in [1, 2^24), got {v!r}")
+    if T >= 2 ** 31 // 48:
+        raise ValueError(f"triangle_setup_rows_kernel takes fewer than {2 ** 31 // 48} "
+                         f"triangles, got {T}")
+    if T and D < 1:
+        raise ValueError("triangles need at least one draw")
+    if dev.type != "cuda":
+        raise ValueError(f"triangle_setup_rows_kernel takes CUDA tensors, got {dev}")
+    return T, D
+
+
+@checked
+def triangle_setup_rows_kernel(corners: CornerData, tri_draw, tri_valid, draw_model,
+                               draw_visible, viewproj, width: int, height: int,
+                               sun_dir=None):
+    """Launch kernel 2.13 (csrc/setup.cu) on CUDA tensors: what
+    triangle_setup_rows_plain returns, bit for bit, in one launch on the
+    current stream with no wait on the device. Every argument is checked
+    here, before the library is built or loaded: CUDA tensors on one device,
+    contiguous, of CornerData's dtypes and shapes; tri_draw (T,) int32,
+    tri_valid (T,) bool, draw_model (D, 4, 4) and viewproj (4, 4) float32,
+    draw_visible (D,) bool, sun_dir (3,) float32 or None; width and height
+    integers."""
+    T, D = _check_setup(corners, tri_draw, tri_valid, draw_model, draw_visible, viewproj,
+                        width, height, sun_dir)
+    dev = corners.pos.device
+    rows = torch.empty((T, 48), dtype=torch.float32, device=dev)
+    aabb = torch.empty((T, 4), dtype=torch.float32, device=dev)
+    valid = torch.empty((T,), dtype=torch.bool, device=dev)
+    if T == 0:
+        return rows, aabb, valid
+    _launch("triangle_setup_launch", _ptr(corners.pos), _ptr(corners.nrm), _ptr(corners.col),
+            _ptr(corners.uv), _ptr(corners.mat), _ptr(corners.meta6), _ptr(tri_draw),
+            _ptr(tri_valid), _ptr(draw_model), _ptr(draw_visible), ctypes.c_int(D),
+            _ptr(viewproj), _ptr(sun_dir) if sun_dir is not None else None, ctypes.c_int(T),
+            ctypes.c_int(width), ctypes.c_int(height), _ptr(rows), _ptr(aabb), _ptr(valid),
+            _stream(dev))
+    setup_counter.launches += 1
+    return rows, aabb, valid
+
+
+def triangle_setup_rows(corners: CornerData, tri_draw, tri_valid, draw_model,
+                        draw_visible, viewproj, width: int, height: int,
+                        sun_dir=None):
+    """Per-frame mesh.vert + primitive setup over corner-expanded geometry.
+    Returns (rows (T, 48) f32 in the fat-row layout of shade.py, aabb (T, 4)
+    f32 screen boxes, valid (T,) bool). CPU tensors take the plain version,
+    CUDA tensors kernel 2.13 (whose wrapper checks the arguments)."""
+    if corners.pos.device.type == "cuda":
+        return triangle_setup_rows_kernel(corners, tri_draw, tri_valid, draw_model,
+                                          draw_visible, viewproj, width, height, sun_dir)
+    return triangle_setup_rows_plain(corners, tri_draw, tri_valid, draw_model, draw_visible,
+                                     viewproj, width, height, sun_dir)

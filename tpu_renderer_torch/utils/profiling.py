@@ -11,7 +11,8 @@ std::chrono counters + ImGui stats HUD (vk_engine.cpp:1164-1200, 1358-1359,
   where torch.profiler sees nothing. ``Trace.summary()`` reads the log by
   frame.
   The summary also lists the launches of the counters in LAUNCH_COUNTERS
-  over the block (kernel 2.12's, and those of its two-tap instance).
+  over the block (kernel 2.12's, those of its two-tap instance, and
+  kernel 2.13's).
 * ``setup_step`` / ``setup_record``: the set-up record, always on: the
   steps that run once (Engine.init, with the scene's sampler statics, the
   kernel library, a frame graph's first frame and capture).
@@ -47,7 +48,8 @@ TIMER_STEP_READS = 1 << 16            # global-timer reads that find its smalles
 # the launch counters a trace's summary lists: name -> (module under
 # tpu_renderer_torch.kernels, counter)
 LAUNCH_COUNTERS = {"shade.fused": ("shade", "fused_counter"),
-                   "shade.trilinear": ("shade", "trilinear_counter")}
+                   "shade.trilinear": ("shade", "trilinear_counter"),
+                   "vertex.setup": ("vertex", "setup_counter")}
 
 # The open tracing() block's Trace, or None: the one test a span pays when
 # tracing is off.
